@@ -1,0 +1,65 @@
+"""Vector-join operator configs (port of ``repro.configs.vectorjoin``).
+
+``PRESETS`` name the paper's §5.1.2 methods; ``EngineSpec`` is how a
+deployment instantiates ``JoinEngine`` (the ``default`` and ``ci``
+presets: one device, quant off — the sharded, serving and quantized
+specs arrive with their slices).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.core.types import JoinConfig
+
+# paper §5.1.2 method presets (ES patience 10, L=256 defaults of [38])
+PRESETS = {
+    "nlj": JoinConfig(method="nlj"),
+    "index": JoinConfig(method="index"),
+    "es": JoinConfig(method="es"),
+    "es_hws": JoinConfig(method="es_hws"),          # == SIMJOIN
+    "es_sws": JoinConfig(method="es_sws"),
+    "es_mi": JoinConfig(method="es_mi"),
+    "es_mi_adapt": JoinConfig(method="es_mi_adapt"),
+}
+
+
+def preset(name: str, *, theta: float, **tcfg_kw) -> JoinConfig:
+    cfg = PRESETS[name]
+    tr = dataclasses.replace(cfg.traversal, **tcfg_kw) if tcfg_kw \
+        else cfg.traversal
+    return dataclasses.replace(cfg, theta=theta, traversal=tr)
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineSpec:
+    """Constructor recipe for a ``repro_torch.engine.JoinEngine``."""
+    k: int = 48                    # kNN candidates per node at build time
+    degree: int = 32               # index max out-degree R
+    style: str = "nsg"
+    max_cached_indexes: int = 4    # per-X artifact LRU capacity
+
+    def build_kw(self) -> dict:
+        return dict(k=self.k, degree=self.degree, style=self.style)
+
+
+ENGINE_PRESETS = {
+    # single-device defaults matching the paper's offline build
+    "default": EngineSpec(),
+    # CI-scale: smaller graphs, fast builds
+    "ci": EngineSpec(k=32, degree=24),
+}
+
+
+def make_engine(Y, spec: str | EngineSpec = "default", *,
+                default: JoinConfig | None = None, device=None, **overrides):
+    """Instantiate a ``JoinEngine`` from a named (or explicit) spec;
+    ``device=None`` means the CUDA card."""
+    from repro_torch.engine import JoinEngine
+
+    if isinstance(spec, str):
+        spec = ENGINE_PRESETS[spec]
+    if overrides:
+        spec = dataclasses.replace(spec, **overrides)
+    return JoinEngine(Y, build_kw=spec.build_kw(), default=default,
+                      max_cached_indexes=spec.max_cached_indexes,
+                      device=device)

@@ -1,0 +1,299 @@
+"""Batched graph traversal (paper Alg. 2 & 4), in PyTorch.
+
+Port of ``repro.core.traversal`` for the merged-index path: candidate
+probing with the per-lane visited bitmap and in-batch dedup, and
+``range_expand`` (BFS, or the hybrid BBFS for OOD queries). The greedy
+search of the search-path methods arrives with ROADMAP Queue A slice 5.
+
+How the JAX primitives map here (each choice keeps the reference's exact
+traversal order, so ``n_dist`` and ``n_iters`` match it):
+
+  * ``lax.while_loop`` → a host-stepped loop of eager tensor ops with one
+    ``bool(done.all())`` device→host sync per iteration;
+  * ``lax.top_k`` (ties to the lower index) → a stable descending sort;
+    ``jnp.argsort`` (stable) → ``torch.sort(..., stable=True)``;
+  * the uint32 visited bitmap → int32 words with the same bit layout
+    (bit 31 is the sign); ``scatter_add_`` of distinct bits equals OR and
+    never overflows;
+  * ``.at[].set`` with an overflow sink column → ``scatter`` into the
+    same sink, which is reset after every scatter;
+  * ``.at[].max`` on bool flags with repeated targets →
+    ``scatter_reduce(..., "amax")`` on int32.
+
+All distances are squared L2; thresholds are squared (in f32) on entry.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.types import NO_NODE, GraphIndex, TraversalConfig
+from repro_torch.kernels import ops
+
+_INF = float("inf")
+_SORT_PAD = 2**30
+
+
+def bitmap_words(n_nodes: int) -> int:
+    return -(-n_nodes // 32)
+
+
+def sq_theta(theta: float) -> float:
+    """θ² rounded to f32, as the reference computes ``jnp.float32(θ) ** 2``."""
+    return float(np.float32(theta) ** 2)
+
+
+def bit_of(ids: torch.Tensor) -> torch.Tensor:
+    """The int32 bitmap word bit of each node id (bit 31 is negative)."""
+    return torch.bitwise_left_shift(torch.ones_like(ids), ids & 31)
+
+
+# ---------------------------------------------------------------------------
+# probing: distances + visited-dedup for a (B, K) candidate id matrix
+# ---------------------------------------------------------------------------
+
+def _probe(vecs: torch.Tensor, x: torch.Tensor, cand: torch.Tensor,
+           valid: torch.Tensor, visited: torch.Tensor, *, n_data: int,
+           traverse_nondata: bool, dist_impl: str | None):
+    """Distances to candidate ids with dedup + visited masking.
+
+    ``visited`` (B, W) int32 is updated in place. Returns ``(dist (B,K) f32,
+    +inf at invalid; valid; visited; n_new (B,) int32)``.
+    """
+    B, K = cand.shape
+    valid = valid & (cand != NO_NODE)
+    if not traverse_nondata:
+        valid = valid & (cand < n_data)
+    cand_c = torch.where(valid, cand, 0)
+    w = (cand_c >> 5).long()
+    bit = bit_of(cand_c)
+    words = torch.gather(visited, 1, w)
+    valid = valid & ((words & bit) == 0)
+    # in-batch dedup (two expanded nodes sharing a neighbor): keep the
+    # first occurrence in slot order
+    sort_key = torch.where(valid, cand, _SORT_PAD)
+    sorted_ids, order = torch.sort(sort_key, dim=1, stable=True)
+    dup = torch.zeros_like(valid)
+    dup[:, 1:] = sorted_ids[:, 1:] == sorted_ids[:, :-1]
+    dup &= sorted_ids != _SORT_PAD
+    keep = torch.ones_like(valid).scatter(1, order, ~dup)
+    valid = valid & keep
+    # invalid slots pass NO_NODE: the kernel reads no row and returns +inf,
+    # which is the reference's masked value
+    dist = ops.gather_sq_dists(vecs, x, torch.where(valid, cand, NO_NODE),
+                               impl=dist_impl)
+    # mark visited: deduped ⇒ each (word, bit) is added once ⇒ add == or
+    visited.scatter_add_(1, w, torch.where(valid, bit, 0))
+    n_new = torch.sum(valid, dim=1, dtype=torch.int32)
+    return dist, valid, visited, n_new
+
+
+def _expand(index_vecs: torch.Tensor, index_nbrs: torch.Tensor,
+            x: torch.Tensor, sel_ids: torch.Tensor, sel_valid: torch.Tensor,
+            visited: torch.Tensor, *, n_data: int, traverse_nondata: bool,
+            dist_impl: str | None):
+    """Gather neighbor rows of selected nodes and probe them."""
+    B, E = sel_ids.shape
+    R = index_nbrs.shape[1]
+    rows = index_nbrs[sel_ids.clamp_min(0).long()]           # (B, E, R)
+    cand = rows.reshape(B, E * R)
+    valid = sel_valid[:, :, None].expand(B, E, R).reshape(B, E * R)
+    dist, valid, visited, n_new = _probe(
+        index_vecs, x, cand, valid, visited, n_data=n_data,
+        traverse_nondata=traverse_nondata, dist_impl=dist_impl)
+    return cand, dist, valid, visited, n_new
+
+
+def _take(a: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    return torch.gather(a, 1, order)
+
+
+def _beam_merge(bd, bi, bexp, cd, ci, cexp):
+    """Merge a beam with candidates, keep the L smallest (stable: ties go
+    to the beam, then to the lower slot). On the exact f32 path this is
+    also the reference's ``_hybrid_merge``: its eviction guard and the
+    upper bounds it carries serve only the quantized modes."""
+    L = bd.shape[1]
+    alld = torch.cat([bd, cd], dim=1)
+    order = torch.sort(alld, dim=1, stable=True)[1][:, :L]
+    return (_take(alld, order), _take(torch.cat([bi, ci], dim=1), order),
+            _take(torch.cat([bexp, cexp], dim=1), order))
+
+
+def _mark(flags: torch.Tensor, pos: torch.Tensor, m: torch.Tensor
+          ) -> torch.Tensor:
+    """``flags.at[lane, pos].max(m)``: set flags[b, pos[b, j]] where m."""
+    return flags.to(torch.int32).scatter_reduce(
+        1, pos, m.to(torch.int32), "amax").bool()
+
+
+# ---------------------------------------------------------------------------
+# range expansion — BFS (Alg. 2 lines 29–42) / hybrid BBFS (Alg. 4)
+# ---------------------------------------------------------------------------
+
+class ExpandResult(NamedTuple):
+    pool_idx: torch.Tensor     # (B, C) in-range data node ids (NO_NODE padded)
+    pool_dist: torch.Tensor    # (B, C)
+    n_pool: torch.Tensor       # (B,)
+    overflow: torch.Tensor     # (B,) in-range hits beyond pool capacity
+    best_dist: torch.Tensor    # (B,) closest node seen overall
+    best_idx: torch.Tensor     # (B,)
+    n_dist: torch.Tensor       # (B,)
+    n_iters: int               # loop iterations (host-stepped, exact)
+    visited: torch.Tensor      # (B, W)
+
+
+def range_expand(index: GraphIndex, x: torch.Tensor, theta: float, *,
+                 cfg: TraversalConfig, n_data: int, hybrid: bool,
+                 traverse_nondata: bool, init_idx: torch.Tensor,
+                 init_dist: torch.Tensor, init_valid: torch.Tensor,
+                 visited: torch.Tensor, best_dist: torch.Tensor,
+                 best_idx: torch.Tensor, n_dist: torch.Tensor
+                 ) -> ExpandResult:
+    """Enumerate all reachable in-range data points from initial candidates.
+
+    ``init_*`` (B, K0) are already-visited candidates with known distances
+    (for the merged index, the probed neighbor row). In-range data entries
+    seed the result pool; the rest seed the hybrid out-range beam (BBFS
+    only — plain BFS drops them). ``visited`` is updated in place.
+    """
+    vecs, nbrs = index.vecs, index.nbrs
+    dev = x.device
+    B, K0 = init_idx.shape
+    C, Lh, E = cfg.pool_cap, cfg.hybrid_beam, cfg.expand_per_iter
+    th2 = sq_theta(theta)
+    use_hb = hybrid and Lh > 0
+
+    is_data = (init_idx >= 0) & (init_idx < n_data)
+    inr = init_valid & is_data & (init_dist < th2)
+
+    # --- scatter in-range entries into the pool (slot C = overflow sink) ---
+    pool_idx = torch.full((B, C + 1), NO_NODE, dtype=torch.int32, device=dev)
+    pool_dist = torch.full((B, C + 1), _INF, device=dev)
+    pos = torch.cumsum(inr, dim=1) - 1
+    pos = torch.where(inr, pos.clamp_max(C), C)
+    pool_idx.scatter_(1, pos, torch.where(inr, init_idx, NO_NODE))
+    pool_dist.scatter_(1, pos, torch.where(inr, init_dist, _INF))
+    pool_idx[:, C] = NO_NODE
+    pool_dist[:, C] = _INF
+    n_inr = torch.sum(inr, dim=1, dtype=torch.int32)
+    n_pool = n_inr.clamp_max(C)
+    overflow = (n_inr - C).clamp_min(0)
+
+    # --- hybrid beam init: out-range / non-data initial candidates ---
+    L1 = max(Lh, 1)
+    hb_dist = torch.full((B, L1), _INF, device=dev)
+    hb_idx = torch.full((B, L1), NO_NODE, dtype=torch.int32, device=dev)
+    hb_exp = torch.zeros((B, L1), dtype=torch.bool, device=dev)
+    if use_hb:
+        outr = init_valid & ~inr
+        hb_dist, hb_idx, hb_exp = _beam_merge(
+            hb_dist, hb_idx, hb_exp,
+            torch.where(outr, init_dist, _INF),
+            torch.where(outr, init_idx, NO_NODE), torch.zeros_like(outr))
+
+    pool_exp = torch.zeros((B, C + 1), dtype=torch.bool, device=dev)
+    pool_exp[:, C] = True
+    qmax_prev = torch.full((B,), _INF, device=dev)
+    stall = torch.zeros((B,), dtype=torch.int32, device=dev)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    n_iters = 0
+
+    # host-stepped while loop: one device→host sync per iteration
+    while n_iters < cfg.max_iters and not bool(done.all()):
+        active = ~done
+        # --- select up to E unexpanded entries: pool (in-range) first ---
+        # 2e30 − d rounds to 2e30 in f32, so every unexpanded pool entry
+        # ties and selection goes lowest slot first (BFS in pool order)
+        pkey = torch.where((~pool_exp) & (pool_idx != NO_NODE),
+                           2e30 - pool_dist, -_INF)
+        if use_hb:
+            hkey = torch.where((~hb_exp) & (hb_idx != NO_NODE)
+                               & torch.isfinite(hb_dist), -hb_dist, -_INF)
+            key = torch.cat([pkey, hkey], dim=1)
+        else:
+            key = pkey
+        selk, selpos = torch.sort(key, dim=1, descending=True, stable=True)
+        selk, selpos = selk[:, :E], selpos[:, :E]
+        sel_valid = (selk > -_INF) & active[:, None]
+        from_pool = selpos < (C + 1)
+        pool_pos = torch.where(from_pool, selpos, 0)
+        hb_pos = torch.where(from_pool, 0, selpos - (C + 1))
+        sel_ids = torch.where(from_pool, _take(pool_idx, pool_pos),
+                              _take(hb_idx, hb_pos))
+        pool_exp = _mark(pool_exp, pool_pos, sel_valid & from_pool)
+        if use_hb:
+            hb_exp = _mark(hb_exp, hb_pos, sel_valid & ~from_pool)
+        any_inrange_unexp = torch.any((~pool_exp) & (pool_idx != NO_NODE),
+                                      dim=1)
+        any_sel = torch.any(sel_valid, dim=1)
+        exhausted = ~any_sel & active
+
+        # inactive lanes select nothing, so their visited words and counts
+        # do not change: the update can go in place
+        cand, cd, cv, visited, n_new = _expand(
+            vecs, nbrs, x, sel_ids, sel_valid, visited, n_data=n_data,
+            traverse_nondata=traverse_nondata, dist_impl=cfg.dist_impl)
+        n_dist = n_dist + torch.where(active, n_new, 0)
+
+        cis_data = (cand >= 0) & (cand < n_data)
+        cinr = cv & cis_data & (cd < th2) & active[:, None]
+
+        # --- append in-range hits to the pool ---
+        cpos = n_pool[:, None] + torch.cumsum(cinr, dim=1) - 1
+        cpos = torch.where(cinr, cpos.clamp_max(C), C)
+        pool_idx2 = pool_idx.scatter(1, cpos, torch.where(cinr, cand, NO_NODE))
+        pool_dist2 = pool_dist.scatter(1, cpos, torch.where(cinr, cd, _INF))
+        pool_idx2[:, C] = NO_NODE
+        pool_dist2[:, C] = _INF
+        pool_exp[:, C] = True
+        n_hits = torch.sum(cinr, dim=1, dtype=torch.int32)
+        n_pool2 = (n_pool + n_hits).clamp_max(C)
+        overflow2 = (overflow + (n_pool + n_hits - C).clamp_min(0)
+                     - (n_pool - C).clamp_min(0))
+
+        # --- hybrid beam absorbs the rest (bounded, Alg. 4 lines 12–16) ---
+        if use_hb:
+            cout = cv & ~cinr & active[:, None]
+            hb_dist, hb_idx, hb_exp = _beam_merge(
+                hb_dist, hb_idx, hb_exp,
+                torch.where(cout, cd, _INF),
+                torch.where(cout, cand, NO_NODE), torch.zeros_like(cout))
+
+        # --- best-seen tracking (Alg. 2 lines 38–39) ---
+        cbest, cargmin = torch.min(cd, dim=1)
+        improved = cbest < best_dist
+        cbesti = _take(torch.where(cv, cand, NO_NODE), cargmin[:, None])[:, 0]
+        best_dist = torch.where(active & improved, cbest, best_dist)
+        best_idx = torch.where(active & improved, cbesti, best_idx)
+
+        # --- termination ---
+        if use_hb:
+            # max over *unexpanded* queue entries (Alg. 4 lines 14–16)
+            qmax = torch.max(torch.where((hb_idx != NO_NODE) & ~hb_exp,
+                                         hb_dist, -_INF), dim=1)[0]
+            no_inr = ~(any_inrange_unexp | (n_hits > 0))
+            decreased = qmax < qmax_prev
+            stall = torch.where(active,
+                                torch.where(no_inr & ~decreased, stall + 1, 0),
+                                stall)
+            done = done | exhausted | ((stall >= cfg.hybrid_patience) & no_inr)
+            qmax_prev = torch.where(active, qmax, qmax_prev)
+        else:
+            done = done | exhausted | (
+                ~(any_inrange_unexp | (n_hits > 0)) & active)
+
+        keep = active & any_sel
+        pool_idx = torch.where(keep[:, None], pool_idx2, pool_idx)
+        pool_dist = torch.where(keep[:, None], pool_dist2, pool_dist)
+        n_pool = torch.where(keep, n_pool2, n_pool)
+        overflow = torch.where(keep, overflow2, overflow)
+        n_iters += 1
+
+    return ExpandResult(
+        pool_idx=pool_idx[:, :C], pool_dist=pool_dist[:, :C],
+        n_pool=n_pool, overflow=overflow, best_dist=best_dist,
+        best_idx=best_idx, n_dist=n_dist, n_iters=n_iters,
+        visited=visited)

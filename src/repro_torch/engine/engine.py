@@ -1,0 +1,235 @@
+"""JoinEngine — a persistent join service over one data side Y (port of
+``repro.engine.engine`` for the single-device f32 path).
+
+The engine holds Y on its device, builds the merged index G_{X∪Y} once
+per query set (keyed by a content fingerprint of X, kept in a small LRU)
+and serves joins and threshold sweeps from it. ``build_counts`` shows the
+reuse.
+
+Supported here: methods ``nlj``, ``es_mi`` and ``es_mi_adapt``, quant
+``off``, one shard. Everything else raises ``NotImplementedError`` naming
+the ROADMAP slice that brings it.
+
+``device=None`` means the CUDA card; without one the constructor raises
+rather than run on the CPU (pass ``device="cpu"`` for the plain versions).
+All f32 matrix products are full IEEE f32 (TF32 off, see
+``core.types.resolve_device``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import time
+from collections import OrderedDict
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.types import (GraphIndex, JoinConfig, JoinResult,
+                                    JoinStats, resolve_device)
+from repro_torch.engine import waves as W
+from repro_torch.obs import metrics as obs_metrics
+
+_MI_METHODS = ("es_mi", "es_mi_adapt")
+_SEARCH_METHODS = ("index", "es", "es_hws", "es_sws")
+
+# ~64 KiB of content sampled per fingerprint (see repro.engine.engine)
+_FP_SAMPLE_BYTES = 1 << 16
+
+
+def _fingerprint(a) -> str:
+    """Content hash of a vector set — the cache key for per-X artifacts.
+
+    Hashes shape/dtype/nbytes plus a fixed-size strided byte sample (head
+    and tail included), exactly as the reference does, so one array gets
+    the same key in both packages. Two arrays that agree on every sampled
+    byte collide; callers with sparse row edits to huge query sets should
+    ``adopt`` their indexes or use a fresh engine."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    a = np.ascontiguousarray(np.asarray(a))
+    h = hashlib.sha1()
+    h.update(repr((a.shape, str(a.dtype), a.nbytes)).encode())
+    flat = a.reshape(-1).view(np.uint8) if a.size else a.reshape(-1)
+    if flat.nbytes <= _FP_SAMPLE_BYTES:
+        h.update(flat.tobytes())
+    else:
+        # odd stride: samples cycle through every byte offset of an element
+        stride = (flat.nbytes // _FP_SAMPLE_BYTES) | 1
+        h.update(np.ascontiguousarray(flat[::stride]).tobytes())
+        h.update(flat[:2048].tobytes())
+        h.update(flat[-2048:].tobytes())
+    return h.hexdigest()[:16]
+
+
+class _LRU(OrderedDict):
+    def __init__(self, cap: int):
+        super().__init__()
+        self.cap = cap
+
+    def touch(self, key):
+        if key in self:
+            self.move_to_end(key)
+            return self[key]
+        return None
+
+    def put(self, key, value):
+        self[key] = value
+        self.move_to_end(key)
+        while len(self) > self.cap:
+            self.popitem(last=False)
+
+
+class JoinEngine:
+    """Persistent join service over one data side Y.
+
+    Parameters
+    ----------
+    Y : (N, d) data vectors (numpy or tensor), copied to ``device`` as f32.
+    build_kw : kwargs forwarded to ``graph.build_index`` (``k``,
+        ``degree``, ``style``, ...).
+    default : the ``JoinConfig`` used when a call supplies none.
+    n_shards : must be 1 (multi-GPU is ROADMAP Queue A slice 13).
+    max_cached_indexes : LRU capacity for per-X merged indexes.
+    metrics : an ``obs.Metrics`` registry to publish every join into.
+    device : where Y, the indexes and the joins live; ``None`` = the card.
+    """
+
+    def __init__(self, Y, *, build_kw: dict | None = None,
+                 default: JoinConfig | None = None, n_shards: int = 1,
+                 max_cached_indexes: int = 4,
+                 metrics: obs_metrics.Metrics | None = None, device=None):
+        if n_shards != 1:
+            raise NotImplementedError(
+                "sharded execution (n_shards != 1) arrives with the "
+                "multi-GPU slice (ROADMAP Queue A slice 13)")
+        self.device = resolve_device(device)
+        if isinstance(Y, torch.Tensor):
+            self.Y = Y.to(device=self.device, dtype=torch.float32).contiguous()
+        else:
+            self.Y = torch.as_tensor(np.asarray(Y, np.float32),
+                                     device=self.device)
+        self.build_kw = dict(build_kw or {})
+        self.default = default or JoinConfig()
+        self.n_shards = 1
+        self.metrics = metrics if metrics is not None else \
+            obs_metrics.metrics()
+        self._merged = _LRU(max_cached_indexes)
+        self.build_counts: dict[str, int] = {"merged": 0}
+        self.build_seconds = 0.0
+        self.serve_stats: dict[str, int] = {
+            "joins": 0, "queries": 0, "pairs": 0}
+
+    # -- index lifecycle ----------------------------------------------------
+
+    @property
+    def n_index_builds(self) -> int:
+        return sum(self.build_counts.values())
+
+    def _cache_event(self, kind: str, hit: bool) -> None:
+        self.metrics.counter(
+            f"engine.cache.{kind}.{'hit' if hit else 'miss'}").inc()
+
+    def _as_x(self, X) -> torch.Tensor:
+        if isinstance(X, torch.Tensor):
+            return X.to(device=self.device, dtype=torch.float32).contiguous()
+        return torch.as_tensor(np.asarray(X, np.float32), device=self.device)
+
+    def merged_index(self, X) -> GraphIndex:
+        """Merged index G_{X∪Y} (greedy phase offloaded, paper §4.4)."""
+        fp = _fingerprint(X)
+        hit = self._merged.touch(fp)
+        self._cache_event("merged", hit is not None)
+        if hit is None:
+            from repro_torch.core import graph
+            t0 = time.perf_counter()
+            merged_vecs = torch.cat([self.Y, self._as_x(X)], dim=0)
+            hit = graph.build_index(merged_vecs, n_data=int(self.Y.shape[0]),
+                                    **self.build_kw)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.build_seconds += time.perf_counter() - t0
+            self.build_counts["merged"] += 1
+            self._merged.put(fp, hit)
+        return hit
+
+    def adopt(self, *, X=None, index_merged: GraphIndex | None = None
+              ) -> None:
+        """Install a prebuilt merged index for ``X`` (no build counted)."""
+        if index_merged is not None:
+            if X is None:
+                raise ValueError("adopting index_merged requires X")
+            self._merged.put(_fingerprint(X), index_merged)
+
+    # -- configuration ------------------------------------------------------
+
+    def _resolve(self, cfg: JoinConfig | None, method: str | None,
+                 theta: float | None) -> JoinConfig:
+        cfg = cfg or self.default
+        rep: dict[str, Any] = {}
+        if method is not None:
+            rep["method"] = method
+        if theta is not None:
+            rep["theta"] = float(theta)
+        return dataclasses.replace(cfg, **rep) if rep else cfg
+
+    # -- one-shot joins -----------------------------------------------------
+
+    def join(self, X, cfg: JoinConfig | None = None, *,
+             method: str | None = None, theta: float | None = None,
+             index_merged: GraphIndex | None = None) -> JoinResult:
+        """Join X against the engine's Y. A cached merged index is reused;
+        a missing one is built (and counted)."""
+        from repro_torch.core.join import cascade_join_pairs
+
+        cfg = self._resolve(cfg, method, theta)
+        if cfg.quant != "off":
+            raise NotImplementedError(
+                f"quant={cfg.quant!r} arrives with the quantized slices "
+                f"(ROADMAP Queue A slices 7-9)")
+        if cfg.method in _SEARCH_METHODS:
+            raise NotImplementedError(
+                f"method {cfg.method!r} arrives with the search-path slice "
+                f"(ROADMAP Queue A slice 5)")
+        Xd = self._as_x(X)
+        stats = JoinStats()
+        if index_merged is not None:
+            self.adopt(X=X, index_merged=index_merged)
+
+        if cfg.method == "nlj":
+            t0 = time.perf_counter()
+            pairs, counts = cascade_join_pairs(
+                Xd, self.Y, cfg.theta, None, impl=cfg.traversal.dist_impl)
+            stats.n_rerank = counts["n_rerank"]
+            stats.other_seconds = time.perf_counter() - t0
+            stats.n_dist = int(Xd.shape[0]) * int(self.Y.shape[0])
+            return self._done(JoinResult(pairs=pairs, stats=stats), Xd)
+
+        all_pairs: list[np.ndarray] = []
+        t0 = time.perf_counter()
+        merged = self.merged_index(X)
+        stats.other_seconds += time.perf_counter() - t0
+        W.run_mi_join(Xd, merged, cfg, stats, all_pairs)
+        pairs = (np.concatenate(all_pairs, axis=0) if all_pairs
+                 else np.empty((0, 2), np.int64))
+        return self._done(JoinResult(pairs=pairs, stats=stats), Xd)
+
+    def sweep(self, X, thetas, cfg: JoinConfig | None = None, *,
+              method: str | None = None) -> list[JoinResult]:
+        """Threshold sweep: one index build amortized over all thetas."""
+        return [self.join(X, cfg, method=method, theta=float(t))
+                for t in thetas]
+
+    # -- bookkeeping --------------------------------------------------------
+
+    def _done(self, result: JoinResult, X) -> JoinResult:
+        self.serve_stats["joins"] += 1
+        self.serve_stats["queries"] += int(X.shape[0])
+        self.serve_stats["pairs"] += len(result.pairs)
+        result.stats.publish(self.metrics)
+        self.metrics.counter("engine.joins").inc()
+        self.metrics.counter("engine.queries").inc(int(X.shape[0]))
+        self.metrics.counter("engine.pairs").inc(len(result.pairs))
+        return result
+

@@ -1,0 +1,227 @@
+// Hand-written Hopper (sm_90a) kernels for the join's distance hot spot.
+//
+// Built by kernels/_build.py with nvcc into a shared library with a plain
+// C interface (no PyTorch headers) and bound with ctypes. Every entry point
+// launches on the stream it is given, allocates nothing, and returns
+// cudaGetLastError() so the Python wrapper can raise on a refused launch.
+//
+// 1. repro_pairwise_sq_dists — replaces the Pallas kernel
+//    repro/kernels/distance.py::pairwise_sq_dists_pallas.
+//    out[b, n] = max(xn[b] + yn[n] - 2 * <x_b, y_n>, 0), (B,d) x (N,d) -> (B,N).
+//    Bound: with d = 128 the product does 2·B·N·d FLOP for 4 output bytes
+//    per element (64 FLOP/byte, above the H100's f32 ridge of ~20), so it
+//    is bound by the f32 FMA rate. The join needs IEEE f32 (TF32 moves
+//    pairs on the θ boundary), so the tensor cores are not used. Design:
+//    a classic CUDA-core SGEMM tile — 128x128 outputs per 256-thread
+//    block, an 8x8 register tile per thread built from float4 reads of
+//    k-major shared tiles (conflict-free), d walked in slices of 8, fmaf
+//    accumulation, the distance epilogue fused into the store. Ragged B,
+//    N and d edges are masked in the kernel (loads read 0, stores are
+//    skipped), so the wrapper never pads. Norms come from the caller.
+//
+// 2. repro_rowwise_sq_dists — replaces
+//    repro/kernels/distance.py::rowwise_sq_dists_pallas.
+//    out[b, k] = sum_i (c[b,k,i] - x[b,i])^2, (B,d) x (B,K,d) -> (B,K).
+// 3. repro_gather_sq_dists — replaces
+//    repro/kernels/gather_distance.py::gather_sq_dists_pallas.
+//    out[b, k] = sum_i (vecs[idx[b,k], i] - x[b,i])^2, +inf where idx is
+//    outside [0, N) (NO_NODE).
+//    Bound: each candidate row is used once, so both are bound by the
+//    bytes moved (rows + queries + ids + outputs over HBM bandwidth).
+//    Design: one warp per (query, candidate) pair; lanes stride the row
+//    with 16-byte float4 loads (one coalesced 512-byte read at d = 128),
+//    a scalar loop when d % 4 != 0, fmaf accumulation and a shuffle
+//    reduction. The gather variant reads the id itself and loads the row
+//    straight from the vector table, so the (B, K, d) gathered tensor the
+//    JAX traversal materializes never exists in device memory; an invalid
+//    id reads no row at all.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBM = 128;
+constexpr int kBN = 128;
+constexpr int kBK = 8;
+constexpr int kThreads = 256;
+
+// Four consecutive floats of row r, columns [c, c+4), zero outside the
+// (nrows, d) matrix. vec4: d % 4 == 0 and a 16-byte aligned base pointer.
+__device__ __forceinline__ void load_row4(const float* __restrict__ p, long long r,
+                                          long long nrows, int c, int d, int vec4,
+                                          float v[4]) {
+  if (r < nrows) {
+    const float* rowp = p + r * (long long)d;
+    if (vec4 && c < d) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(rowp + c));
+      v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+      return;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = (c + i < d) ? __ldg(rowp + c + i) : 0.f;
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = 0.f;
+}
+
+__global__ void __launch_bounds__(kThreads)
+pairwise_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                const float* __restrict__ xn, const float* __restrict__ yn,
+                float* __restrict__ out, int B, int N, int d, int vec4) {
+  __shared__ __align__(16) float As[kBK][kBM];
+  __shared__ __align__(16) float Bs[kBK][kBN];
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const long long row0 = (long long)blockIdx.y * kBM;
+  const long long col0 = (long long)blockIdx.x * kBN;
+  // loader: the 128x8 slice of each operand is 1024 floats, 4 per thread
+  const int lr = tid / 2;
+  const int lc = (tid % 2) * 4;
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < d; k0 += kBK) {
+    float v[4];
+    load_row4(x, row0 + lr, B, k0 + lc, d, vec4, v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) As[lc + i][lr] = v[i];
+    load_row4(y, col0 + lr, N, k0 + lc, d, vec4, v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) Bs[lc + i][lr] = v[i];
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kBK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[k][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[k][64 + tx * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const long long r = row0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
+    if (r >= B) continue;
+    const float xr = __ldg(xn + r);
+    float* orow = out + r * (long long)N;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const long long c = col0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
+      if (c < N) orow[c] = fmaxf(xr + __ldg(yn + c) - 2.f * acc[i][j], 0.f);
+    }
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Squared L2 distance between row c and row q, reduced over the warp
+// (every lane returns the total).
+__device__ __forceinline__ float warp_row_sq_dist(const float* __restrict__ c,
+                                                  const float* __restrict__ q,
+                                                  int d, int vec4, int lane) {
+  float acc = 0.f;
+  if (vec4) {
+    const float4* c4 = reinterpret_cast<const float4*>(c);
+    const float4* q4 = reinterpret_cast<const float4*>(q);
+    const int d4 = d >> 2;
+    for (int i = lane; i < d4; i += 32) {
+      const float4 a = __ldg(c4 + i);
+      const float4 b = __ldg(q4 + i);
+      float t = a.x - b.x; acc = fmaf(t, t, acc);
+      t = a.y - b.y; acc = fmaf(t, t, acc);
+      t = a.z - b.z; acc = fmaf(t, t, acc);
+      t = a.w - b.w; acc = fmaf(t, t, acc);
+    }
+  } else {
+    for (int i = lane; i < d; i += 32) {
+      const float t = __ldg(c + i) - __ldg(q + i);
+      acc = fmaf(t, t, acc);
+    }
+  }
+  return warp_sum(acc);
+}
+
+__global__ void __launch_bounds__(kThreads)
+rowwise_kernel(const float* __restrict__ x, const float* __restrict__ cands,
+               float* __restrict__ out, long long n_pairs, int K, int d,
+               int vec4) {
+  const long long pair = (long long)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (pair >= n_pairs) return;  // uniform across the warp
+  const long long b = pair / K;
+  const float s = warp_row_sq_dist(cands + pair * d, x + b * d, d, vec4, lane);
+  if (lane == 0) out[pair] = s;
+}
+
+__global__ void __launch_bounds__(kThreads)
+gather_kernel(const float* __restrict__ vecs, const float* __restrict__ x,
+              const int* __restrict__ idx, float* __restrict__ out,
+              long long n_pairs, int K, int d, long long N, int vec4) {
+  const long long pair = (long long)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (pair >= n_pairs) return;  // uniform across the warp
+  const int id = __ldg(idx + pair);
+  if (id < 0 || (long long)id >= N) {
+    if (lane == 0) out[pair] = INFINITY;
+    return;
+  }
+  const long long b = pair / K;
+  const float s = warp_row_sq_dist(vecs + (long long)id * d, x + b * d, d, vec4, lane);
+  if (lane == 0) out[pair] = s;
+}
+
+}  // namespace
+
+extern "C" int repro_pairwise_sq_dists(const float* x, const float* y,
+                                       const float* xn, const float* yn,
+                                       float* out, int B, int N, int d,
+                                       int vec4, void* stream) {
+  const dim3 grid((N + kBN - 1) / kBN, (B + kBM - 1) / kBM);
+  pairwise_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, y, xn, yn, out, B, N, d, vec4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_rowwise_sq_dists(const float* x, const float* cands,
+                                      float* out, long long n_pairs, int K,
+                                      int d, int vec4, void* stream) {
+  const long long blocks = (n_pairs + kThreads / 32 - 1) / (kThreads / 32);
+  rowwise_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(x, cands, out, n_pairs,
+                                                        K, d, vec4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_gather_sq_dists(const float* vecs, const float* x,
+                                     const int* idx, float* out,
+                                     long long n_pairs, int K, int d,
+                                     long long N, int vec4, void* stream) {
+  const long long blocks = (n_pairs + kThreads / 32 - 1) / (kThreads / 32);
+  gather_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(vecs, x, idx, out,
+                                                       n_pairs, K, d, N, vec4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* repro_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
