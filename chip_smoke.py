@@ -5,27 +5,44 @@
 
 Phases (each raises on failure, so the script exits non-zero):
 
-  1. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc;
+  1. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc
+     (one process per source, in parallel);
   2. hold each kernel against its plain PyTorch version at ragged,
-     sub-tile, empty and NO_NODE shapes;
+     sub-tile, empty and NO_NODE shapes, and at the main paths' shapes:
+     the f32 kernels, the int8 pairwise kernel at the sq8 kNN block
+     (4096,128)x(65536,128) and at d = 64, the int8 gather at the
+     traversal's shape with half the ids NO_NODE, the top-k merge with
+     forced ties, the pair-list entry's bit equality with the pairwise
+     kernel, and the int8 pairwise error against float64 below the
+     cascade's MATMUL_GUARD;
   3. drive the main path — ``make_engine("default").join`` with the default
      ``JoinConfig()`` (es_mi_adapt, quant off, overlap on) — on sift-like
      data (d = 128) at |Y| = 1,000,000, |X| = 10,000; check that every
      pair is sound in float64, that recall against the exact NLJ on the
-     card meets the floor, that all three kernels were launched, and that
+     card meets the floor, that its kernels were launched, and that
      overlap off gives the same pairs;
-  4. the OOD path: laion-like data (d = 64), |Y| = 200,000, |X| = 2,000,
-     where the hybrid BBFS must run (n_ood > 0), with the same checks and
-     again all three kernels launched;
-  5. time each kernel at the main path's shapes (phase 2's tolerances
+  4. the sq8 main path on the same data: ``make_engine(Y,
+     EngineSpec(quant="sq8", quant_build="sq8")).join`` — the cascade-driven
+     build (its kNN lists must equal the f32 build's but for ties at the
+     k-th distance), the join on certified int8 bounds with the exact
+     re-rank of the ambiguous band (sound, the same pairs with overlap on
+     and off, recall against the f32 NLJ), and ``method="nlj"`` under sq8
+     (the f32 NLJ's pairs but for counted pairs within 16 f32 ulps of θ);
+  5. the OOD path: laion-like data (d = 64), |Y| = 200,000, |X| = 2,000,
+     where the hybrid BBFS must run (n_ood > 0), with the same checks, in
+     f32 and under sq8;
+  6. time each kernel at the main paths' shapes (phase 2's tolerances
      again), and run the OOD path's overlap-off join once more under
      torch.profiler to show how busy the device is. These come last
      because an attached profiler slows every later launch.
 
+Every path is driven with the launch counts set to 0 just before it and
+read just after; a path that did not launch one of its kernels fails.
 It prints the kernel table as one JSON object, then the card's name and
 power limit, then ``{"ok": true, "device": {...}}`` as the last line. It
 needs the repository's ``src/`` beside it and a CUDA device; without
-either it exits non-zero and prints no result.
+either it exits non-zero and prints no result. ``--kernels-only`` stops
+after phase 2 (a quick check that the kernels build and agree).
 """
 from __future__ import annotations
 
@@ -42,8 +59,10 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, int8
+# on the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
 MAIN_N_DATA = 1_000_000
@@ -53,10 +72,21 @@ MAIN_RECALL_FLOOR = 0.937
 OOD_N_DATA = 200_000
 OOD_N_QUERY = 2_000
 REPS = 25
+# kernels each path must launch
+F32_KERNELS = ("pairwise_sq_dists", "rowwise_sq_dists", "gather_sq_dists",
+               "topk_merge")
+SQ8_KERNELS = ("pairwise_sq_dists_int8", "rowwise_sq_dists_int8",
+               "topk_merge", "gather_sq_dists", "pairlist_sq_dists")
+ULP16 = 16 * 2.0**-24      # 16 f32 ulps, relative
+DEV = "cuda"
+
+
+_T0 = time.perf_counter()
 
 
 def log(*a) -> None:
-    print(*a, flush=True)
+    """A progress line, stamped with the seconds since the script began."""
+    print(f"{time.perf_counter() - _T0:7.1f}s", *a, flush=True)
 
 
 def device_ms(torch, fn, *, reps: int = REPS) -> tuple[float, float]:
@@ -100,8 +130,9 @@ def timed(torch, fn) -> tuple[float, float]:
     return (dev_ms if dev_ms > 0 else ev_ms), ev_ms
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+def bound_ms(nbytes: float, flops: float,
+             peak_ops: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / peak_ops * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -152,7 +183,7 @@ class Inputs:
 
     def __init__(self, torch):
         self.torch = torch
-        self.dev = torch.device("cuda")
+        self.dev = torch.device(DEV)
         self.gen = torch.Generator(device=self.dev).manual_seed(0)
 
     def rn(self, *s):
@@ -188,6 +219,162 @@ def check_kernels(torch, ops, ref) -> None:
             check_rows(torch, ops.gather_sq_dists(v, x, i),
                        ref.gather_sq_dists(v, x, i), f"gather {(B, K, d)}")
     log("[kernels] ragged / empty / NO_NODE shapes agree")
+
+
+def check_int8_pairwise(torch, ops, ref, st, qx, xn) -> float:
+    """int8 pairwise kernel against its plain version (|Δ| ≤ 1e-5·(xn+yn)
+    + 1e-6: the plain version dequantizes first and rounds differently)
+    and against float64 ‖x̂−ŷ‖², whose error the certified bounds cover
+    with MATMUL_GUARD·(xn+yn)."""
+    from repro_torch.quant.cascade import MATMUL_GUARD
+    from repro_torch.quant.store import dequantize
+    got = ops.pairwise_sq_dists_int8(qx, st.q, st.scales,
+                                     group_size=st.group_size, xn=xn,
+                                     yn=st.norms)
+    want = ref.pairwise_sq_dists_int8(qx, st.q, st.scales,
+                                      group_size=st.group_size)
+    torch.cuda.synchronize()
+    what = f"int8 pairwise {tuple(qx.shape)}x{tuple(st.q.shape)}"
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {got.shape} != {want.shape}")
+    if want.numel() == 0:
+        return 0.0
+    nsum = xn[:, None] + st.norms[None, :]
+    err = (got - want).abs()
+    if not bool((err <= 1e-5 * nsum + 1e-6).all()):
+        raise AssertionError(f"{what}: max err {float(err.max())} beyond "
+                             f"tolerance")
+    x64 = dequantize(qx, st.scales, st.group_size).double()
+    y64 = dequantize(st.q, st.scales, st.group_size).double()
+    d64 = ((x64 * x64).sum(1)[:, None] + (y64 * y64).sum(1)[None, :]
+           - 2.0 * (x64 @ y64.T)).clamp_min(0.0)
+    e64 = (got.double() - d64).abs()
+    if not bool((e64 < MATMUL_GUARD * nsum.double()).all()):
+        raise AssertionError(f"{what}: error against float64 "
+                             f"{float(e64.max())} reaches MATMUL_GUARD")
+    return float(err.max())
+
+
+def check_int8_rows(torch, got, want, what: str) -> float:
+    """int8 rowwise/gather against the plain version: |Δ| ≤ 1e-5·value +
+    1e-6, +inf (NO_NODE) slots identical."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        raise AssertionError(f"{what} shape {got.shape} != {want.shape}")
+    if not bool((got.isfinite() == want.isfinite()).all()):
+        raise AssertionError(f"{what}: +inf (NO_NODE) slots differ")
+    fin = want.isfinite()
+    if not bool(fin.any()):
+        return 0.0
+    err = (got[fin] - want[fin]).abs()
+    if not bool((err <= 1e-5 * want[fin].abs() + 1e-6).all()):
+        raise AssertionError(f"{what}: max err {float(err.max())} beyond "
+                             f"tolerance")
+    return float(err.max())
+
+
+def check_topk(torch, ops, ref, bd, bi, cd, ci, what: str) -> None:
+    """top-k merge against the plain version: exact, ids and tie order."""
+    gd, gi = ops.topk_merge(bd, bi, cd, ci)
+    wd, wi = ref.topk_merge(bd, bi, cd, ci)
+    torch.cuda.synchronize()
+    if not (torch.equal(gd, wd) and torch.equal(gi, wi)):
+        bad = int(((gd != wd) | (gi != wi)).any(1).sum())
+        raise AssertionError(f"topk_merge {what}: {bad} rows differ")
+
+
+def topk_inputs(inp, B: int, L: int, K: int):
+    """A sorted beam and candidates drawn from few values (forced ties),
+    some +inf."""
+    t = inp.torch
+    g = inp.gen
+    bd = t.randint(0, 16, (B, L), device=inp.dev, generator=g).float()
+    bd = t.where(t.rand((B, L), device=inp.dev, generator=g) < 0.05,
+                 t.inf, bd)
+    bd = t.sort(bd, dim=1)[0].contiguous()
+    cd = t.randint(0, 16, (B, K), device=inp.dev, generator=g).float()
+    cd = t.where(t.rand((B, K), device=inp.dev, generator=g) < 0.05,
+                 t.inf, cd).contiguous()
+    bi = t.randint(0, 1 << 30, (B, L), device=inp.dev, generator=g,
+                   dtype=t.int32)
+    ci = t.randint(0, 1 << 30, (B, K), device=inp.dev, generator=g,
+                   dtype=t.int32)
+    return bd, bi, cd, ci
+
+
+def check_pairlist(torch, ops, x, y, n_pairs: int, gen) -> None:
+    """The pair-list entry reproduces the pairwise kernel's values bit
+    for bit on sampled pairs, given the same norm tensors."""
+    from repro_torch.kernels import ref
+    xn, yn = ref.sq_norms(x), ref.sq_norms(y)
+    full = ops.pairwise_sq_dists(x, y, xn=xn, yn=yn)
+    qi = torch.randint(0, x.shape[0], (n_pairs,), device=x.device,
+                       generator=gen, dtype=torch.int32)
+    yi = torch.randint(0, y.shape[0], (n_pairs,), device=x.device,
+                       generator=gen, dtype=torch.int32)
+    got = ops.pairlist_sq_dists(x, y, qi, yi, xn=xn, yn=yn)
+    torch.cuda.synchronize()
+    want = full[qi.long(), yi.long()]
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"pairlist {tuple(x.shape)}x{tuple(y.shape)}: "
+                             f"{bad} of {n_pairs} pairs differ from the "
+                             f"pairwise kernel")
+
+
+def check_kernels_sq8(torch, ops, ref) -> None:
+    """The int8, top-k merge and pair-list kernels against their plain
+    versions, at ragged/empty shapes and at the sq8 main path's shapes."""
+    from repro_torch.quant.store import build_store, quantize_queries
+    inp = Inputs(torch)
+    rn, ids = inp.rn, inp.ids
+    # int8 pairwise: ragged, empty, d < 128, d % 128 != 0, and the kNN
+    # block at d = 128 and d = 64 (the OOD path's width)
+    for B, N, d in [(0, 5, 8), (4, 0, 8), (1, 1, 1), (3, 5, 7),
+                    (129, 257, 33), (200, 1000, 130), (77, 300, 200),
+                    (4096, 65536, 128), (4096, 65536, 64)]:
+        st = build_store(rn(N, d) if N else rn(1, d)[:0])
+        qx, xn, _ = quantize_queries(rn(B, d), st)
+        check_int8_pairwise(torch, ops, ref, st, qx, xn)
+    # int8 rowwise (B, K, d) form and gather form
+    for B, K, d in [(0, 4, 8), (3, 0, 8), (1, 1, 1), (3, 5, 7),
+                    (7, 9, 130), (33, 65, 64), (16, 40, 200)]:
+        st = build_store(rn(50, d))
+        qx = quantize_queries(rn(B, d), st)[0]
+        qc = st.q[torch.randint(0, 50, (B, K), device=inp.dev,
+                                generator=inp.gen).long()]
+        check_int8_rows(torch, ops.rowwise_sq_dists_int8(
+            qx, qc, st.scales, group_size=st.group_size),
+            ref.rowwise_sq_dists_int8(qx, qc, st.scales,
+                                      group_size=st.group_size),
+            f"int8 rowwise {(B, K, d)}")
+        for frac in (0.0, 0.5, 1.0):
+            i = ids(B, K, 50, frac)
+            check_int8_rows(torch, ops.gather_sq_dists_int8(
+                st.q, qx, i, st.scales, group_size=st.group_size),
+                ref.gather_sq_dists_int8(st.q, qx, i, st.scales,
+                                         group_size=st.group_size),
+                f"int8 gather {(B, K, d)}")
+    # the traversal's shape: 256 lanes x 128 ids over the merged table
+    n_nodes = MAIN_N_DATA + MAIN_N_QUERY
+    st = build_store(rn(n_nodes, 128))
+    qx = quantize_queries(rn(256, 128), st)[0]
+    i = ids(256, 128, n_nodes, 0.5)
+    check_int8_rows(torch, ops.gather_sq_dists_int8(
+        st.q, qx, i, st.scales), ref.gather_sq_dists_int8(
+        st.q, qx, i, st.scales), "int8 gather main shape")
+    del st
+    # top-k merge: ragged/empty and the kNN block (4096,48)+(4096,48)
+    for B, L, K in [(0, 4, 4), (3, 0, 5), (5, 4, 0), (1, 1, 1), (7, 5, 13),
+                    (33, 48, 48), (4096, 48, 48)]:
+        check_topk(torch, ops, ref, *topk_inputs(inp, B, L, K),
+                   f"{(B, L, K)}")
+    # pair list: bit equality with the pairwise kernel
+    for B, N, d in [(129, 257, 33), (300, 1000, 64), (4096, 65536, 128)]:
+        check_pairlist(torch, ops, rn(B, d), rn(N, d), 1 << 20, inp.gen)
+    log("[kernels] int8 / top-k merge / pair-list: plain versions agree, "
+        "pair list bit-equal to the pairwise kernel, int8 pairwise error "
+        "below MATMUL_GUARD")
 
 
 def time_kernels(torch, ops, ref) -> dict:
@@ -252,6 +439,89 @@ def time_kernels(torch, ops, ref) -> dict:
         lambda r: ref.gather_sq_dists(v, x, idxs[r]), None,
         (n_valid * d + B * d + 2 * B * K) * 4, 3.0 * n_valid * d)
     del v, x, idxs
+
+    # pair list at the sq8 build's re-rank: survivors of a 4096-row block
+    # (~256 per row) over the 1.01M-row table, in row order
+    from repro_torch.quant.store import build_store, quantize_queries
+    B, S, d = 4096, 256, 128
+    v, x = rn(n_nodes, d), rn(B, d)
+    vn, xn = ref.sq_norms(v), ref.sq_norms(x)
+    qi = torch.arange(B, device=inp.dev, dtype=torch.int32
+                      ).repeat_interleave(S)
+    yi = torch.randint(0, n_nodes, (B * S,), device=inp.dev,
+                       generator=inp.gen, dtype=torch.int32)
+    P = B * S
+    out["pairlist_sq_dists"] = entry(
+        f"{P} pairs, ({B},{d}) x ({n_nodes},{d})",
+        check_rows(torch, ops.pairlist_sq_dists(x, v, qi, yi, xn=xn, yn=vn),
+                   ref.pairlist_sq_dists(x, v, xn, vn, qi, yi),
+                   "pairlist main shape"),
+        lambda _: ops.pairlist_sq_dists(x, v, qi, yi, xn=xn, yn=vn),
+        lambda _: ref.pairlist_sq_dists(x, v, xn, vn, qi, yi), None,
+        P * d * 4 + B * d * 4 + P * 8 + (B + P) * 4 + P * 4, 2.0 * P * d)
+    del v, x, qi, yi
+
+    # top-k merge at the kNN block: (4096,48) beam + (4096,48) candidates
+    B, L, K = 4096, 48, 48
+    bd, bi, cd, ci = topk_inputs(inp, B, L, K)
+    check_topk(torch, ops, ref, bd, bi, cd, ci, "main shape")
+    out["topk_merge"] = entry(
+        f"({B},{L})+({B},{K})", 0.0,
+        lambda _: ops.topk_merge(bd, bi, cd, ci),
+        lambda _: ref.topk_merge(bd, bi, cd, ci), None,
+        B * (L + K) * 8 + B * L * 8, float(B * (L + K) * (L + K)))
+    del bd, bi, cd, ci
+
+    # int8 pairwise at the sq8 kNN block; the library call is
+    # torch._int_mm per group plus the same epilogue
+    B, N, d = 4096, 65536, 128
+    st = build_store(rn(N, d))
+    qx, xn, _ = quantize_queries(rn(B, d), st)
+    s2 = float(st.scales[0]) ** 2
+    yt = st.q.t()
+
+    def int_mm(_):
+        acc = torch._int_mm(qx, yt)
+        return (xn[:, None] + st.norms[None, :]
+                - 2.0 * (s2 * acc.float())).clamp_min(0.0)
+    try:
+        int_mm(0)
+        lib = int_mm
+    except RuntimeError as e:            # the library refuses the layout
+        log(f"[kernels] torch._int_mm not timed: {e}")
+        lib = None
+    e8 = entry(
+        f"({B},{d})x({N},{d}) int8",
+        check_int8_pairwise(torch, ops, ref, st, qx, xn),
+        lambda _: ops.pairwise_sq_dists_int8(qx, st.q, st.scales, xn=xn,
+                                             yn=st.norms),
+        lambda _: ref.pairwise_sq_dists_int8(qx, st.q, st.scales), lib,
+        B * d + N * d + (B + N) * 4 + 4 + B * N * 4, 2.0 * B * N * d)
+    # the int8 operations count against the int8 tensor-core peak
+    e8["bound_ms"], e8["bound_by"] = bound_ms(
+        B * d + N * d + (B + N) * 4 + 4 + B * N * 4, 2.0 * B * N * d,
+        PEAK_INT8_OPS)
+    out["pairwise_sq_dists_int8"] = e8
+    del st, qx, xn, yt
+
+    # int8 gather (the rowwise kernel's gather entry) at the traversal's
+    # expand shape over the merged table, half NO_NODE, cold ids
+    B, K, d = 256, 128, 128
+    st = build_store(rn(n_nodes, d))
+    qx = quantize_queries(rn(B, d), st)[0]
+    idxs = [ids(B, K, n_nodes, 0.5) for _ in range(REPS)]
+    n_valid = sum(int((i >= 0).sum()) for i in idxs) / REPS
+    out["rowwise_sq_dists_int8"] = entry(
+        f"gather form: ({n_nodes},{d}) int8 rows, ({B},{K}) ids, "
+        f"{n_valid:.0f} valid",
+        max(check_int8_rows(torch, ops.gather_sq_dists_int8(
+            st.q, qx, i, st.scales), ref.gather_sq_dists_int8(
+            st.q, qx, i, st.scales), "int8 gather main shape")
+            for i in idxs[:3]),
+        lambda r: ops.gather_sq_dists_int8(st.q, qx, idxs[r], st.scales),
+        lambda r: ref.gather_sq_dists_int8(st.q, qx, idxs[r], st.scales),
+        None, n_valid * d + B * d + 2 * B * K * 4 + 4, 3.0 * n_valid * d)
+    del st, qx, idxs
     for name, r in out.items():
         log(f"[kernels] {name} {r['shape']}: max_abs_err={r['max_abs_err']} "
             f"ms={r['ms']:.4f} (events {r['event_ms']:.4f}) "
@@ -298,7 +568,7 @@ def recalls(found: np.ndarray, truth: np.ndarray, n_data: int, n_query: int,
 
 def sync_us(torch, n: int = 1000) -> float:
     """Host cost of one traversal-loop check (reduce + device→host bool)."""
-    done = torch.zeros(256, dtype=torch.bool, device="cuda")
+    done = torch.zeros(256, dtype=torch.bool, device=DEV)
     bool(done.all())
     t0 = time.perf_counter()
     for _ in range(n):
@@ -307,19 +577,34 @@ def sync_us(torch, n: int = 1000) -> float:
 
 
 def run_join(torch, ops, name: str, n_data: int, n_query: int,
-             theta_idx: int) -> dict:
+             theta_idx: int, *, spec="default", base: dict | None = None
+             ) -> dict:
+    """Drive one path through ``make_engine(Y, spec).join`` with the
+    default ``JoinConfig`` at θ = thresholds(ds, 7)[theta_idx]: build and
+    join with the launch counts reset just before and read just after,
+    soundness in float64, recall against the f32 exact NLJ, and overlap
+    off on the cached index with identical pairs. ``base`` is the f32 run
+    of the same data: its dataset and exact pairs are reused."""
     from repro_torch.configs.vectorjoin import make_engine
     from repro_torch.core import JoinConfig, exact_join_pairs
+    from repro_torch.core.graph import BuildStats
     from repro_torch.core.types import pair_keys
     from repro_torch.data.vectors import table1_dataset, thresholds
 
     t0 = time.perf_counter()
-    ds = table1_dataset(name, n_data=n_data, n_query=n_query, seed=0)
+    ds = base["ds"] if base else table1_dataset(name, n_data=n_data,
+                                                n_query=n_query, seed=0)
     theta = float(thresholds(ds, 7)[theta_idx])
     cfg = dataclasses.replace(JoinConfig(), theta=theta)
-    eng = make_engine(ds.Y, "default", default=cfg)       # on the card
+    eng = make_engine(ds.Y, spec, default=cfg, device=DEV)   # the card
+    cfg = eng.default                                     # spec's quant
+    tag = f"{name}/{cfg.quant}"
+    knn: dict = {}
+    bstats = BuildStats()
+    # diagnostics the build fills in: its kNN lists and traffic counts
+    eng.build_kw.update(knn_out=knn, build_stats=bstats)
     torch.cuda.synchronize()
-    log(f"[{name}] |Y|={n_data} |X|={n_query} d={ds.Y.shape[1]} "
+    log(f"[{tag}] |Y|={n_data} |X|={n_query} d={ds.Y.shape[1]} "
         f"θ={theta:.6f} data {time.perf_counter() - t0:.1f}s")
 
     torch.cuda.reset_peak_memory_stats()
@@ -334,30 +619,44 @@ def run_join(torch, ops, name: str, n_data: int, n_query: int,
     st = res.stats
     n_waves = sum(-(-g // cfg.wave_size)
                   for g in (n_query - st.n_ood, st.n_ood))
-    log(f"[{name}] build_s={eng.build_seconds:.2f} join_s={join_s:.2f} "
+    ms_iter = join_s / max(st.n_iters, 1) * 1e3
+    log(f"[{tag}] build_s={eng.build_seconds:.2f} join_s={join_s:.2f} "
         f"pairs={len(res.pairs)} n_dist={st.n_dist} n_iters={st.n_iters} "
-        f"n_ood={st.n_ood} n_overflow={st.n_overflow} waves={n_waves} "
+        f"n_ood={st.n_ood} n_overflow={st.n_overflow} "
+        f"n_rerank={st.n_rerank} overflow_retries={st.overflow_retries} "
+        f"n_rerank_gather={st.n_rerank_gather} waves={n_waves} "
         f"syncs_per_wave={st.n_iters / max(n_waves, 1):.1f} "
-        f"ms_per_iter={join_s / max(st.n_iters, 1) * 1e3:.3f} "
-        f"peak_mem_GB={peak / 2**30:.2f} launches={launches}")
+        f"ms_per_iter={ms_iter:.3f} peak_mem_GB={peak / 2**30:.2f} "
+        f"build_counts={eng.build_counts} launches={launches}")
+    if cfg.quant != "off":
+        b = bstats
+        log(f"[{tag}] build stats: knn_exact/row="
+            f"{b.knn_exact / max(n_data + n_query, 1):.2f} "
+            f"knn_exact={b.knn_exact} knn_pairs={b.knn_pairs} "
+            f"prune_exact={b.prune_exact} prune_pairs={b.prune_pairs} "
+            f"f32_saved_frac={b.f32_saved_frac:.6f}")
 
     pairs = res.pairs
     if (pairs.dtype != np.int64 or pairs.ndim != 2 or pairs.shape[1] != 2
             or not ((0 <= pairs[:, 0]) & (pairs[:, 0] < n_query)
                     & (0 <= pairs[:, 1]) & (pairs[:, 1] < n_data)).all()):
-        raise AssertionError(f"{name}: malformed pair array "
+        raise AssertionError(f"{tag}: malformed pair array "
                              f"{pairs.dtype} {pairs.shape}")
     X = torch.as_tensor(ds.X, device=eng.Y.device)
     band = check_sound(torch, X, eng.Y, pairs, theta)
-    t0 = time.perf_counter()
-    truth = exact_join_pairs(X, eng.Y, theta)
-    torch.cuda.synchronize()
-    nlj_s = time.perf_counter() - t0
+    nlj_s = None
+    if base:
+        truth = base["truth"]
+    else:
+        t0 = time.perf_counter()
+        truth = exact_join_pairs(X, eng.Y, theta)
+        torch.cuda.synchronize()
+        nlj_s = time.perf_counter() - t0
     rec, rec_cap = recalls(res.pairs, truth, n_data, n_query,
                            cfg.traversal.pool_cap)
-    log(f"[{name}] sound (boundary band {band}) recall={rec:.6f} "
+    log(f"[{tag}] sound (0 unsound; boundary band {band}) recall={rec:.6f} "
         f"recall_within_pool_cap={rec_cap:.6f} truth={len(truth)} "
-        f"nlj_s={nlj_s:.2f}")
+        f"f32 nlj_s={nlj_s}")
 
     # the same join with overlap off, on the cached index: identical pairs
     seq_cfg = dataclasses.replace(cfg, overlap=False)
@@ -367,17 +666,92 @@ def run_join(torch, ops, name: str, n_data: int, n_query: int,
     seq_s = time.perf_counter() - t0
     if not np.array_equal(pair_keys(seq.pairs, n_data),
                           pair_keys(res.pairs, n_data)):
-        raise AssertionError(f"{name}: overlap on/off pair sets differ")
-    log(f"[{name}] overlap on join_s={join_s:.2f} off join_s={seq_s:.2f} "
-        f"(identical pairs)")
+        raise AssertionError(f"{tag}: overlap on/off pair sets differ")
+    log(f"[{tag}] overlap on join_s={join_s:.2f} off join_s={seq_s:.2f} "
+        f"(identical pairs) ms_per_iter on {ms_iter:.3f} off "
+        f"{seq_s / max(seq.stats.n_iters, 1) * 1e3:.3f}")
+    merged = eng.merged_index(ds.X)
     return dict(recall=rec, launches=launches, n_ood=st.n_ood,
                 build_s=eng.build_seconds, join_s=join_s, seq_s=seq_s,
-                eng=eng, X=ds.X, cfg=seq_cfg, name=name)
+                eng=eng, X=ds.X, cfg=seq_cfg, name=tag, ds=ds, truth=truth,
+                theta=theta, knn={k: v.cpu() for k, v in knn.items()},
+                nbrs=merged.nbrs.cpu(), ms_iter=ms_iter)
 
 
-def check_launched(run: dict) -> None:
-    """Every kernel was launched during the run's join (build included)."""
-    missing = [k for k, n in run["launches"].items() if n == 0]
+def check_knn_ties(run: dict, base: dict) -> None:
+    """The sq8 build's kNN lists equal the f32 build's, except rows where
+    the two kept different entries tied at exactly the k-th distance
+    (the f32 sweep's per-block cut keeps any of them); then the pruned
+    neighbor tables are compared row by row."""
+    d8, i8 = run["knn"]["dists"], run["knn"]["ids"]
+    d32, i32 = base["knn"]["dists"], base["knn"]["ids"]
+    rows = (i8 != i32).any(dim=1).nonzero().squeeze(1)
+    for r in rows.tolist():
+        if not bool((d8[r] == d32[r]).all()):
+            raise AssertionError(f"{run['name']}: kNN row {r} distances "
+                                 f"differ from the f32 build's")
+        pos = (i8[r] != i32[r]).nonzero().squeeze(1)
+        if not bool((d8[r, pos] == d8[r, -1]).all()):
+            raise AssertionError(f"{run['name']}: kNN row {r} differs "
+                                 f"away from a tie at the k-th distance")
+    if not bool((d8 == d32).all()):
+        raise AssertionError(f"{run['name']}: kNN distances differ from "
+                             f"the f32 build's")
+    nb_rows = int((run["nbrs"] != base["nbrs"]).any(dim=1).sum())
+    log(f"[{run['name']}] kNN lists equal to the f32 build's but for "
+        f"{rows.numel()} rows tied at the k-th distance; neighbor table "
+        f"rows that differ: {nb_rows} of {run['nbrs'].shape[0]}")
+    if nb_rows and not rows.numel():
+        raise AssertionError(f"{run['name']}: neighbor tables differ with "
+                             f"identical kNN lists")
+
+
+def check_sq8_nlj(torch, ops, run: dict) -> None:
+    """``method="nlj"`` under sq8 gives the f32 NLJ's pairs, except pairs
+    whose float64 distance lies within 16 f32 ulps of θ (counted): the
+    f32 NLJ decides by the matmul form, whose rounding near θ is of that
+    order at these norms, the sq8 NLJ by certified bounds and the
+    difference form."""
+    from repro_torch.core.types import pair_keys
+    eng, ds = run["eng"], run["ds"]
+    n = ds.Y.shape[0]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = eng.join(ds.X, method="nlj")
+    torch.cuda.synchronize()
+    nlj_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    got, want = pair_keys(res.pairs, n), pair_keys(run["truth"], n)
+    diff = np.setxor1d(got, want)
+    theta = np.float32(run["theta"])
+    ulp = float(np.spacing(theta))
+    worst = 0.0
+    if diff.size:
+        q = torch.as_tensor(diff // n, device=DEV)
+        y = torch.as_tensor(diff % n, device=DEV)
+        X = torch.as_tensor(ds.X, device=DEV)
+        d64 = ((X[q].double() - eng.Y[y].double()) ** 2).sum(1).sqrt()
+        off = (d64 - float(theta)).abs() / ulp
+        worst = float(off.max())
+        if worst > 16:
+            raise AssertionError(f"{run['name']} nlj: {int((off > 16).sum())}"
+                                 f" pairs differ from the f32 NLJ more than "
+                                 f"16 ulps of θ away (worst {worst:.1f})")
+    for k in ("pairwise_sq_dists_int8", "gather_sq_dists"):
+        if launches[k] == 0:
+            raise AssertionError(f"{run['name']} nlj never launched {k}")
+    extra = np.setdiff1d(got, want).size
+    log(f"[{run['name']}] nlj: {len(res.pairs)} pairs in {nlj_s:.2f}s, "
+        f"n_rerank={res.stats.n_rerank}, equal to the f32 NLJ but for "
+        f"{diff.size} pairs within 16 ulps of θ ({extra} only in sq8, "
+        f"{diff.size - extra} only in f32; farthest {worst:.2f} ulps); "
+        f"launches={launches}")
+
+
+def check_launched(run: dict, kernels) -> None:
+    """Every kernel of the path was launched during its join (build
+    included)."""
+    missing = [k for k in kernels if run["launches"][k] == 0]
     if missing:
         raise AssertionError(f"{run['name']} path never launched {missing}")
 
@@ -415,6 +789,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    from repro_torch.configs.vectorjoin import EngineSpec
     from repro_torch.core.types import resolve_device
     from repro_torch.kernels import _build, ops, ref
 
@@ -432,10 +807,14 @@ def main() -> int:
     log(f"[build] kernels ready in {time.perf_counter() - t0:.2f}s "
         f"(nvcc {_build.build_seconds}s)")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if line.startswith("==") or "registers" in line or "spill" in line:
             log(f"[build] {line.strip()}")
 
     check_kernels(torch, ops, ref)
+    check_kernels_sq8(torch, ops, ref)
+    if "--kernels-only" in sys.argv[1:]:
+        log(f"[done] kernels only, {time.perf_counter() - t_all:.1f}s")
+        return 0                             # no contract line: not the run
     log(f"[sync] one loop check (reduce + device→host bool) "
         f"{sync_us(torch):.1f} µs")
 
@@ -443,25 +822,59 @@ def main() -> int:
     if main_run["recall"] < MAIN_RECALL_FLOOR:
         raise AssertionError(f"main path recall {main_run['recall']} below "
                              f"the floor {MAIN_RECALL_FLOOR}")
-    check_launched(main_run)
+    check_launched(main_run, F32_KERNELS)
     del main_run["eng"]                       # free the 1M-row index
+
+    sq8 = EngineSpec(quant="sq8", quant_build="sq8")
+    sq8_run = run_join(torch, ops, "sift-like", MAIN_N_DATA, MAIN_N_QUERY, 1,
+                       spec=sq8, base=main_run)
+    check_launched(sq8_run, SQ8_KERNELS)
+    check_knn_ties(sq8_run, main_run)
+    log(f"[sift-like] recall f32 {main_run['recall']:.6f} sq8 "
+        f"{sq8_run['recall']:.6f}; ms_per_iter f32 "
+        f"{main_run['ms_iter']:.3f} sq8 {sq8_run['ms_iter']:.3f}")
+    check_sq8_nlj(torch, ops, sq8_run)
+    del sq8_run["eng"], main_run["knn"], sq8_run["knn"]
 
     ood_run = run_join(torch, ops, "laion-like", OOD_N_DATA, OOD_N_QUERY, 2)
     if ood_run["n_ood"] <= 0:
         raise AssertionError("OOD phase flagged no query: the hybrid BBFS "
                              "did not run")
-    check_launched(ood_run)
+    check_launched(ood_run, F32_KERNELS)
+    ood8 = run_join(torch, ops, "laion-like", OOD_N_DATA, OOD_N_QUERY, 2,
+                    spec=sq8, base=ood_run)
+    if ood8["n_ood"] <= 0:
+        raise AssertionError("sq8 OOD phase flagged no query")
+    check_launched(ood8, SQ8_KERNELS)
+    log(f"[laion-like] recall f32 {ood_run['recall']:.6f} sq8 "
+        f"{ood8['recall']:.6f}")
+    del ood8["eng"]
+
     table = time_kernels(torch, ops, ref)
     profile_join(torch, ood_run)
 
-    src = "src/repro_torch/kernels/csrc/distance.cu"
     replaces = {
         "pairwise_sq_dists": "src/repro/kernels/distance.py:54",
+        "pairlist_sq_dists": "src/repro/kernels/distance.py:54",
         "rowwise_sq_dists": "src/repro/kernels/distance.py:106",
         "gather_sq_dists": "src/repro/kernels/gather_distance.py:47",
+        "topk_merge": "src/repro/kernels/topk_merge.py:70",
+        "pairwise_sq_dists_int8": "src/repro/kernels/int8.py:64",
+        "rowwise_sq_dists_int8": "src/repro/kernels/int8.py:119",
     }
-    kernels = [dict(name=k, route="cuda", source=src, replaces=replaces[k],
-                    launches=main_run["launches"][k],
+    source = {k: "src/repro_torch/kernels/csrc/distance.cu" for k in
+              ("pairwise_sq_dists", "pairlist_sq_dists", "rowwise_sq_dists",
+               "gather_sq_dists")}
+    source.update(topk_merge="src/repro_torch/kernels/csrc/topk_merge.cu",
+                  pairwise_sq_dists_int8="src/repro_torch/kernels/csrc/"
+                                         "int8.cu",
+                  rowwise_sq_dists_int8="src/repro_torch/kernels/csrc/"
+                                        "int8.cu")
+    paths = {"f32": main_run["launches"], "sq8": sq8_run["launches"]}
+    kernels = [dict(name=k, route="cuda", source=source[k],
+                    replaces=replaces[k],
+                    launches=sum(p[k] for p in paths.values()),
+                    launches_by_path={n: p[k] for n, p in paths.items()},
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"])

@@ -1,9 +1,12 @@
 """Vector-join operator configs (port of ``repro.configs.vectorjoin``).
 
 ``PRESETS`` name the paper's §5.1.2 methods; ``EngineSpec`` is how a
-deployment instantiates ``JoinEngine`` (the ``default`` and ``ci``
-presets: one device, quant off — the sharded, serving and quantized
-specs arrive with their slices).
+deployment instantiates ``JoinEngine`` (one device; the sharded specs
+arrive with the multi-GPU slice). ``quant="sq8"`` makes every join the
+engine serves filter on certified int8 bounds with an exact f32 re-rank of
+the ambiguous band; ``quant_build="sq8"`` drives the offline index builds
+through the same cascade (identical edges, f32 build traffic cut to the
+band).
 """
 from __future__ import annotations
 
@@ -37,9 +40,14 @@ class EngineSpec:
     degree: int = 32               # index max out-degree R
     style: str = "nsg"
     max_cached_indexes: int = 4    # per-X artifact LRU capacity
+    quant: str = "off"             # storage mode of the joins (off | sq8)
+    quant_build: str = "off"       # cascade-driven index builds (off | sq8)
 
     def build_kw(self) -> dict:
-        return dict(k=self.k, degree=self.degree, style=self.style)
+        kw = dict(k=self.k, degree=self.degree, style=self.style)
+        if self.quant_build != "off":
+            kw["quant"] = self.quant_build
+        return kw
 
 
 ENGINE_PRESETS = {
@@ -53,13 +61,17 @@ ENGINE_PRESETS = {
 def make_engine(Y, spec: str | EngineSpec = "default", *,
                 default: JoinConfig | None = None, device=None, **overrides):
     """Instantiate a ``JoinEngine`` from a named (or explicit) spec;
-    ``device=None`` means the CUDA card."""
+    ``device=None`` means the CUDA card. A spec with ``quant`` other than
+    ``off`` sets that mode on the engine's default ``JoinConfig``."""
     from repro_torch.engine import JoinEngine
 
     if isinstance(spec, str):
         spec = ENGINE_PRESETS[spec]
     if overrides:
         spec = dataclasses.replace(spec, **overrides)
+    if spec.quant != "off":
+        default = dataclasses.replace(default or JoinConfig(),
+                                      quant=spec.quant)
     return JoinEngine(Y, build_kw=spec.build_kw(), default=default,
                       max_cached_indexes=spec.max_cached_indexes,
                       device=device)

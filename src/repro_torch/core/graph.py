@@ -1,10 +1,11 @@
 """Offline graph-index construction (paper §4.4, NSG style), in PyTorch.
 
-Port of ``repro.core.graph`` (f32 builds; the cascade-driven ``quant=``
-builds are a later slice). The pipeline is the reference's:
+Port of ``repro.core.graph``, f32 and cascade-driven (``quant="sq8"``)
+builds. The pipeline is the reference's:
 
   1. exact kNN graph — blocked pairwise distances (``kernels.ops``, the
-     CUDA pairwise kernel on the card) with a running top-k merge;
+     CUDA pairwise kernel on the card) with a running top-k merge (the
+     CUDA top-k merge kernel);
   2. RNG/MRNG edge pruning (paper Fig. 5);
   3. medoid navigating node;
   4. reverse edges and connectivity repair (nodes unreachable from the
@@ -15,8 +16,24 @@ Every step runs on the index's device. The reference runs step 4 on the
 host in Python loops; here the reverse-edge insertion is vectorized with
 the same result (see ``_add_reverse_edges``), since a loop over a
 million nodes would dominate the build.
+
+**Cascade-driven builds** (``build_index(..., quant="sq8")``): the kNN
+sweep runs on the int8 tier's certified bounds (the CUDA int8 pairwise
+kernel) and keeps, per row, only candidates whose lower bound beats the
+k-th smallest upper bound plus a matmul-rounding margin — a certified
+superset of the f32 top-k — in a fixed-width device buffer (a
+``StickyCap`` that grows and retries); the survivors are re-ranked with
+the pair-list entry of the f32 pairwise kernel, whose values equal the f32
+sweep's bit for bit (same dot, same epilogue, same norm tensor). The RNG
+prune resolves each comparison from bounds where they are decisive and
+recomputes only the ambiguous band in f32. The neighbor lists equal the
+f32 build's, up to which of several entries tied at exactly the k-th
+distance survives (see ``_knn_block``). Nothing leaves the device;
+``BuildStats`` reports the f32 traffic avoided.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -26,6 +43,33 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as _ref
 
 _INF = float("inf")
+
+
+@dataclasses.dataclass
+class BuildStats:
+    """Traffic accounting for one cascade-driven index build (the
+    reference's fields): ``f32_bytes`` is what the build moved through
+    f32 distance evaluations, ``f32_bytes_full`` what the plain f32 build
+    would have moved for the same steps, ``tier_bytes`` the int8 traffic
+    that replaced it; ``knn_pairs``/``knn_exact`` and ``prune_pairs``/
+    ``prune_exact`` count pairs bounded vs pairs needing exact f32."""
+    knn_pairs: int = 0
+    knn_exact: int = 0
+    prune_pairs: int = 0
+    prune_exact: int = 0
+    f32_bytes: int = 0
+    f32_bytes_full: int = 0
+    tier_bytes: int = 0
+
+    @property
+    def f32_saved_frac(self) -> float:
+        if self.f32_bytes_full == 0:
+            return 0.0
+        return 1.0 - self.f32_bytes / self.f32_bytes_full
+
+    def as_dict(self) -> dict:
+        return dict(dataclasses.asdict(self),
+                    f32_saved_frac=self.f32_saved_frac)
 
 
 def _as_vecs(vecs, device) -> torch.Tensor:
@@ -40,10 +84,35 @@ def _as_vecs(vecs, device) -> torch.Tensor:
 # 1. exact kNN graph (blocked)
 # ---------------------------------------------------------------------------
 
-def _knn_block(qvecs: torch.Tensor, vecs: torch.Tensor, qoff: int, *, k: int,
-               dblock: int, impl: str | None
+def _exclude_self(d: torch.Tensor, q0: int, q1: int, j0: int,
+                  j1: int) -> None:
+    """Set the self-distance entries of a (query rows [q0,q1)) × (data
+    rows [j0,j1)) block to +inf, in place."""
+    lo, hi = max(q0, j0), min(q1, j1)
+    if lo < hi:
+        r = torch.arange(lo, hi, device=d.device)
+        d[r - q0, r - j0] = _INF
+
+
+def _cut_block(d: torch.Tensor, j0: int, k: int
                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """kNN of a query block against all vecs (excluding self).
+    """A data block's own k smallest per row, back in id order (ties at
+    the k-th value: whichever ``torch.topk`` keeps)."""
+    bq, nb = d.shape
+    if nb > k:
+        _, pos = torch.topk(d, k, dim=1, largest=False, sorted=False)
+        pos, _ = torch.sort(pos, dim=1)
+        return torch.gather(d, 1, pos), (pos + j0).to(torch.int32)
+    ids = j0 + torch.arange(nb, device=d.device, dtype=torch.int32)
+    return d, ids.expand(bq, -1).contiguous()
+
+
+def _knn_block(vecs: torch.Tensor, vn: torch.Tensor, q0: int, q1: int, *,
+               k: int, dblock: int, impl: str | None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """kNN of query rows [q0, q1) of ``vecs`` against all rows (excluding
+    self); ``vn`` holds every row's squared norm, passed to the kernel so
+    that a pair-list re-rank reproduces these values.
 
     Equals the reference's stable merge over data blocks: the k smallest
     by (distance, id). Each data block is first cut to its own k smallest
@@ -52,43 +121,151 @@ def _knn_block(qvecs: torch.Tensor, vecs: torch.Tensor, qoff: int, *, k: int,
     entries tied at exactly the k-th distance survives can differ."""
     dev = vecs.device
     n = vecs.shape[0]
-    bq = qvecs.shape[0]
+    bq = q1 - q0
     bd = torch.full((bq, k), _INF, device=dev)
     bi = torch.full((bq, k), NO_NODE, dtype=torch.int32, device=dev)
-    self_ids = qoff + torch.arange(bq, device=dev)
     for j0 in range(0, n, dblock):
         j1 = min(j0 + dblock, n)
-        d = ops.pairwise_sq_dists(qvecs, vecs[j0:j1], impl=impl)
-        loc = self_ids - j0
-        inblk = (loc >= 0) & (loc < j1 - j0)
-        if bool(inblk.any()):
-            rows = torch.nonzero(inblk).squeeze(1)
-            d[rows, loc[rows]] = _INF
-        if j1 - j0 > k:
-            _, pos = torch.topk(d, k, dim=1, largest=False, sorted=False)
-            pos, _ = torch.sort(pos, dim=1)
-            d = torch.gather(d, 1, pos)
-            ids = (pos + j0).to(torch.int32)
-        else:
-            ids = (j0 + torch.arange(j1 - j0, device=dev, dtype=torch.int32)
-                   ).expand(bq, -1)
-        bd, bi = _ref.topk_merge(bd, bi, d, ids)
+        d = ops.pairwise_sq_dists(vecs[q0:q1], vecs[j0:j1], xn=vn[q0:q1],
+                                  yn=vn[j0:j1], impl=impl)
+        _exclude_self(d, q0, q1, j0, j1)
+        bd, bi = ops.topk_merge(bd, bi, *_cut_block(d, j0, k), impl=impl)
     return bd, bi
 
 
 def exact_knn(vecs, k: int, *, qblock: int = 4096, dblock: int = 65536,
-              impl: str | None = None, device=None
+              impl: str | None = None, device=None, cascade=None,
+              stats: BuildStats | None = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact kNN graph: (dists (N,k) f32, ids (N,k) int32), ascending."""
+    """Exact kNN graph: (dists (N,k) f32, ids (N,k) int32), ascending.
+
+    With a ``cascade`` that holds an int8 tier the sweep runs
+    filter-then-rerank on the device (``_cascade_knn``): the same lists
+    and distances, f32 traffic proportional to the survivor band."""
     vecs = _as_vecs(vecs, device)
     n = vecs.shape[0]
+    vn = _ref.sq_norms(vecs)
+    confirm = cascade.tier("int8") if cascade is not None else None
+    if confirm is not None:
+        return _cascade_knn(vecs, vn, confirm, k, qblock=qblock,
+                            dblock=dblock, impl=impl, stats=stats)
     out_d = torch.empty((n, k), dtype=torch.float32, device=vecs.device)
     out_i = torch.empty((n, k), dtype=torch.int32, device=vecs.device)
     for q0 in range(0, n, qblock):
         q1 = min(q0 + qblock, n)
         out_d[q0:q1], out_i[q0:q1] = _knn_block(
-            vecs[q0:q1], vecs, q0, k=k, dblock=dblock, impl=impl)
+            vecs, vn, q0, q1, k=k, dblock=dblock, impl=impl)
     return out_d, out_i
+
+
+def _cascade_knn(vecs: torch.Tensor, vn: torch.Tensor, tier, k: int, *,
+                 qblock: int, dblock: int, impl: str | None,
+                 stats: BuildStats | None, init_cap: int = 1024
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """kNN through the cascade's int8 tier: certified filter, exact
+    re-rank of the survivor band (``repro.core.graph._cascade_knn``).
+
+    Soundness: with τ the k-th smallest certified upper bound of a row, at
+    least k candidates lie within τ, and every member of the f32 top-k has
+    lower bound ≤ τ + 2g (g the matmul-rounding guard), so the filter
+    ``lb ≤ τ + margin`` (margin ≥ 2g) keeps a superset of the f32
+    selection. Per query block, a running top-k of upper bounds (the
+    top-k merge kernel after a per-block ``torch.topk`` cut) gives τ_run ≥
+    τ; each data block appends its survivors ``lb ≤ τ_run + margin`` to a
+    (rows, cap) device buffer and drops buffered entries the tighter
+    τ_run excludes, keeping ids ascending within a row. A row whose
+    survivors ever exceed the cap grows the sticky cap and redoes the
+    block. The survivors against the final τ are re-ranked with the
+    pair-list kernel and the k smallest by (distance, id) are kept."""
+    from repro_torch.quant.cascade import MATMUL_GUARD
+
+    st = tier.store
+    n, d = vecs.shape
+    dev = vecs.device
+    out_d = torch.empty((n, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((n, k), dtype=torch.int32, device=dev)
+    max_yn = float(st.norms.max()) if n else 0.0
+    cap = ops.StickyCap(max(init_cap, k), max(n, 1))
+    n_exact = torch.zeros((), dtype=torch.int64, device=dev)
+    for q0 in range(0, n, qblock):
+        q1 = min(q0 + qblock, n)
+        qc = tier.rows_as_queries(q0, q1)
+        # headroom over the 2g bound (g uses dequantized norms, which
+        # track the true norms only up to the quantization error)
+        margin = 4 * MATMUL_GUARD * (qc.norms + max_yn)
+        while True:
+            tau, sv_id, sv_lb, peak = _cascade_knn_sweep(
+                tier, qc, q0, q1, k, dblock, cap.cap, margin, impl)
+            need = int(peak)
+            if need <= cap.cap:
+                break
+            cap.grow(need)
+        final = (sv_id >= 0) & (sv_lb <= (tau + margin)[:, None])
+        n_exact += final.sum()
+        r, s = torch.nonzero(final, as_tuple=True)
+        exact = torch.full(sv_id.shape, _INF, device=dev)
+        exact[r, s] = ops.pairlist_sq_dists(
+            vecs, vecs, (r + q0).to(torch.int32), sv_id[r, s], xn=vn, yn=vn,
+            impl=impl)
+        # ids ascend within a row, so a stable sort by distance orders
+        # by (distance, id)
+        dist, order = torch.sort(exact, dim=1, stable=True)
+        out_d[q0:q1] = dist[:, :k]
+        out_i[q0:q1] = torch.gather(torch.where(final, sv_id, NO_NODE), 1,
+                                    order[:, :k])
+    if stats is not None:
+        n_pairs = n * n
+        ne = int(n_exact)
+        stats.knn_pairs += n_pairs
+        stats.knn_exact += ne
+        stats.tier_bytes += n_pairs * d
+        stats.f32_bytes += ne * d * 4
+        stats.f32_bytes_full += n_pairs * d * 4
+    return out_d, out_i
+
+
+def _cascade_knn_sweep(tier, qc, q0: int, q1: int, k: int, dblock: int,
+                       cap: int, margin: torch.Tensor, impl: str | None):
+    """One query block's pass over the data blocks. Returns ``(τ (bq,),
+    survivor ids (bq, cap) ascending per row, NO_NODE padded; their lower
+    bounds (+inf padded); the largest survivor count any row reached)``
+    — a count above ``cap`` means entries were dropped and the block must
+    be redone at a larger cap."""
+    n = tier.store.n_vectors
+    dev = qc.q.device
+    bq = q1 - q0
+    bd = torch.full((bq, k), _INF, device=dev)
+    bi = torch.full((bq, k), NO_NODE, dtype=torch.int32, device=dev)
+    sv_id = torch.full((bq, cap), NO_NODE, dtype=torch.int32, device=dev)
+    sv_lb = torch.full((bq, cap), _INF, device=dev)
+    peak = torch.zeros((bq,), dtype=torch.int64, device=dev)
+    for j0 in range(0, n, dblock):
+        j1 = min(j0 + dblock, n)
+        lb, ub = tier.pairwise_bounds(qc, impl=impl, y0=j0, y1=j1)
+        _exclude_self(lb, q0, q1, j0, j1)
+        _exclude_self(ub, q0, q1, j0, j1)
+        bd, bi = ops.topk_merge(bd, bi, *_cut_block(ub, j0, k), impl=impl)
+        thr = (bd[:, k - 1] + margin)[:, None]
+        # buffered entries the tighter τ_run still admits, compacted left
+        keep = sv_lb <= thr
+        n_old = keep.sum(dim=1)
+        pos = torch.where(keep, torch.cumsum(keep, dim=1) - 1, cap)
+        nid = torch.full((bq, cap + 1), NO_NODE, dtype=torch.int32,
+                         device=dev)
+        nlb = torch.full((bq, cap + 1), _INF, device=dev)
+        nid.scatter_(1, pos, sv_id)
+        nlb.scatter_(1, pos, sv_lb)
+        # this block's survivors after them, in column order
+        r, c = torch.nonzero(lb <= thr, as_tuple=True)
+        n_new = torch.bincount(r, minlength=bq)
+        first = torch.cumsum(n_new, dim=0) - n_new
+        rank = torch.arange(r.numel(), device=dev) - first[r]
+        tgt = (n_old[r] + rank).clamp_max(cap)
+        nid[r, tgt] = (c + j0).to(torch.int32)
+        nlb[r, tgt] = lb[r, c]
+        sv_id, sv_lb = nid[:, :cap].contiguous(), nlb[:, :cap].contiguous()
+        peak = torch.maximum(peak, n_old + n_new)
+    return bd[:, k - 1], sv_id, sv_lb, peak.max() if bq else 0
 
 
 # ---------------------------------------------------------------------------
@@ -131,6 +308,45 @@ def _rng_prune_block(vecs: torch.Tensor, cand_ids: torch.Tensor,
     pair = _pair_sq_dists(vecs[cand_ids.clamp_min(0).long()])
     valid = cand_ids != NO_NODE
     return _prune_from_lt(pair < cand_d[:, None, :], valid, cand_ids, R)
+
+
+def _rng_prune_block_cascade(vecs: torch.Tensor, q: torch.Tensor,
+                             norms: torch.Tensor, err: torch.Tensor,
+                             sd: torch.Tensor, cand_ids: torch.Tensor,
+                             cand_d: torch.Tensor, *, R: int
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Cascade-driven RNG pruning (``repro.core.graph.
+    _rng_prune_block_cascade``): each ``dist(w,v) < dist(u,v)`` comparison
+    is resolved from certified int8 bounds where they clear ``cand_d`` by
+    the f32 kernel's rounding guard, and recomputed with the f32 path's own
+    arithmetic (``_pair_sq_dists`` over a gathered tensor of the same
+    shape, whose rows outside the band collapse to row 0) where they do
+    not. Returns ``(pruned (b, R), n_f32_rows, n_amb_pairs)`` (0-d)."""
+    from repro_torch.quant.cascade import MATMUL_GUARD
+
+    safe = cand_ids.clamp_min(0).long()
+    pair_hat = _pair_sq_dists(q[safe].float() * sd)          # dequantized
+    nh, eh = norms[safe], err[safe]
+    nsum = nh[:, :, None] + nh[:, None, :]
+    slack = eh[:, :, None] + eh[:, None, :]
+    guard_hat = MATMUL_GUARD * nsum
+    lb = ops.quant_lower_bound(torch.clamp_min(pair_hat - guard_hat, 0.0),
+                               slack)
+    ub = ops.quant_upper_bound(pair_hat + guard_hat, slack)
+    # f32-kernel rounding margin (2× headroom: nh are dequantized norms)
+    g32 = (2 * MATMUL_GUARD) * nsum
+    cd = cand_d[:, None, :]
+    sure_lt = ub + g32 < cd
+    sure_ge = lb - g32 >= cd
+    valid = cand_ids != NO_NODE
+    amb = (valid[:, :, None] & valid[:, None, :]) & ~(sure_lt | sure_ge)
+    # f32 rows only for candidates in an ambiguous pair
+    needed = torch.any(amb, dim=2) | torch.any(amb, dim=1)
+    pair32 = _pair_sq_dists(vecs[torch.where(needed, safe, 0)])
+    lt = torch.where(amb, pair32 < cd, sure_lt)
+    return (_prune_from_lt(lt, valid, cand_ids, R), needed.sum(),
+            amb.sum())
 
 
 # ---------------------------------------------------------------------------
@@ -259,34 +475,70 @@ def _mean_nbr_dist(vecs: torch.Tensor, nbrs: torch.Tensor, impl: str | None,
 def build_index(vecs, *, k: int = 48, degree: int = 32,
                 n_data: int | None = None, prune_block: int = 16384,
                 seed: int = 0, impl: str | None = None, style: str = "nsg",
-                quant: str | None = None, device=None) -> GraphIndex:
+                quant=None, build_stats: BuildStats | None = None,
+                knn_out: dict | None = None, device=None) -> GraphIndex:
     """Build a graph index over ``vecs`` (see ``repro.core.graph.build_index``).
 
     ``vecs`` is a tensor (kept on its device unless ``device`` is given) or
     an array (placed on ``device``; ``None`` means the CUDA card).
+    ``quant`` is a quant mode name or a prebuilt ``FilterCascade`` over
+    ``vecs``: with an int8 tier, the kNN sweep and the RNG prune run on
+    certified bounds (the same edges; ``build_stats`` collects the
+    traffic). ``knn_out``, if given, receives the kNN lists the prune
+    started from (``"dists"``, ``"ids"``).
     """
-    if quant is not None and quant != "off":
-        raise NotImplementedError(
-            "cascade-driven index builds (quant=) arrive with the sq8 slice "
-            "(ROADMAP Queue A slice 7)")
     if style not in ("nsg", "nsw"):
         raise ValueError(f"unknown style {style!r}")
     vecs = _as_vecs(vecs, device)
-    n = vecs.shape[0]
+    n, d = vecs.shape
     k = min(k, n - 1)
-    cand_d, cand_i = exact_knn(vecs, k, impl=impl)
+    cascade = None
+    if quant is not None and quant != "off":
+        if isinstance(quant, str):
+            from repro_torch.quant.cascade import (TIERS_BY_MODE,
+                                                   build_cascade)
+            # the build consults only the confirming int8 tier
+            mode = "sq8" if "int8" in TIERS_BY_MODE[quant] else quant
+            cascade = build_cascade(vecs, mode)
+        else:
+            cascade = quant
+    cand_d, cand_i = exact_knn(vecs, k, impl=impl, cascade=cascade,
+                               stats=build_stats)
+    if knn_out is not None:
+        knn_out.update(dists=cand_d, ids=cand_i)
+    int8_tier = cascade.tier("int8") if cascade is not None else None
     if style == "nsw":
         half = max(degree // 2, 1)   # leave slots for reverse edges
         nbrs = torch.full((n, degree), NO_NODE, dtype=torch.int32,
                           device=vecs.device)
         nbrs[:, :half] = cand_i[:, :half]
+    elif int8_tier is not None:
+        from repro_torch.quant.store import dim_scales
+        st = int8_tier.store
+        sd = dim_scales(st.scales, d, st.group_size)
+        nbrs = torch.empty((n, degree), dtype=torch.int32, device=vecs.device)
+        n_rows = n_amb = 0
+        for b0 in range(0, n, prune_block):
+            b1 = min(b0 + prune_block, n)
+            nbrs[b0:b1], rows, amb = _rng_prune_block_cascade(
+                vecs, st.q, st.norms, st.err, sd, cand_i[b0:b1],
+                cand_d[b0:b1], R=degree)
+            n_rows = n_rows + rows
+            n_amb = n_amb + amb
+        if build_stats is not None:
+            n_cand = int((cand_i >= 0).sum())
+            build_stats.prune_pairs += n_cand * k
+            build_stats.prune_exact += int(n_amb)
+            build_stats.tier_bytes += n_cand * d
+            build_stats.f32_bytes += int(n_rows) * d * 4
+            build_stats.f32_bytes_full += n_cand * d * 4
     else:
         nbrs = torch.empty((n, degree), dtype=torch.int32, device=vecs.device)
         for b0 in range(0, n, prune_block):
             b1 = min(b0 + prune_block, n)
             nbrs[b0:b1] = _rng_prune_block(vecs, cand_i[b0:b1],
                                            cand_d[b0:b1], R=degree)
-    del cand_d, cand_i
+    del cand_d, cand_i, cascade
     start = _medoid(vecs, seed=seed)
     nbrs = _add_reverse_edges(nbrs)
     nbrs = _repair_connectivity(vecs, nbrs, start, impl)

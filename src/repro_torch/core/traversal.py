@@ -2,8 +2,11 @@
 
 Port of ``repro.core.traversal`` for the merged-index path: candidate
 probing with the per-lane visited bitmap and in-batch dedup, and
-``range_expand`` (BFS, or the hybrid BBFS for OOD queries). The greedy
-search of the search-path methods arrives with ROADMAP Queue A slice 5.
+``range_expand`` (BFS, or the hybrid BBFS for OOD queries), exact f32 or
+through a ``FilterCascade`` (``cascade_bounds``: every distance is then a
+certified lower bound from the int8 gather kernel, and the hybrid beam
+carries certified upper bounds for its eviction guard). The greedy search
+of the search-path methods arrives with ROADMAP Queue A slice 5.
 
 How the JAX primitives map here (each choice keeps the reference's exact
 traversal order, so ``n_dist`` and ``n_iters`` match it):
@@ -34,6 +37,9 @@ from repro_torch.kernels import ops
 
 _INF = float("inf")
 _SORT_PAD = 2**30
+# Offset that sorts beam entries protected by a certified upper bound
+# ahead of every unprotected one (the reference's constant, in f32).
+_PROTECT_OFF = 1e30
 
 
 def bitmap_words(n_nodes: int) -> int:
@@ -54,13 +60,28 @@ def bit_of(ids: torch.Tensor) -> torch.Tensor:
 # probing: distances + visited-dedup for a (B, K) candidate id matrix
 # ---------------------------------------------------------------------------
 
+def cascade_bounds(cascade, qc, cand: torch.Tensor, valid: torch.Tensor, *,
+                   dist_impl: str | None):
+    """Certified bounds for candidate ids from a ``FilterCascade``
+    (``repro.core.traversal.cascade_bounds`` for the one-tier sq8 cascade;
+    the escalation through a cheaper tier arrives with the sketch tier,
+    ROADMAP Queue A slice 8). Invalid slots pass NO_NODE, so the int8
+    gather kernel reads no row for them. Returns ``(lb, ub)``."""
+    lb, ub, _ = cascade.final.gather_bounds(
+        qc[-1], torch.where(valid, cand, NO_NODE), impl=dist_impl)
+    return lb, ub
+
+
 def _probe(vecs: torch.Tensor, x: torch.Tensor, cand: torch.Tensor,
            valid: torch.Tensor, visited: torch.Tensor, *, n_data: int,
-           traverse_nondata: bool, dist_impl: str | None):
+           traverse_nondata: bool, dist_impl: str | None, cascade=None,
+           qc=None):
     """Distances to candidate ids with dedup + visited masking.
 
     ``visited`` (B, W) int32 is updated in place. Returns ``(dist (B,K) f32,
-    +inf at invalid; valid; visited; n_new (B,) int32)``.
+    +inf at invalid; ub (B,K) certified upper bounds (= dist on the exact
+    path); valid; visited; n_new (B,) int32)``. With a ``cascade`` (and
+    ``qc`` = ``cascade.encode(x)``), ``dist`` is a certified lower bound.
     """
     B, K = cand.shape
     valid = valid & (cand != NO_NODE)
@@ -80,46 +101,59 @@ def _probe(vecs: torch.Tensor, x: torch.Tensor, cand: torch.Tensor,
     dup &= sorted_ids != _SORT_PAD
     keep = torch.ones_like(valid).scatter(1, order, ~dup)
     valid = valid & keep
-    # invalid slots pass NO_NODE: the kernel reads no row and returns +inf,
+    # invalid slots pass NO_NODE: the kernels read no row and return +inf,
     # which is the reference's masked value
-    dist = ops.gather_sq_dists(vecs, x, torch.where(valid, cand, NO_NODE),
-                               impl=dist_impl)
+    if cascade is not None:
+        dist, ub = cascade_bounds(cascade, qc, cand, valid,
+                                  dist_impl=dist_impl)
+    else:
+        dist = ops.gather_sq_dists(vecs, x, torch.where(valid, cand, NO_NODE),
+                                   impl=dist_impl)
+        ub = dist
     # mark visited: deduped ⇒ each (word, bit) is added once ⇒ add == or
     visited.scatter_add_(1, w, torch.where(valid, bit, 0))
     n_new = torch.sum(valid, dim=1, dtype=torch.int32)
-    return dist, valid, visited, n_new
+    return dist, ub, valid, visited, n_new
 
 
 def _expand(index_vecs: torch.Tensor, index_nbrs: torch.Tensor,
             x: torch.Tensor, sel_ids: torch.Tensor, sel_valid: torch.Tensor,
             visited: torch.Tensor, *, n_data: int, traverse_nondata: bool,
-            dist_impl: str | None):
+            dist_impl: str | None, cascade=None, qc=None):
     """Gather neighbor rows of selected nodes and probe them."""
     B, E = sel_ids.shape
     R = index_nbrs.shape[1]
     rows = index_nbrs[sel_ids.clamp_min(0).long()]           # (B, E, R)
     cand = rows.reshape(B, E * R)
     valid = sel_valid[:, :, None].expand(B, E, R).reshape(B, E * R)
-    dist, valid, visited, n_new = _probe(
+    dist, ub, valid, visited, n_new = _probe(
         index_vecs, x, cand, valid, visited, n_data=n_data,
-        traverse_nondata=traverse_nondata, dist_impl=dist_impl)
-    return cand, dist, valid, visited, n_new
+        traverse_nondata=traverse_nondata, dist_impl=dist_impl,
+        cascade=cascade, qc=qc)
+    return cand, dist, ub, valid, visited, n_new
 
 
 def _take(a: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     return torch.gather(a, 1, order)
 
 
-def _beam_merge(bd, bi, bexp, cd, ci, cexp):
-    """Merge a beam with candidates, keep the L smallest (stable: ties go
-    to the beam, then to the lower slot). On the exact f32 path this is
-    also the reference's ``_hybrid_merge``: its eviction guard and the
-    upper bounds it carries serve only the quantized modes."""
+def _hybrid_merge(bd, bi, bexp, bub, cd, ci, cexp, cub, *, protect_th2):
+    """Merge the hybrid out-range beam with candidates, keep L entries and
+    carry their certified upper bounds (stable: ties go to the beam, then
+    to the lower slot). Entries whose upper bound beats ``protect_th2``
+    sort ahead of every unprotected one, so eviction cannot drop a
+    candidate certifiably within the protection radius (the OOD recall
+    floor under quantized modes); ``protect_th2=None`` (exact f32, or the
+    guard off) is a plain distance merge."""
     L = bd.shape[1]
     alld = torch.cat([bd, cd], dim=1)
-    order = torch.sort(alld, dim=1, stable=True)[1][:, :L]
+    allu = torch.cat([bub, cub], dim=1)
+    key = alld
+    if protect_th2 is not None:
+        key = torch.where(allu < protect_th2, allu - _PROTECT_OFF, alld)
+    order = torch.sort(key, dim=1, stable=True)[1][:, :L]
     return (_take(alld, order), _take(torch.cat([bi, ci], dim=1), order),
-            _take(torch.cat([bexp, cexp], dim=1), order))
+            _take(torch.cat([bexp, cexp], dim=1), order), _take(allu, order))
 
 
 def _mark(flags: torch.Tensor, pos: torch.Tensor, m: torch.Tensor
@@ -150,7 +184,8 @@ def range_expand(index: GraphIndex, x: torch.Tensor, theta: float, *,
                  traverse_nondata: bool, init_idx: torch.Tensor,
                  init_dist: torch.Tensor, init_valid: torch.Tensor,
                  visited: torch.Tensor, best_dist: torch.Tensor,
-                 best_idx: torch.Tensor, n_dist: torch.Tensor
+                 best_idx: torch.Tensor, n_dist: torch.Tensor,
+                 cascade=None, qc=None, init_ub: torch.Tensor | None = None
                  ) -> ExpandResult:
     """Enumerate all reachable in-range data points from initial candidates.
 
@@ -158,6 +193,12 @@ def range_expand(index: GraphIndex, x: torch.Tensor, theta: float, *,
     (for the merged index, the probed neighbor row). In-range data entries
     seed the result pool; the rest seed the hybrid out-range beam (BBFS
     only — plain BFS drops them). ``visited`` is updated in place.
+
+    Under a ``cascade`` every distance is a certified lower bound, so the
+    pool is a superset of the exact one and the caller re-ranks it; the
+    hybrid beam carries (lb, ub) pairs (``init_ub`` for the initial
+    candidates) and protects entries with ub < ``hybrid_guard``·θ² from
+    eviction.
     """
     vecs, nbrs = index.vecs, index.nbrs
     dev = x.device
@@ -165,6 +206,11 @@ def range_expand(index: GraphIndex, x: torch.Tensor, theta: float, *,
     C, Lh, E = cfg.pool_cap, cfg.hybrid_beam, cfg.expand_per_iter
     th2 = sq_theta(theta)
     use_hb = hybrid and Lh > 0
+    # eviction protection only matters when distances are bounds
+    protect_th2 = (float(np.float32(cfg.hybrid_guard) * np.float32(th2))
+                   if cascade is not None and cfg.hybrid_guard > 0 else None)
+    if init_ub is None:
+        init_ub = torch.full_like(init_dist, _INF)
 
     is_data = (init_idx >= 0) & (init_idx < n_data)
     inr = init_valid & is_data & (init_dist < th2)
@@ -187,12 +233,14 @@ def range_expand(index: GraphIndex, x: torch.Tensor, theta: float, *,
     hb_dist = torch.full((B, L1), _INF, device=dev)
     hb_idx = torch.full((B, L1), NO_NODE, dtype=torch.int32, device=dev)
     hb_exp = torch.zeros((B, L1), dtype=torch.bool, device=dev)
+    hb_ub = torch.full((B, L1), _INF, device=dev)
     if use_hb:
         outr = init_valid & ~inr
-        hb_dist, hb_idx, hb_exp = _beam_merge(
-            hb_dist, hb_idx, hb_exp,
+        hb_dist, hb_idx, hb_exp, hb_ub = _hybrid_merge(
+            hb_dist, hb_idx, hb_exp, hb_ub,
             torch.where(outr, init_dist, _INF),
-            torch.where(outr, init_idx, NO_NODE), torch.zeros_like(outr))
+            torch.where(outr, init_idx, NO_NODE), torch.zeros_like(outr),
+            torch.where(outr, init_ub, _INF), protect_th2=protect_th2)
 
     pool_exp = torch.zeros((B, C + 1), dtype=torch.bool, device=dev)
     pool_exp[:, C] = True
@@ -233,9 +281,10 @@ def range_expand(index: GraphIndex, x: torch.Tensor, theta: float, *,
 
         # inactive lanes select nothing, so their visited words and counts
         # do not change: the update can go in place
-        cand, cd, cv, visited, n_new = _expand(
+        cand, cd, cub, cv, visited, n_new = _expand(
             vecs, nbrs, x, sel_ids, sel_valid, visited, n_data=n_data,
-            traverse_nondata=traverse_nondata, dist_impl=cfg.dist_impl)
+            traverse_nondata=traverse_nondata, dist_impl=cfg.dist_impl,
+            cascade=cascade, qc=qc)
         n_dist = n_dist + torch.where(active, n_new, 0)
 
         cis_data = (cand >= 0) & (cand < n_data)
@@ -257,10 +306,11 @@ def range_expand(index: GraphIndex, x: torch.Tensor, theta: float, *,
         # --- hybrid beam absorbs the rest (bounded, Alg. 4 lines 12–16) ---
         if use_hb:
             cout = cv & ~cinr & active[:, None]
-            hb_dist, hb_idx, hb_exp = _beam_merge(
-                hb_dist, hb_idx, hb_exp,
+            hb_dist, hb_idx, hb_exp, hb_ub = _hybrid_merge(
+                hb_dist, hb_idx, hb_exp, hb_ub,
                 torch.where(cout, cd, _INF),
-                torch.where(cout, cand, NO_NODE), torch.zeros_like(cout))
+                torch.where(cout, cand, NO_NODE), torch.zeros_like(cout),
+                torch.where(cout, cub, _INF), protect_th2=protect_th2)
 
         # --- best-seen tracking (Alg. 2 lines 38–39) ---
         cbest, cargmin = torch.min(cd, dim=1)

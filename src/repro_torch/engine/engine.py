@@ -7,8 +7,13 @@ and serves joins and threshold sweeps from it. ``build_counts`` shows the
 reuse.
 
 Supported here: methods ``nlj``, ``es_mi`` and ``es_mi_adapt``, quant
-``off``, one shard. Everything else raises ``NotImplementedError`` naming
-the ROADMAP slice that brings it.
+``off`` and ``sq8`` (joins and, through ``build_kw["quant"]``, the
+cascade-driven index build), one shard. Everything else raises
+``NotImplementedError`` naming the ROADMAP slice that brings it.
+
+Under ``sq8`` the int8 store of each index artifact is built once
+(``tier_store``, counted in ``build_counts["quant"]``) and shared by the
+artifact's cascade-driven build and every join served from it.
 
 ``device=None`` means the CUDA card; without one the constructor raises
 rather than run on the CPU (pass ``device="cpu"`` for the plain versions).
@@ -33,6 +38,7 @@ from repro_torch.obs import metrics as obs_metrics
 
 _MI_METHODS = ("es_mi", "es_mi_adapt")
 _SEARCH_METHODS = ("index", "es", "es_hws", "es_sws")
+_PORTED_QUANT = ("off", "sq8")
 
 # ~64 KiB of content sampled per fingerprint (see repro.engine.engine)
 _FP_SAMPLE_BYTES = 1 << 16
@@ -116,7 +122,10 @@ class JoinEngine:
         self.metrics = metrics if metrics is not None else \
             obs_metrics.metrics()
         self._merged = _LRU(max_cached_indexes)
-        self.build_counts: dict[str, int] = {"merged": 0}
+        # compressed tier stores mirror the index artifacts they compress,
+        # keyed by (tier name, artifact kind[, X fingerprint])
+        self._tier_stores = _LRU(4 * max_cached_indexes)
+        self.build_counts: dict[str, int] = {"merged": 0, "quant": 0}
         self.build_seconds = 0.0
         self.serve_stats: dict[str, int] = {
             "joins": 0, "queries": 0, "pairs": 0}
@@ -136,6 +145,18 @@ class JoinEngine:
             return X.to(device=self.device, dtype=torch.float32).contiguous()
         return torch.as_tensor(np.asarray(X, np.float32), device=self.device)
 
+    def _build_kw_for(self, key: tuple, vecs) -> dict:
+        """``build_kw`` with a ``quant`` mode resolved to a cascade over
+        the artifact's cached tier store, so the cascade-driven build and
+        the joins served from that artifact share one int8 store."""
+        bk = dict(self.build_kw)
+        mode = bk.pop("quant", None)
+        if mode and mode != "off":
+            from repro_torch.quant.cascade import make_cascade
+            bk["quant"] = make_cascade(
+                [("int8", self.tier_store(key, "int8", vecs))])
+        return bk
+
     def merged_index(self, X) -> GraphIndex:
         """Merged index G_{X∪Y} (greedy phase offloaded, paper §4.4)."""
         fp = _fingerprint(X)
@@ -145,14 +166,47 @@ class JoinEngine:
             from repro_torch.core import graph
             t0 = time.perf_counter()
             merged_vecs = torch.cat([self.Y, self._as_x(X)], dim=0)
-            hit = graph.build_index(merged_vecs, n_data=int(self.Y.shape[0]),
-                                    **self.build_kw)
+            hit = graph.build_index(
+                merged_vecs, n_data=int(self.Y.shape[0]),
+                **self._build_kw_for(("merged", fp), merged_vecs))
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.build_seconds += time.perf_counter() - t0
             self.build_counts["merged"] += 1
             self._merged.put(fp, hit)
         return hit
+
+    def tier_store(self, key: tuple, tier_name: str, vecs):
+        """The compressed store behind one cascade tier of one index
+        artifact (built once, LRU'd). ``key`` names the artifact
+        (``("y",)`` or ``("merged", fp)``); ``vecs`` is its f32 table."""
+        from repro_torch.quant.cascade import build_tier_store, tier_class
+
+        ck = (tier_name,) + key
+        hit = self._tier_stores.touch(ck)
+        self._cache_event("tier_store", hit is not None)
+        if hit is None:
+            t0 = time.perf_counter()
+            hit = build_tier_store(tier_name, vecs)
+            self.build_seconds += time.perf_counter() - t0
+            self.build_counts[tier_class(tier_name).build_counter] += 1
+            self._tier_stores.put(ck, hit)
+        return hit
+
+    def cascade_for(self, key: tuple, vecs, cfg: JoinConfig,
+                    stats: JoinStats):
+        """The ``FilterCascade`` of one index artifact under ``cfg.quant``
+        (None for quant off); ``stats.quant_bytes`` adds what is
+        resident."""
+        from repro_torch.quant.cascade import TIERS_BY_MODE, make_cascade
+
+        if cfg.quant == "off":
+            return None
+        names = TIERS_BY_MODE[cfg.quant]
+        casc = make_cascade([(n, self.tier_store(key, n, vecs))
+                             for n in names])
+        stats.quant_bytes += casc.nbytes
+        return casc
 
     def adopt(self, *, X=None, index_merged: GraphIndex | None = None
               ) -> None:
@@ -184,10 +238,11 @@ class JoinEngine:
         from repro_torch.core.join import cascade_join_pairs
 
         cfg = self._resolve(cfg, method, theta)
-        if cfg.quant != "off":
+        if cfg.quant not in _PORTED_QUANT:
             raise NotImplementedError(
-                f"quant={cfg.quant!r} arrives with the quantized slices "
-                f"(ROADMAP Queue A slices 7-9)")
+                f"quant={cfg.quant!r} arrives with its quantized slice "
+                f"(ROADMAP Queue A slice 8 for sketch8, 9 for pdx8 and "
+                f"sketchpdx8)")
         if cfg.method in _SEARCH_METHODS:
             raise NotImplementedError(
                 f"method {cfg.method!r} arrives with the search-path slice "
@@ -199,8 +254,9 @@ class JoinEngine:
 
         if cfg.method == "nlj":
             t0 = time.perf_counter()
+            casc = self.cascade_for(("y",), self.Y, cfg, stats)
             pairs, counts = cascade_join_pairs(
-                Xd, self.Y, cfg.theta, None, impl=cfg.traversal.dist_impl)
+                Xd, self.Y, cfg.theta, casc, impl=cfg.traversal.dist_impl)
             stats.n_rerank = counts["n_rerank"]
             stats.other_seconds = time.perf_counter() - t0
             stats.n_dist = int(Xd.shape[0]) * int(self.Y.shape[0])
@@ -209,8 +265,10 @@ class JoinEngine:
         all_pairs: list[np.ndarray] = []
         t0 = time.perf_counter()
         merged = self.merged_index(X)
+        casc = self.cascade_for(("merged", _fingerprint(X)), merged.vecs,
+                                cfg, stats)
         stats.other_seconds += time.perf_counter() - t0
-        W.run_mi_join(Xd, merged, cfg, stats, all_pairs)
+        W.run_mi_join(Xd, merged, cfg, stats, all_pairs, cascade=casc)
         pairs = (np.concatenate(all_pairs, axis=0) if all_pairs
                  else np.empty((0, 2), np.int64))
         return self._done(JoinResult(pairs=pairs, stats=stats), Xd)

@@ -3,11 +3,17 @@
 Queries are processed in waves of ``JoinConfig.wave_size`` lanes; a short
 final wave is padded with invalid lanes that are masked throughout. Each
 wave has a device phase (``launch_mi_wave``: probe the query's own
-merged-index row, then BFS / hybrid BBFS) and a host phase
-(``assemble_wave``: one device→host transfer of the pool block, then pair
-assembly). With overlap on, wave k+1 is launched before wave k is
-assembled, the reference's launch → launch → assemble order; pair sets
-are identical either way.
+merged-index row, then BFS / hybrid BBFS, then the epilogue
+``_finalize_wave``) and a host phase (``assemble_wave``: one device→host
+transfer of the pool block, then pair assembly). Under a quantized mode
+the traversal runs on certified int8 lower bounds, and the epilogue splits
+the pool into certified-sure entries and an ambiguous band that the f32
+gather kernel re-ranks through a ``RerankCap``-wide compaction; a wave
+whose band overflows the cap grows it and re-runs the epilogue
+(``_resolve_band``), so the emitted pairs never depend on the cap. With
+overlap on, wave k+1 is launched before wave k is assembled, the
+reference's launch → launch → assemble order; pair sets are identical
+either way.
 
 The traversal loop is host-stepped (one sync per iteration), so the
 device is mostly idle while the host assembles: the overlap keeps the
@@ -15,7 +21,7 @@ reference's order and stats rather than hiding host time. A second CUDA
 stream with pinned non-blocking copies is later work.
 
 The search-path waves (``index``/``es``/``es_hws``/``es_sws``) arrive with
-ROADMAP Queue A slice 5, the quantized re-rank with slices 7–9.
+ROADMAP Queue A slice 5.
 """
 from __future__ import annotations
 
@@ -42,24 +48,12 @@ def overlap_enabled(cfg: JoinConfig) -> bool:
 
 
 next_pow2 = ops.next_pow2
-
-
-class StickyCap:
-    """Sticky power-of-two grow-and-retry capacity (see
-    ``repro.engine.waves.StickyCap``)."""
-
-    def __init__(self, init: int, limit: int):
-        self.limit = limit
-        self.cap = min(next_pow2(max(init, 1)), limit)
-
-    def grow(self, needed: int) -> None:
-        self.cap = ops.grow_cap(self.cap, needed, self.limit)
+StickyCap = ops.StickyCap
 
 
 class RerankCap(StickyCap):
     """``StickyCap`` for the ambiguous-band re-rank, sized from the
-    traversal config. The f32 path has no band; the quantized slices
-    use it."""
+    traversal config (``init_cap`` overrides the cold start)."""
 
     def __init__(self, tcfg: TraversalConfig, init_cap: int | None = None):
         init = (init_cap if init_cap is not None and init_cap > 0
@@ -100,18 +94,33 @@ def collect_pairs(qids: np.ndarray, keep: np.ndarray,
 # device-side wave epilogue
 # ---------------------------------------------------------------------------
 
-def _finalize_wave(pool_idx: torch.Tensor, pool_dist: torch.Tensor,
-                   n_pool: torch.Tensor, lane_valid: torch.Tensor):
-    """Device epilogue of one exact-f32 wave (the reference's
-    ``_finalize_wave`` with ``cascade=None``, ``seed_mode="none"``): every
-    filled pool slot of a valid lane is emitted.
+def _finalize_wave(cascade, qc, vecs: torch.Tensor, xw: torch.Tensor,
+                   pool_idx: torch.Tensor, pool_dist: torch.Tensor,
+                   n_pool: torch.Tensor, lane_valid: torch.Tensor,
+                   th2: float, *, cap: int, dist_impl: str | None):
+    """Device epilogue of one wave (the reference's ``_finalize_wave`` with
+    ``seed_mode="none"``). Without a cascade every filled pool slot of a
+    valid lane is emitted. With one, the pooled lower bounds split into
+    certified-sure entries and an ambiguous band; only the band, compacted
+    to ``cap`` slots per lane, is re-ranked exactly (f32 gather kernel).
 
-    Returns ``(keep (B, C), dist (B, C) — +inf off keep, n_amb (B,))``."""
+    Returns ``(keep (B, C), dist (B, C) — exact where re-ranked, +inf off
+    keep, n_amb (B,) band occupancy)``; band entries ranked ≥ ``cap``
+    were not re-ranked, so the caller retries when ``n_amb > cap``."""
     B, C = pool_idx.shape
     keep = ((torch.arange(C, device=pool_idx.device)[None, :] < n_pool[:, None])
             & lane_valid[:, None])
-    dist = torch.where(keep, pool_dist, _INF)
+    dist = pool_dist
     n_amb = torch.zeros((B,), dtype=torch.int32, device=pool_idx.device)
+    if cascade is not None:
+        sure, amb = cascade.pool_band(qc, pool_dist, pool_idx, th2)
+        sure = keep & sure
+        amb = keep & amb
+        exact, within, n_amb = ops.compact_gather_sq_dists(
+            vecs, xw, pool_idx, amb, min(cap, C), impl=dist_impl)
+        keep = sure | (within & (exact < th2))
+        dist = torch.where(within & torch.isfinite(exact), exact, pool_dist)
+    dist = torch.where(keep, dist, _INF)
     return keep, dist, n_amb
 
 
@@ -121,33 +130,80 @@ class WaveHandles:
     qids: np.ndarray               # (B,) global query ids
     lane_valid: np.ndarray         # (B,) bool
     xw: torch.Tensor               # (B, d) wave queries (device)
+    vecs: torch.Tensor             # index vector table (device)
+    cascade: object                # FilterCascade | None
+    qc: tuple | None
+    th2: float
+    # raw traversal outputs (kept for the retry path)
     pool_idx: torch.Tensor
+    raw_pool_dist: torch.Tensor
     n_pool: torch.Tensor
     best_idx: torch.Tensor
     n_dist: torch.Tensor
     overflow: torch.Tensor
     n_iters: tuple                 # host ints, summed at assembly
+    # epilogue outputs (replaced wholesale on a capacity retry)
     keep: torch.Tensor
     dist: torch.Tensor
     n_amb: torch.Tensor
     capctl: RerankCap
+    cap: int                       # band capacity the epilogue ran at
+    dist_impl: str | None
     # device-phase trace span ("traversal" lane), opened at dispatch and
     # closed at the first host contact with the results (_resolve_band)
     span: object = None
     n_amb_host: np.ndarray | None = None
 
 
+def _count_band(h: WaveHandles, stats: JoinStats) -> None:
+    if h.cascade is not None:
+        stats.n_rerank_gather += int(h.xw.shape[0]) * h.cap
+        stats.bytes_band += (int(h.xw.shape[0]) * h.cap
+                             * int(h.xw.shape[1]) * 4)
+
+
+def _refinalize(h: WaveHandles, stats: JoinStats) -> None:
+    """Re-run the device epilogue at the (grown) capacity."""
+    h.cap = h.capctl.cap
+    with obs_trace.tracer().span("wave/refinalize", lane="assembly",
+                                 cap=h.cap):
+        h.keep, h.dist, h.n_amb = _finalize_wave(
+            h.cascade, h.qc, h.vecs, h.xw, h.pool_idx, h.raw_pool_dist,
+            h.n_pool, torch.as_tensor(h.lane_valid, device=h.xw.device),
+            h.th2, cap=h.cap, dist_impl=h.dist_impl)
+    _count_band(h, stats)
+
+
 def _resolve_band(h: WaveHandles, stats: JoinStats) -> None:
-    """First host contact with a wave: fetch its band occupancy (always 0
-    on the exact path, which never re-ranks) and close the device span."""
+    """First host contact with a wave: fetch the per-lane band occupancy;
+    if a lane's band overflowed the capacity the wave's epilogue ran at,
+    grow the cap and re-run the epilogue, so the emitted set never depends
+    on the cap. Closes the device span.
+
+    The check is against the wave's own dispatch-time capacity, not the
+    sticky cap: with overlap on, an earlier wave's retry can grow the
+    sticky cap after this wave was dispatched. (The reference compares
+    with the sticky cap there and drops the band entries ranked between
+    the two capacities.)"""
     if h.n_amb_host is not None:
         return
+    tr = obs_trace.tracer()
     t0 = time.perf_counter()
-    with obs_trace.tracer().span("wave/band", lane="assembly"):
+    with tr.span("wave/band", lane="assembly") as sp:
         n_amb = h.n_amb.cpu().numpy()
-    max_amb = int(n_amb.max()) if n_amb.size else 0
+        max_amb = int(n_amb.max()) if n_amb.size else 0
+        if h.cascade is not None and max_amb > h.cap:
+            if tr:
+                tr.instant("wave/overflow_retry", lane="traversal",
+                           needed=max_amb, cap=h.cap)
+            stats.overflow_retries += 1
+            h.capctl.grow(max_amb)
+            _refinalize(h, stats)
+            n_amb = h.n_amb.cpu().numpy()
+        if sp:
+            sp.set(band_occ=max_amb, cap=h.cap)
     if h.span:
-        h.span.end(band_occ=max_amb, cap=h.capctl.cap)
+        h.span.end(band_occ=max_amb, cap=h.cap)
     h.n_amb_host = n_amb
     stats.wait_seconds += time.perf_counter() - t0
     stats.bytes_feedback += n_amb.nbytes
@@ -206,7 +262,7 @@ def assemble_wave(h: WaveHandles, stats: JoinStats, *,
 
 def _mi_probe(merged: GraphIndex, x: torch.Tensor, qids: torch.Tensor,
               lane_valid: torch.Tensor, *, traverse_nondata: bool,
-              dist_impl: str | None):
+              dist_impl: str | None, cascade=None, qc=None):
     """Probe each query's own neighborhood row in the merged index."""
     B = x.shape[0]
     W = traversal.bitmap_words(merged.n_nodes)
@@ -216,13 +272,14 @@ def _mi_probe(merged: GraphIndex, x: torch.Tensor, qids: torch.Tensor,
                          traversal.bit_of(qids)[:, None])
     rows = merged.nbrs[qids.long()]                          # (B, R)
     valid = lane_valid[:, None].expand(rows.shape)
-    dist, valid, visited, n_new = traversal._probe(
+    dist, ub, valid, visited, n_new = traversal._probe(
         merged.vecs, x, rows, valid, visited, n_data=merged.n_data,
-        traverse_nondata=traverse_nondata, dist_impl=dist_impl)
+        traverse_nondata=traverse_nondata, dist_impl=dist_impl,
+        cascade=cascade, qc=qc)
     best, arg = torch.min(dist, dim=1)
     besti = torch.gather(torch.where(valid, rows, NO_NODE), 1,
                          arg[:, None])[:, 0]
-    return rows, dist, valid, visited, n_new, best, besti
+    return rows, dist, ub, valid, visited, n_new, best, besti
 
 
 # ---------------------------------------------------------------------------
@@ -236,17 +293,22 @@ def _sync(t: torch.Tensor) -> None:
 
 def launch_mi_wave(merged: GraphIndex, xw: torch.Tensor, qids: np.ndarray,
                    lane_valid: np.ndarray, cfg: JoinConfig,
-                   stats: JoinStats, *, hybrid: bool,
-                   capctl: RerankCap | None = None,
+                   stats: JoinStats, *, hybrid: bool, cascade=None,
+                   qc=None, capctl: RerankCap | None = None,
                    sync: bool = True) -> WaveHandles:
     """The device phase of one merged-index wave (probe + BFS/BBFS
-    expansion + epilogue). With ``sync`` the probe and expansion phases
-    are timed separately (the sequential path)."""
+    expansion + epilogue with the band-compacted re-rank). With ``sync``
+    the probe and expansion phases are timed separately (the sequential
+    path). ``cascade`` compresses the merged index (data and query
+    nodes); ``qc`` is ``cascade.encode(xw)`` (encoded here if omitted)."""
     tcfg = cfg.traversal
     dev = xw.device
     n_data = merged.n_data
     node_ids = torch.as_tensor(qids, device=dev).to(torch.int32) + n_data
     lv = torch.as_tensor(lane_valid, device=dev)
+    if cascade is not None and qc is None:
+        qc = cascade.encode(xw)
+    th2 = traversal.sq_theta(cfg.theta)
     if capctl is None:
         capctl = RerankCap(tcfg)
     tr = obs_trace.tracer()
@@ -254,9 +316,9 @@ def launch_mi_wave(merged: GraphIndex, xw: torch.Tensor, qids: np.ndarray,
 
     dspan = tr.begin("wave/device", lane="traversal", cap=capctl.cap)
     t0 = time.perf_counter()
-    rows, dist, valid, visited, n_new, best, besti = _mi_probe(
+    rows, dist, ub, valid, visited, n_new, best, besti = _mi_probe(
         merged, xw, node_ids, lv, traverse_nondata=hybrid,
-        dist_impl=tcfg.dist_impl)
+        dist_impl=tcfg.dist_impl, cascade=cascade, qc=qc)
     if sync:
         _sync(dist)
         stats.greedy_seconds += time.perf_counter() - t0
@@ -267,33 +329,39 @@ def launch_mi_wave(merged: GraphIndex, xw: torch.Tensor, qids: np.ndarray,
         hybrid=hybrid, traverse_nondata=hybrid,
         init_idx=rows, init_dist=dist, init_valid=valid,
         visited=visited, best_dist=best, best_idx=besti,
-        n_dist=n_new)
+        n_dist=n_new, cascade=cascade, qc=qc, init_ub=ub)
     if sync:
         _sync(r.pool_idx)
         stats.expand_seconds += time.perf_counter() - t0
 
-    keep, dist2, n_amb = _finalize_wave(r.pool_idx, r.pool_dist, r.n_pool,
-                                        lv)
+    keep, dist2, n_amb = _finalize_wave(
+        cascade, qc, merged.vecs, xw, r.pool_idx, r.pool_dist, r.n_pool, lv,
+        th2, cap=capctl.cap, dist_impl=tcfg.dist_impl)
     lsp.end(lanes=int(np.count_nonzero(lane_valid)), cap=capctl.cap,
             hybrid=hybrid)
-    return WaveHandles(
+    h = WaveHandles(
         qids=qids, lane_valid=np.asarray(lane_valid), xw=xw,
-        pool_idx=r.pool_idx, n_pool=r.n_pool, best_idx=r.best_idx,
-        n_dist=r.n_dist, overflow=r.overflow,
+        vecs=merged.vecs, cascade=cascade, qc=qc, th2=th2,
+        pool_idx=r.pool_idx, raw_pool_dist=r.pool_dist, n_pool=r.n_pool,
+        best_idx=r.best_idx, n_dist=r.n_dist, overflow=r.overflow,
         n_iters=(r.n_iters,), keep=keep, dist=dist2, n_amb=n_amb,
-        capctl=capctl, span=dspan)
+        capctl=capctl, cap=capctl.cap, dist_impl=tcfg.dist_impl, span=dspan)
+    _count_band(h, stats)
+    return h
 
 
 def run_mi_join(X: torch.Tensor, merged: GraphIndex, cfg: JoinConfig,
                 stats: JoinStats, all_pairs: list[np.ndarray], *,
-                qid_offset: int = 0,
+                qid_offset: int = 0, cascade=None,
                 capctl: RerankCap | None = None) -> None:
     """es_mi / es_mi_adapt join (greedy offloaded; BFS or adaptive BBFS).
 
     ``X`` (nq, d) is on the index's device; pair blocks are appended to
-    ``all_pairs``. MI waves are mutually independent, so with overlap on
-    the next wave is launched before the previous one is assembled
-    (including across the BFS/BBFS group boundary).
+    ``all_pairs``. ``cascade`` compresses the merged index; pooled
+    survivors are re-ranked exactly before emission. MI waves are mutually
+    independent, so with overlap on the next wave is launched before the
+    previous one is assembled (including across the BFS/BBFS group
+    boundary).
     """
     nq = X.shape[0]
     n_data = merged.n_data
@@ -331,8 +399,10 @@ def run_mi_join(X: torch.Tensor, merged: GraphIndex, cfg: JoinConfig,
             wave = ids_all[c0:c0 + cfg.wave_size]
             qids, lane_valid = pad_wave(wave, cfg.wave_size)
             xw = X[torch.as_tensor(qids, device=dev)]
+            qc = cascade.encode(xw) if cascade is not None else None
             h = launch_mi_wave(merged, xw, qids, lane_valid, cfg, stats,
-                               hybrid=hybrid, capctl=capctl, sync=not ov)
+                               hybrid=hybrid, cascade=cascade, qc=qc,
+                               capctl=capctl, sync=not ov)
             if ov:
                 if pending is not None:
                     drain(pending)

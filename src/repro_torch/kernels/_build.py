@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes``. The build runs at
-first use and is keyed by a hash of the sources and flags, so a fresh
-checkout builds itself (a few seconds) and later processes reuse the
+Each source is compiled with ``nvcc`` for ``sm_90a`` into an object, all
+of them at once in parallel processes, and the objects are linked into one
+shared library with a plain C interface, loaded with ``ctypes``. The build
+runs at first use and is keyed by a hash of the sources and flags, so a
+fresh checkout builds itself (a few seconds) and later processes reuse the
 library. Output goes to ``build/repro_torch_kernels/`` at the root of the
 checkout (``.gitignore`` lists ``build/``).
 
@@ -23,19 +24,26 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "distance.cu",)
+SOURCES = (CSRC / "distance.cu", CSRC / "int8.cu", CSRC / "topk_merge.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
-# C signatures of csrc/distance.cu (every pointer and the stream as void*)
+# C signatures of csrc/*.cu (every pointer and the stream as void*)
 _SIGNATURES = {
     "repro_pairwise_sq_dists": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "repro_rowwise_sq_dists": (_P, _P, _P, _LL, _I, _I, _I, _P),
     "repro_gather_sq_dists": (_P, _P, _P, _P, _LL, _I, _I, _LL, _I, _P),
+    "repro_pairlist_sq_dists": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _LL,
+                                _LL, _P),
+    "repro_pairwise_sq_dists_int8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                     _I, _P),
+    "repro_rowwise_sq_dists_int8": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _LL,
+                                    _I, _P),
+    "repro_topk_merge": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -67,22 +75,36 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources unless a library for their hash exists."""
+    """Compile the sources unless a library for their hash exists: one
+    ``nvcc -c`` per source, all started together, then one link."""
     global build_seconds, build_log
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)   # atomic: a concurrent build never sees a torn file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [Path(work) / f"{src.stem}.o" for src in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        build_log = "".join(f"== {src.name}\n{log}"
+                            for src, log in zip(SOURCES, logs))
+        bad = [src.name for src, p in zip(SOURCES, procs) if p.returncode]
+        if bad:
+            raise RuntimeError(f"nvcc failed on {bad}:\n{build_log}")
+        tmp = Path(work) / "lib.so"
+        proc = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        build_log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{build_log}")
+        os.replace(tmp, out)   # atomic: a concurrent build never sees a torn file
     (BUILD_DIR / f"{out.stem}.log").write_text(build_log)
     build_seconds = time.perf_counter() - t0
     return out

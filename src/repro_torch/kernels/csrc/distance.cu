@@ -35,6 +35,18 @@
 //    straight from the vector table, so the (B, K, d) gathered tensor the
 //    JAX traversal materializes never exists in device memory; an invalid
 //    id reads no row at all.
+//
+// 4. repro_pairlist_sq_dists — the pair-list entry of (1): out[p] =
+//    max(xn[qi[p]] + yn[yi[p]] - 2 * <x_qi, y_yi>, 0) for explicit
+//    (query, data) id pairs. It exists so that an exact re-rank of a
+//    sparse survivor set (the sq8 cascade kNN build) reproduces the tile
+//    kernel's values bit for bit: both accumulate the dot as one fmaf
+//    chain over dimensions 0..d-1 from 0 and finish with the same
+//    dist_epilogue in this translation unit, and the caller passes the
+//    same norm tensor to both. Design: a warp takes 32 pairs; it stages
+//    32-float slices of their rows in shared memory with coalesced loads,
+//    then each lane runs its own pair's fmaf chain over the slice in
+//    order. Bound: the bytes of the gathered rows.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -65,6 +77,13 @@ __device__ __forceinline__ void load_row4(const float* __restrict__ p, long long
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) v[i] = 0.f;
+}
+
+// The matmul-form distance epilogue shared by the tile kernel and the
+// pair-list kernel. 2.f * dot is exact, so whether nvcc contracts the
+// subtraction into an fma does not change the rounded result.
+__device__ __forceinline__ float dist_epilogue(float xn, float yn, float dot) {
+  return fmaxf(xn + yn - 2.f * dot, 0.f);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -122,7 +141,7 @@ pairwise_kernel(const float* __restrict__ x, const float* __restrict__ y,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const long long c = col0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-      if (c < N) orow[c] = fmaxf(xr + __ldg(yn + c) - 2.f * acc[i][j], 0.f);
+      if (c < N) orow[c] = dist_epilogue(xr, __ldg(yn + c), acc[i][j]);
     }
   }
 }
@@ -189,6 +208,42 @@ gather_kernel(const float* __restrict__ vecs, const float* __restrict__ x,
   if (lane == 0) out[pair] = s;
 }
 
+constexpr int kPairWarps = 4;
+
+__global__ void __launch_bounds__(kPairWarps * 32)
+pairlist_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                const float* __restrict__ xn, const float* __restrict__ yn,
+                const int* __restrict__ qi, const int* __restrict__ yi,
+                float* __restrict__ out, long long P, int d, long long B,
+                long long N) {
+  __shared__ float xs[kPairWarps][32][33];
+  __shared__ float ys[kPairWarps][32][33];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  const long long p = ((long long)blockIdx.x * kPairWarps + warp) * 32 + lane;
+  const bool in = p < P;
+  const int q = in ? __ldg(qi + p) : -1;
+  const int j = in ? __ldg(yi + p) : -1;
+  const int ok = in && q >= 0 && q < B && j >= 0 && j < N;
+  float acc = 0.f;
+  for (int c0 = 0; c0 < d; c0 += 32) {
+    const int k = c0 + lane;
+    for (int r = 0; r < 32; ++r) {   // coalesced: the warp reads row r's slice
+      const int qr = __shfl_sync(0xffffffffu, q, r);
+      const int jr = __shfl_sync(0xffffffffu, j, r);
+      const int okr = __shfl_sync(0xffffffffu, ok, r);
+      const bool ld = okr && k < d;
+      xs[warp][r][lane] = ld ? __ldg(x + (long long)qr * d + k) : 0.f;
+      ys[warp][r][lane] = ld ? __ldg(y + (long long)jr * d + k) : 0.f;
+    }
+    __syncwarp();
+    const int kn = min(32, d - c0);
+    for (int t = 0; t < kn; ++t) acc = fmaf(xs[warp][lane][t], ys[warp][lane][t], acc);
+    __syncwarp();
+  }
+  if (in) out[p] = ok ? dist_epilogue(__ldg(xn + q), __ldg(yn + j), acc) : INFINITY;
+}
+
 }  // namespace
 
 extern "C" int repro_pairwise_sq_dists(const float* x, const float* y,
@@ -219,6 +274,19 @@ extern "C" int repro_gather_sq_dists(const float* vecs, const float* x,
   gather_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(vecs, x, idx, out,
                                                        n_pairs, K, d, N, vec4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_pairlist_sq_dists(const float* x, const float* y,
+                                       const float* xn, const float* yn,
+                                       const int* qi, const int* yi, float* out,
+                                       long long P, int d, long long B,
+                                       long long N, void* stream) {
+  const long long per_block = kPairWarps * 32;
+  const long long blocks = (P + per_block - 1) / per_block;
+  pairlist_kernel<<<static_cast<unsigned>(blocks), kPairWarps * 32, 0,
+                    static_cast<cudaStream_t>(stream)>>>(x, y, xn, yn, qi, yi,
+                                                         out, P, d, B, N);
   return static_cast<int>(cudaGetLastError());
 }
 

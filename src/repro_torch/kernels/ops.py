@@ -1,8 +1,8 @@
 """Public distance ops: one dispatcher per kernel (port of ``repro.kernels.ops``).
 
 Implementation selection (``impl``) follows the tensors' device:
-  * ``cuda`` — the hand-written kernels of ``csrc/distance.cu``, for CUDA
-    tensors;
+  * ``cuda`` — the hand-written kernels of ``csrc/*.cu`` (f32 distances,
+    int8 distances, the top-k merge), for CUDA tensors;
   * ``ref``  — the plain PyTorch versions in ``kernels/ref.py``, for CPU
     tensors (what the CPU tests run).
 An explicit ``impl`` must name the one its tensors' device takes.
@@ -23,8 +23,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
 IMPLS = ("ref", "cuda")
-LAUNCHES: dict[str, int] = {"pairwise_sq_dists": 0, "rowwise_sq_dists": 0,
-                            "gather_sq_dists": 0}
+LAUNCHES: dict[str, int] = {
+    "pairwise_sq_dists": 0, "pairlist_sq_dists": 0, "rowwise_sq_dists": 0,
+    "gather_sq_dists": 0, "topk_merge": 0, "pairwise_sq_dists_int8": 0,
+    "rowwise_sq_dists_int8": 0}
 _GRID_Y_MAX = 65535
 _MAX_BLOCKS = 2**31 - 1
 
@@ -69,6 +71,12 @@ def _vec4(d: int, *ts: torch.Tensor) -> int:
     return int(d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in ts))
 
 
+def _aligned(width: int, *ts: torch.Tensor) -> int:
+    """1 when rows of ``width`` bytes from these bases stay ``width``-
+    multiple aligned (the int8 kernels' wide-load paths)."""
+    return int(all(t.data_ptr() % width == 0 for t in ts))
+
+
 def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
@@ -77,8 +85,11 @@ def _stream(dev: torch.device) -> int:
 # pairwise: (B, d) x (N, d) -> (B, N)
 # ---------------------------------------------------------------------------
 
-def pairwise_sq_dists_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel; x, y contiguous f32 on one card, non-empty."""
+def pairwise_sq_dists_cuda(x: torch.Tensor, y: torch.Tensor,
+                           xn: torch.Tensor | None = None,
+                           yn: torch.Tensor | None = None) -> torch.Tensor:
+    """The CUDA kernel; x, y contiguous f32 on one card, non-empty;
+    ``xn``/``yn`` the rows' squared norms (``ref.sq_norms`` if omitted)."""
     dev = x.device
     _check("x", x, torch.float32, 2, dev)
     _check("y", y, torch.float32, 2, dev)
@@ -88,8 +99,13 @@ def pairwise_sq_dists_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"dims differ: x {tuple(x.shape)}, y {tuple(y.shape)}")
     if -(-B // 128) > _GRID_Y_MAX or max(B, N, d) >= 2**31:
         raise ValueError(f"shape too large for one launch: B={B} N={N} d={d}")
-    xn = _ref.sq_norms(x).contiguous()
-    yn = _ref.sq_norms(y).contiguous()
+    xn = _ref.sq_norms(x) if xn is None else xn
+    yn = _ref.sq_norms(y) if yn is None else yn
+    _check("xn", xn, torch.float32, 1, dev)
+    _check("yn", yn, torch.float32, 1, dev)
+    if xn.shape[0] != B or yn.shape[0] != N:
+        raise ValueError(f"norms {tuple(xn.shape)}, {tuple(yn.shape)} do not "
+                         f"match B={B}, N={N}")
     out = torch.empty((B, N), dtype=torch.float32, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
@@ -102,16 +118,72 @@ def pairwise_sq_dists_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def pairwise_sq_dists(x: torch.Tensor, y: torch.Tensor, *,
+                      xn: torch.Tensor | None = None,
+                      yn: torch.Tensor | None = None,
                       impl: str | None = None) -> torch.Tensor:
-    """(B, d) × (N, d) → (B, N) f32 squared L2 distances (matmul form)."""
+    """(B, d) × (N, d) → (B, N) f32 squared L2 distances (matmul form).
+    ``xn``/``yn`` pass the rows' squared norms (``ref.sq_norms`` of each
+    side when omitted); a caller that must reproduce these values later
+    through ``pairlist_sq_dists`` passes one norm tensor to both."""
     impl = _impl(impl, x)
     B, d = x.shape
     N = y.shape[0]
     if B == 0 or N == 0 or d == 0:
         return torch.zeros((B, N), dtype=torch.float32, device=x.device)
     if impl == "ref":
-        return _ref.pairwise_sq_dists(x, y)
-    return pairwise_sq_dists_cuda(x, y)
+        return _ref.pairwise_sq_dists(x, y, xn, yn)
+    return pairwise_sq_dists_cuda(x, y, xn, yn)
+
+
+# ---------------------------------------------------------------------------
+# pair list: (B, d), (N, d), (P,) query ids, (P,) data ids -> (P,)
+# ---------------------------------------------------------------------------
+
+def pairlist_sq_dists_cuda(x, y, xn, yn, qi, yi) -> torch.Tensor:
+    dev = x.device
+    _check("x", x, torch.float32, 2, dev)
+    _check("y", y, torch.float32, 2, dev)
+    _check("xn", xn, torch.float32, 1, dev)
+    _check("yn", yn, torch.float32, 1, dev)
+    _check("qi", qi, torch.int32, 1, dev)
+    _check("yi", yi, torch.int32, 1, dev)
+    B, d = x.shape
+    N = y.shape[0]
+    P = qi.shape[0]
+    if (y.shape[1] != d or yi.shape[0] != P or xn.shape[0] != B
+            or yn.shape[0] != N):
+        raise ValueError(f"shapes differ: x {tuple(x.shape)}, y "
+                         f"{tuple(y.shape)}, norms {tuple(xn.shape)}/"
+                         f"{tuple(yn.shape)}, pairs {P}/{yi.shape[0]}")
+    if -(-P // 128) > _MAX_BLOCKS or d >= 2**31:
+        raise ValueError(f"too many pairs for one launch: {P}")
+    out = torch.empty((P,), dtype=torch.float32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        code = lib.repro_pairlist_sq_dists(
+            x.data_ptr(), y.data_ptr(), xn.data_ptr(), yn.data_ptr(),
+            qi.data_ptr(), yi.data_ptr(), out.data_ptr(), P, d, B, N,
+            _stream(dev))
+    LAUNCHES["pairlist_sq_dists"] += 1
+    _build.check(code, "pairlist_sq_dists")
+    return out
+
+
+def pairlist_sq_dists(x: torch.Tensor, y: torch.Tensor, qi: torch.Tensor,
+                      yi: torch.Tensor, *, xn: torch.Tensor, yn: torch.Tensor,
+                      impl: str | None = None) -> torch.Tensor:
+    """(P,) f32 matmul-form squared distances of explicit pairs
+    ``(x[qi[p]], y[yi[p]])`` with the given squared norms; an id out of
+    range gives +inf. On the card this is the pairwise kernel's own
+    arithmetic (same dot, same epilogue), so with the same norm tensors
+    each value equals ``pairwise_sq_dists(x, y, xn=xn, yn=yn)[qi, yi]``
+    bit for bit — what the sq8 build's exact re-rank relies on."""
+    impl = _impl(impl, x)
+    if qi.shape[0] == 0:
+        return torch.zeros((0,), dtype=torch.float32, device=x.device)
+    if impl == "ref":
+        return _ref.pairlist_sq_dists(x, y, xn, yn, qi, yi)
+    return pairlist_sq_dists_cuda(x, y, xn, yn, qi, yi)
 
 
 # ---------------------------------------------------------------------------
@@ -198,6 +270,284 @@ def gather_sq_dists(vecs: torch.Tensor, x: torch.Tensor, idx: torch.Tensor,
     return gather_sq_dists_cuda(vecs, x, idx)
 
 
+# ---------------------------------------------------------------------------
+# top-k merge: sorted (B, L) beam ⊕ (B, K) candidates -> (B, L)
+# ---------------------------------------------------------------------------
+
+_TOPK_MAX = 12288          # L + K floats of one row in 48 KiB shared memory
+
+
+def topk_merge_cuda(bd, bi, cd, ci) -> tuple[torch.Tensor, torch.Tensor]:
+    dev = bd.device
+    _check("beam_dist", bd, torch.float32, 2, dev)
+    _check("beam_idx", bi, torch.int32, 2, dev)
+    _check("cand_dist", cd, torch.float32, 2, dev)
+    _check("cand_idx", ci, torch.int32, 2, dev)
+    B, L = bd.shape
+    K = cd.shape[1]
+    if bi.shape != bd.shape or ci.shape != cd.shape or cd.shape[0] != B:
+        raise ValueError(f"shapes differ: beam {tuple(bd.shape)}/"
+                         f"{tuple(bi.shape)}, cands {tuple(cd.shape)}/"
+                         f"{tuple(ci.shape)}")
+    if L + K > _TOPK_MAX or B >= 2**31:
+        raise ValueError(f"row too wide for one block: L={L} K={K}")
+    od = torch.empty((B, L), dtype=torch.float32, device=dev)
+    oi = torch.empty((B, L), dtype=torch.int32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        code = lib.repro_topk_merge(
+            bd.data_ptr(), bi.data_ptr(), cd.data_ptr(), ci.data_ptr(),
+            od.data_ptr(), oi.data_ptr(), B, L, K, _stream(dev))
+    LAUNCHES["topk_merge"] += 1
+    _build.check(code, "topk_merge")
+    return od, oi
+
+
+def topk_merge(beam_dist: torch.Tensor, beam_idx: torch.Tensor,
+               cand_dist: torch.Tensor, cand_idx: torch.Tensor, *,
+               impl: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge a sorted (B, L) beam with (B, K) candidates; keep the L
+    smallest in ascending order. Ties go to the beam, then to the lower
+    candidate slot; +inf slots come back as NO_NODE."""
+    impl = _impl(impl, beam_dist)
+    B, L = beam_dist.shape
+    if B == 0 or L == 0:
+        return (torch.empty((B, L), dtype=torch.float32,
+                            device=beam_dist.device),
+                torch.empty((B, L), dtype=torch.int32,
+                            device=beam_dist.device))
+    if impl == "ref":
+        return _ref.topk_merge(beam_dist, beam_idx, cand_dist, cand_idx)
+    return topk_merge_cuda(beam_dist, beam_idx, cand_dist, cand_idx)
+
+
+# ---------------------------------------------------------------------------
+# int8 (QuantStore codes)
+# ---------------------------------------------------------------------------
+
+def _check_scales(scales: torch.Tensor, d: int, group_size: int,
+                  dev: torch.device) -> None:
+    _check("scales", scales, torch.float32, 1, dev)
+    if group_size <= 0 or scales.shape[0] != -(-d // group_size):
+        raise ValueError(f"scales {tuple(scales.shape)} do not cover d={d} "
+                         f"in groups of {group_size}")
+
+
+def pairwise_sq_dists_int8_cuda(qx, qy, scales, xn, yn, group_size: int
+                                ) -> torch.Tensor:
+    dev = qx.device
+    _check("qx", qx, torch.int8, 2, dev)
+    _check("qy", qy, torch.int8, 2, dev)
+    _check("xn", xn, torch.float32, 1, dev)
+    _check("yn", yn, torch.float32, 1, dev)
+    B, d = qx.shape
+    N = qy.shape[0]
+    if qy.shape[1] != d or xn.shape[0] != B or yn.shape[0] != N:
+        raise ValueError(f"shapes differ: qx {tuple(qx.shape)}, qy "
+                         f"{tuple(qy.shape)}, norms {tuple(xn.shape)}/"
+                         f"{tuple(yn.shape)}")
+    _check_scales(scales, d, group_size, dev)
+    if -(-B // 128) > _GRID_Y_MAX or max(B, N, d) >= 2**31:
+        raise ValueError(f"shape too large for one launch: B={B} N={N} d={d}")
+    vec16 = int(d % 16 == 0 and group_size % 16 == 0
+                and _aligned(16, qx, qy))
+    out = torch.empty((B, N), dtype=torch.float32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        code = lib.repro_pairwise_sq_dists_int8(
+            qx.data_ptr(), qy.data_ptr(), scales.data_ptr(), xn.data_ptr(),
+            yn.data_ptr(), out.data_ptr(), B, N, d, group_size, vec16,
+            _stream(dev))
+    LAUNCHES["pairwise_sq_dists_int8"] += 1
+    _build.check(code, "pairwise_sq_dists_int8")
+    return out
+
+
+def _dequant_norms(q: torch.Tensor, scales: torch.Tensor,
+                   group_size: int) -> torch.Tensor:
+    deq = _ref._dequant(q, scales, group_size)
+    return torch.sum(deq * deq, dim=-1)
+
+
+def pairwise_sq_dists_int8(qx: torch.Tensor, qy: torch.Tensor,
+                           scales: torch.Tensor, *, group_size: int = 128,
+                           xn: torch.Tensor | None = None,
+                           yn: torch.Tensor | None = None,
+                           impl: str | None = None) -> torch.Tensor:
+    """(B, d) × (N, d) int8 → (B, N) f32 quantized-domain squared L2.
+
+    ``qx``/``qy`` share one scale grid; ``xn``/``yn`` are the dequantized
+    squared norms (the store's; recomputed from the codes if omitted)."""
+    impl = _impl(impl, qx)
+    B, d = qx.shape
+    N = qy.shape[0]
+    if B == 0 or N == 0 or d == 0:
+        return torch.zeros((B, N), dtype=torch.float32, device=qx.device)
+    if impl == "ref":
+        return _ref.pairwise_sq_dists_int8(qx, qy, scales,
+                                           group_size=group_size)
+    if xn is None:
+        xn = _dequant_norms(qx, scales, group_size)
+    if yn is None:
+        yn = _dequant_norms(qy, scales, group_size)
+    return pairwise_sq_dists_int8_cuda(qx, qy, scales, xn, yn, group_size)
+
+
+def _rowwise_int8_cuda(qx, cands, ids, scales, group_size: int, K: int
+                       ) -> torch.Tensor:
+    """The one int8 rowwise kernel: (B, K, d) candidates (``ids`` None)
+    or rows ``ids`` of the (N, d) code table."""
+    dev = qx.device
+    _check("qx", qx, torch.int8, 2, dev)
+    B, d = qx.shape
+    if ids is None:
+        _check("qcands", cands, torch.int8, 3, dev)
+        if cands.shape[0] != B or cands.shape[2] != d:
+            raise ValueError(f"shapes differ: qx {tuple(qx.shape)}, qcands "
+                             f"{tuple(cands.shape)}")
+        N, ids_ptr = 0, None
+    else:
+        _check("codes", cands, torch.int8, 2, dev)
+        _check("idx", ids, torch.int32, 2, dev)
+        if cands.shape[1] != d or ids.shape[0] != B:
+            raise ValueError(f"shapes differ: codes {tuple(cands.shape)}, "
+                             f"qx {tuple(qx.shape)}, idx {tuple(ids.shape)}")
+        N, ids_ptr = cands.shape[0], ids.data_ptr()
+    _check_scales(scales, d, group_size, dev)
+    n_pairs = B * K
+    if -(-n_pairs // 8) > _MAX_BLOCKS or max(K, d) >= 2**31:
+        raise ValueError(f"shape too large for one launch: B={B} K={K}")
+    vec4 = int(d % 4 == 0 and group_size % 4 == 0 and _aligned(4, qx, cands))
+    out = torch.empty((B, K), dtype=torch.float32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        code = lib.repro_rowwise_sq_dists_int8(
+            qx.data_ptr(), cands.data_ptr(), ids_ptr, scales.data_ptr(),
+            out.data_ptr(), n_pairs, K, d, group_size, N, vec4, _stream(dev))
+    LAUNCHES["rowwise_sq_dists_int8"] += 1
+    _build.check(code, "rowwise_sq_dists_int8")
+    return out
+
+
+def rowwise_sq_dists_int8(qx: torch.Tensor, qcands: torch.Tensor,
+                          scales: torch.Tensor, *, group_size: int = 128,
+                          impl: str | None = None) -> torch.Tensor:
+    """(B, d) × (B, K, d) int8 → (B, K) f32 quantized-domain squared L2
+    (difference form, exact in int32 per group)."""
+    impl = _impl(impl, qx)
+    B, d = qx.shape
+    K = qcands.shape[1]
+    if B == 0 or K == 0 or d == 0:
+        return torch.zeros((B, K), dtype=torch.float32, device=qx.device)
+    if impl == "ref":
+        return _ref.rowwise_sq_dists_int8(qx, qcands, scales,
+                                          group_size=group_size)
+    return _rowwise_int8_cuda(qx, qcands, None, scales, group_size, K)
+
+
+def gather_sq_dists_int8(codes: torch.Tensor, qx: torch.Tensor,
+                         idx: torch.Tensor, scales: torch.Tensor, *,
+                         group_size: int = 128,
+                         impl: str | None = None) -> torch.Tensor:
+    """(N, d) codes × (B, d) query codes × (B, K) int32 ids → (B, K) f32
+    ``rowwise_sq_dists_int8(qx, codes[idx])``, without building the
+    gathered tensor: the kernel reads each row by id. Ids outside [0, N)
+    (NO_NODE) come back +inf and read no row."""
+    impl = _impl(impl, qx)
+    B, K = idx.shape
+    if B == 0 or K == 0:
+        return torch.zeros((B, K), dtype=torch.float32, device=qx.device)
+    if impl == "ref":
+        return _ref.gather_sq_dists_int8(codes, qx, idx, scales,
+                                         group_size=group_size)
+    return _rowwise_int8_cuda(qx, codes, idx, scales, group_size, K)
+
+
+# ---------------------------------------------------------------------------
+# quantization error → certified distance bounds
+# ---------------------------------------------------------------------------
+
+def quant_lower_bound(d_hat: torch.Tensor, slack: torch.Tensor
+                      ) -> torch.Tensor:
+    """Certified lower bound on the true squared distance from the
+    quantized-domain ``d_hat`` and the per-pair L2 slack
+    ``‖x−x̂‖ + ‖y−ŷ‖`` (triangle inequality); +inf ``d_hat`` stays +inf."""
+    lb = torch.clamp_min(torch.sqrt(torch.clamp_min(d_hat, 0.0)) - slack,
+                         0.0)
+    return torch.where(torch.isfinite(d_hat), lb * lb, d_hat)
+
+
+def quant_upper_bound(d_hat: torch.Tensor, slack: torch.Tensor
+                      ) -> torch.Tensor:
+    """Certified upper bound on the true squared distance (symmetric)."""
+    ub = torch.sqrt(torch.clamp_min(d_hat, 0.0)) + slack
+    return torch.where(torch.isfinite(d_hat), ub * ub, d_hat)
+
+
+def quant_band_from_lb(lb: torch.Tensor, slack: torch.Tensor, th2
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sure, ambiguous) split of lower-bound survivors: the matching
+    upper bound is ``quant_upper_bound(lb, 2·slack)``; sure entries are
+    certified true pairs, ambiguous ones need the exact kernel."""
+    ub = quant_upper_bound(lb, 2.0 * slack)
+    sure = ub < th2
+    return sure, ~sure
+
+
+# ---------------------------------------------------------------------------
+# band compaction — sparse re-rank over a boolean band mask
+# ---------------------------------------------------------------------------
+
+def band_compact(mask: torch.Tensor, ids: torch.Tensor, cap: int
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stably compact the masked slots of a (B, C) id matrix into ``cap``
+    slots. Returns ``(slots (B, cap) int32 source columns, −1 unused;
+    cand (B, cap) int32 ids, NO_NODE unused; n_masked (B,) int32)``;
+    entries ranked ≥ cap are not compacted — callers retry at a larger
+    cap when ``n_masked > cap``."""
+    B, C = mask.shape
+    pos = torch.cumsum(mask, dim=1) - 1
+    within = mask & (pos < cap)
+    tgt = torch.where(within, pos, cap)
+    col = torch.arange(C, dtype=torch.int32, device=mask.device).expand(B, C)
+    slots = torch.full((B, cap + 1), -1, dtype=torch.int32,
+                       device=mask.device)
+    slots.scatter_(1, tgt, torch.where(within, col, -1))
+    slots = slots[:, :cap]
+    cand = torch.where(slots >= 0,
+                       torch.gather(ids, 1, slots.clamp_min(0).long()),
+                       -1).to(torch.int32)
+    return slots, cand, torch.sum(mask, dim=1, dtype=torch.int32)
+
+
+def band_scatter(slots: torch.Tensor, vals: torch.Tensor, C: int,
+                 fill: float = float("inf")) -> torch.Tensor:
+    """Inverse of ``band_compact``: (B, cap) compacted values back to
+    their (B, C) source columns; unused slots read ``fill``."""
+    B = slots.shape[0]
+    tgt = torch.where(slots >= 0, slots, C).long()
+    out = torch.full((B, C + 1), fill, dtype=vals.dtype, device=vals.device)
+    out.scatter_(1, tgt, torch.where(slots >= 0, vals,
+                                     torch.full_like(vals, fill)))
+    return out[:, :C]
+
+
+def compact_gather_sq_dists(vecs: torch.Tensor, x: torch.Tensor,
+                            ids: torch.Tensor, mask: torch.Tensor, cap: int,
+                            *, impl: str | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Exact f32 distances for the masked slots of a pooled id matrix
+    through a ``cap``-wide compacted gather (the f32 gather kernel sees
+    only B × cap ids). Returns ``(exact (B, C), +inf off the re-ranked
+    slots; within (B, C) — masked slots ranked below cap; n_masked)``."""
+    C = ids.shape[1]
+    slots, cand, n_masked = band_compact(mask, ids, cap)
+    exact = band_scatter(slots, gather_sq_dists(vecs, x, cand, impl=impl), C)
+    within = mask & (torch.cumsum(mask, dim=1) - 1 < cap)
+    return exact, within, n_masked
+
+
 def next_pow2(n: int) -> int:
     return 1 if n <= 1 else 1 << (n - 1).bit_length()
 
@@ -206,3 +556,17 @@ def grow_cap(cur: int, needed: int, limit: int) -> int:
     """Next power of two covering ``needed``, never shrinking, clamped to
     ``limit`` (the band-capacity growth rule)."""
     return min(max(next_pow2(needed), cur), limit)
+
+
+class StickyCap:
+    """Sticky power-of-two grow-and-retry capacity (see
+    ``repro.engine.waves.StickyCap``): the one shape of every fixed-width
+    device buffer that a sparse set is compacted into — the re-rank band
+    (``engine.waves.RerankCap``) and the sq8 build's kNN survivors."""
+
+    def __init__(self, init: int, limit: int):
+        self.limit = limit
+        self.cap = min(next_pow2(max(init, 1)), limit)
+
+    def grow(self, needed: int) -> None:
+        self.cap = grow_cap(self.cap, needed, self.limit)

@@ -1,12 +1,12 @@
-"""Vector-join launcher (port of ``repro.launch.join``, the single-device f32
-subset).
+"""Vector-join launcher (port of ``repro.launch.join``, the single-device
+subset: quant ``off`` and ``sq8``).
 
 Runs ``nlj``, ``es_mi`` or ``es_mi_adapt`` on a synthetic Table-1-regime
 dataset through a ``JoinEngine`` on the CUDA card and checks the result
 against the exact NLJ:
 
   PYTHONPATH=src python -m repro_torch.launch.join --method es_mi_adapt \\
-      --regime ood --n-data 20000 --n-query 500 --theta-q 2
+      --regime ood --n-data 20000 --n-query 500 --theta-q 2 --quant sq8
 
 ``--device cpu`` runs the plain PyTorch versions instead of the kernels.
 All f32 matrix products are full IEEE f32 (TF32 off).
@@ -19,12 +19,14 @@ import time
 
 import numpy as np
 
-from repro_torch.configs.vectorjoin import make_engine, preset
+from repro_torch.configs.vectorjoin import (ENGINE_PRESETS, make_engine,
+                                           preset)
 from repro_torch.core import exact_join_pairs
 from repro_torch.core.types import pair_keys, resolve_device
 from repro_torch.data.vectors import make_dataset, thresholds
 
 LAUNCH_METHODS = ("nlj", "es_mi", "es_mi_adapt")
+LAUNCH_QUANT = ("off", "sq8")
 
 
 def main(argv=None) -> int:
@@ -39,6 +41,14 @@ def main(argv=None) -> int:
     ap.add_argument("--theta-q", type=int, default=1,
                     help="1-based index into the 7 Table-2-style thresholds")
     ap.add_argument("--wave", type=int, default=256)
+    ap.add_argument("--quant", choices=LAUNCH_QUANT, default=None,
+                    help="compressed storage: sq8 traverses int8 codes on "
+                         "certified bounds and re-ranks the ambiguous band "
+                         "in exact f32 (default: the engine spec's mode)")
+    ap.add_argument("--quant-build", choices=LAUNCH_QUANT, default=None,
+                    help="drive the offline index builds through the int8 "
+                         "cascade too: identical edges, f32 only for the "
+                         "ambiguous band (default: the engine spec's mode)")
     ap.add_argument("--no-overlap", action="store_true",
                     help="run the strictly sequential wave loop (pair sets "
                          "are identical either way)")
@@ -56,20 +66,28 @@ def main(argv=None) -> int:
                       dim=args.dim, seed=args.seed)
     grid = [float(t) for t in thresholds(ds, 7)]
     theta = args.theta or grid[args.theta_q - 1]
+    spec = ENGINE_PRESETS[args.engine_spec]
+    quant = args.quant or spec.quant
+    quant_build = (args.quant_build if args.quant_build is not None
+                   else spec.quant_build)
     cfg = dataclasses.replace(preset(args.method, theta=theta),
-                              wave_size=args.wave,
+                              wave_size=args.wave, quant=quant,
                               overlap=not args.no_overlap)
-    eng = make_engine(ds.Y, args.engine_spec, default=cfg, device=device)
+    eng = make_engine(ds.Y, args.engine_spec, default=cfg, device=device,
+                      quant_build=quant_build)
     print(f"[join] {args.regime} |X|={args.n_query} |Y|={args.n_data} "
           f"dim={args.dim} θ={theta:.4f} method={args.method} "
-          f"device={device} overlap={'off' if args.no_overlap else 'on'}")
+          f"device={device} quant={quant} quant_build={quant_build} "
+          f"overlap={'off' if args.no_overlap else 'on'}")
 
     t0 = time.perf_counter()
     res = eng.join(ds.X, cfg)
     dt = time.perf_counter() - t0
+    extra = (f", rerank={res.stats.n_rerank}, "
+             f"quant_bytes={res.stats.quant_bytes}" if quant != "off" else "")
     print(f"[join] {len(res.pairs)} pairs in {dt:.2f}s "
           f"(n_dist={res.stats.n_dist}, ood={res.stats.n_ood}, "
-          f"builds={eng.n_index_builds})")
+          f"builds={eng.n_index_builds}{extra})")
 
     if not args.no_truth:
         truth = exact_join_pairs(ds.X, eng.Y, theta)
