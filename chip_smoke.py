@@ -77,6 +77,23 @@ F32_KERNELS = ("pairwise_sq_dists", "rowwise_sq_dists", "gather_sq_dists",
                "topk_merge")
 SQ8_KERNELS = ("pairwise_sq_dists_int8", "rowwise_sq_dists_int8",
                "topk_merge", "gather_sq_dists", "pairlist_sq_dists")
+SQ8_NLJ_KERNELS = ("pairwise_sq_dists_int8", "gather_sq_dists")
+# the sketch and PDX modes: the merged-index join's kernels, the NLJ's
+SKETCH8_KERNELS = ("rowwise_hamming", "rowwise_sq_dists_int8",
+                   "gather_sq_dists")
+SKETCH8_NLJ_KERNELS = ("pairwise_hamming", "rowwise_sq_dists_int8",
+                       "gather_sq_dists")
+PDX8_KERNELS = ("rowwise_sq_dists_int8", "pdx_gather_sq_dists")
+PDX8_NLJ_KERNELS = ("pairwise_sq_dists_pdx", "gather_sq_dists")
+SKETCHPDX8_KERNELS = ("rowwise_hamming", "rowwise_sq_dists_int8",
+                      "pdx_gather_sq_dists")
+SKETCHPDX8_NLJ_KERNELS = SKETCH8_NLJ_KERNELS
+# recall floors of the sketch/PDX joins: measured on an H100 (PERF.md)
+# minus 0.05
+SKETCH8_RECALL_FLOOR = 0.918
+PDX8_RECALL_FLOOR = 0.920
+OOD_SKETCHPDX8_RECALL_FLOOR = 0.026
+
 ULP16 = 16 * 2.0**-24      # 16 f32 ulps, relative
 DEV = "cuda"
 
@@ -377,6 +394,202 @@ def check_kernels_sq8(torch, ops, ref) -> None:
         "below MATMUL_GUARD")
 
 
+# ---------------------------------------------------------------------------
+# phase 2b: the sketch (Hamming) and PDX kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def rand_words(inp, *shape):
+    """Random int32 words covering the whole 32-bit pattern range."""
+    t = inp.torch
+    w = t.randint(0, 2**32, shape, device=inp.dev, generator=inp.gen,
+                  dtype=t.int64)
+    return t.where(w >= 2**31, w - 2**32, w).to(t.int32)
+
+
+def check_hamming_pairwise(torch, ops, ref, cx, cy, chunk: int = 32) -> None:
+    """The pairwise Hamming kernel equals its plain version exactly (the
+    plain version in row chunks: it widens every word to int64)."""
+    got = ops.pairwise_hamming(cx, cy)
+    torch.cuda.synchronize()
+    what = f"pairwise hamming {tuple(cx.shape)}x{tuple(cy.shape)}"
+    if tuple(got.shape) != (cx.shape[0], cy.shape[0]):
+        raise AssertionError(f"{what}: shape {tuple(got.shape)}")
+    for r0 in range(0, cx.shape[0], chunk):
+        want = ref.pairwise_hamming(cx[r0:r0 + chunk], cy)
+        if not torch.equal(got[r0:r0 + chunk], want):
+            bad = int((got[r0:r0 + chunk] != want).sum())
+            raise AssertionError(f"{what}: {bad} counts differ")
+
+
+def check_hamming_gather(torch, ops, ref, codes, cx, idx, what: str) -> None:
+    got = ops.gather_hamming(codes, cx, idx)
+    want = ref.gather_hamming(codes, cx, idx)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"gather hamming {what}: "
+                             f"{int((got != want).sum())} counts differ")
+
+
+def pdx_inputs(torch, inp, n: int, b: int, d: int):
+    """A PDX store over n random rows and b encoded queries."""
+    from repro_torch.quant.pdx import build_pdx, pdx_queries
+    st = build_pdx(inp.rn(max(n, 1), d))
+    if n == 0:
+        st = dataclasses.replace(
+            st, vp=st.vp[:0], ftail=st.ftail[:0], q=st.q[:0],
+            qslab=st.qslab[:0], qtail=st.qtail[:0], norms=st.norms[:0],
+            err=st.err[:0])
+    return st, pdx_queries(inp.rn(b, d), st)
+
+
+def pdx_thetas(torch, st, qc) -> list[float]:
+    """Two thresholds for the early-exit checks: one where most lanes
+    retire after the first slab, one where most survive (from the median
+    squared distance of a sample)."""
+    x = qc.vp[:64]
+    y = st.vp[:4096]
+    if x.numel() == 0 or y.numel() == 0:
+        return [1.0]
+    med = float(torch.cdist(x, y).pow(2).median())
+    return [(0.45 * med) ** 0.5, med ** 0.5]
+
+
+def check_pdx_pairwise(torch, ops, ref, st, qc, theta: float,
+                       chunk: int = 1 << 18) -> float:
+    """#10: early exit off against the plain version (|Δ| ≤ 1e-6·value +
+    1e-6·(xn+yn)); on and off: survivors bit-identical, retired lanes
+    +inf; every retired lane's plain full-scan certified lower bound
+    exceeds θ². Returns the max |kernel − plain| (exit off)."""
+    from repro_torch.quant.cascade import matmul_guard
+    args = (qc.q, st.q, st.scales, qc.qslab, st.qslab, qc.qtail, st.qtail,
+            qc.norms, st.norms, qc.err, st.err, theta)
+    kw = dict(slab=st.slab, dim=st.dim)
+    d_off, n_off = ops.pairwise_sq_dists_pdx(*args, early_exit=False, **kw)
+    d_on, n_on = ops.pairwise_sq_dists_pdx(*args, early_exit=True, **kw)
+    torch.cuda.synchronize()
+    B, N, S = qc.q.shape[0], st.q.shape[0], st.n_slabs
+    what = f"pdx pairwise ({B},{st.dim})x({N},{st.dim}) S={S} θ={theta:.4f}"
+    if d_off.shape != (B, N) or n_on.shape != (B, N):
+        raise AssertionError(f"{what}: shapes {d_off.shape}/{n_on.shape}")
+    if B * N == 0:
+        return 0.0
+    if not bool((n_off == S).all()):
+        raise AssertionError(f"{what}: exit off scanned fewer slabs")
+    surv = n_on == S
+    if not torch.equal(d_on[surv], d_off[surv]):
+        raise AssertionError(f"{what}: survivors differ with exit on/off")
+    if not bool(torch.isinf(d_on[~surv]).all()):
+        raise AssertionError(f"{what}: a retired lane is not +inf")
+    th2 = float(np.float32(theta)) ** 2
+    err = 0.0
+    n_same = 0
+    for c0 in range(0, N, chunk):
+        c1 = min(c0 + chunk, N)
+        sl = slice(c0, c1)
+        pargs = (qc.q, st.q[sl], st.scales, qc.qslab, st.qslab[sl], qc.qtail,
+                 st.qtail[sl], qc.norms, st.norms[sl], qc.err, st.err[sl],
+                 theta)
+        want, _ = ref.pairwise_sq_dists_pdx(*pargs, early_exit=False, **kw)
+        _, wn = ref.pairwise_sq_dists_pdx(*pargs, early_exit=True, **kw)
+        n_same += int((wn == n_on[:, sl]).sum())
+        energy = qc.norms[:, None] + st.norms[None, sl]
+        e = (d_off[:, sl] - want).abs()
+        if not bool((e <= 1e-6 * want.abs() + 1e-6 * energy).all()):
+            raise AssertionError(f"{what}: max err {float(e.max())} beyond "
+                                 f"tolerance")
+        err = max(err, float(e.max()))
+        slack = qc.err[:, None] + st.err[None, sl]
+        guard = matmul_guard(qc.norms, st.norms[sl])
+        lb = ops.quant_lower_bound(torch.clamp_min(want - guard, 0.0), slack)
+        if not bool((lb[~surv[:, sl]] > th2).all()):
+            raise AssertionError(f"{what}: a retired lane's certified lower "
+                                 f"bound is within θ²")
+        del want, wn, e, lb, slack, guard, energy
+    log(f"[kernels] {what}: retired {float((~surv).float().mean()):.4f}, "
+        f"slab counts equal to the plain version's on {n_same} of {B * N} "
+        f"lanes")
+    return err
+
+
+def check_pdx_gather(torch, ops, ref, st, qc, idx, th2: float,
+                     what: str) -> float:
+    """#11: exit off against the plain version (|Δ| ≤ 1e-6·value +
+    1e-6·max), NO_NODE (+inf, 0); exit on/off survivors bit-identical;
+    retired lanes' plain full sums ≥ θ²."""
+    args = (st.vp, st.ftail, st.ftail[:, 0].contiguous(), qc.vp, qc.ftail,
+            qc.ftail[:, 0].contiguous(), idx, th2)
+    d_off, n_off = ops.pdx_gather_sq_dists(*args, dim=st.dim,
+                                           early_exit=False)
+    d_on, n_on = ops.pdx_gather_sq_dists(*args, dim=st.dim, early_exit=True)
+    want, wn = ref.pdx_gather_sq_dists(*args, dim=st.dim, early_exit=False)
+    err = check_rows(torch, d_off, want, f"pdx gather {what}")
+    valid = (idx >= 0) & (idx < st.vp.shape[0])
+    S = st.n_slabs
+    if not (torch.equal(n_off, torch.where(valid, S, 0).to(torch.int32))
+            and torch.equal(n_on[~valid], n_off[~valid])):
+        raise AssertionError(f"pdx gather {what}: slab counts wrong")
+    surv = valid & (n_on == S)
+    if not torch.equal(d_on[surv], d_off[surv]):
+        raise AssertionError(f"pdx gather {what}: survivors differ on/off")
+    ret = valid & (n_on < S)
+    if not (bool(torch.isinf(d_on[ret]).all())
+            and bool((want[ret] >= th2).all())):
+        raise AssertionError(f"pdx gather {what}: a retired lane is within "
+                             f"θ²")
+    return err
+
+
+def check_kernels_sketch_pdx(torch, ops, ref) -> None:
+    """The Hamming (#8, #9) and PDX (#10, #11) kernels against their plain
+    versions: ragged, sub-tile, empty and NO_NODE shapes at W = 2 and 4 /
+    S = 1 and 2, and the shapes of the sketch8/pdx8 paths."""
+    inp = Inputs(torch)
+    for B, N, W in [(0, 5, 2), (4, 0, 4), (1, 1, 1), (3, 5, 2),
+                    (65, 129, 4), (129, 257, 4), (200, 1000, 2),
+                    (77, 300, 3), (64, 128, 40)]:
+        check_hamming_pairwise(torch, ops, ref, rand_words(inp, B, W),
+                               rand_words(inp, N, W))
+    for B, K, W in [(0, 4, 4), (3, 0, 2), (1, 1, 1), (3, 5, 2), (7, 9, 4),
+                    (33, 65, 3), (16, 40, 4)]:
+        codes, cx = rand_words(inp, 50, W), rand_words(inp, B, W)
+        for frac in (0.0, 0.5, 1.0):
+            check_hamming_gather(torch, ops, ref, codes, cx,
+                                 inp.ids(B, K, 50, frac), f"{(B, K, W)}")
+    # the paths' shapes: the NLJ's query block against the 1M-row codes,
+    # and the traversal's 256 x 128 ids over the merged codes
+    check_hamming_pairwise(torch, ops, ref, rand_words(inp, 512, 4),
+                           rand_words(inp, MAIN_N_DATA, 4))
+    n_nodes = MAIN_N_DATA + MAIN_N_QUERY
+    check_hamming_gather(torch, ops, ref, rand_words(inp, n_nodes, 4),
+                         rand_words(inp, 256, 4), inp.ids(256, 128, n_nodes,
+                                                          0.5), "main shape")
+    log("[kernels] hamming pairwise / gather: equal to the plain versions")
+    # PDX: S = 1 (d = 64, the OOD path) and S = 2 (d = 128), ragged and
+    # empty, then the NLJ block (512 queries) against the paths' tables
+    for (N, B, d) in [(5, 3, 64), (257, 129, 128), (1000, 200, 100),
+                      (300, 77, 64), (0, 4, 128), (6, 0, 64)]:
+        st, qc = pdx_inputs(torch, inp, N, B, d)
+        for theta in pdx_thetas(torch, st, qc):
+            check_pdx_pairwise(torch, ops, ref, st, qc, theta)
+            th2 = float(np.float32(theta)) ** 2
+            for frac in (0.0, 0.5, 1.0):
+                check_pdx_gather(torch, ops, ref, st, qc,
+                                 inp.ids(B, 65, max(N, 1), frac), th2,
+                                 f"{(N, B, d)} frac {frac}")
+    for N, d in [(MAIN_N_DATA, 128), (OOD_N_DATA, 64)]:
+        st, qc = pdx_inputs(torch, inp, N, 512, d)
+        for theta in pdx_thetas(torch, st, qc):
+            check_pdx_pairwise(torch, ops, ref, st, qc, theta)
+        del st, qc
+    st, qc = pdx_inputs(torch, inp, n_nodes, 256, 128)
+    for theta in pdx_thetas(torch, st, qc):
+        th2 = float(np.float32(theta)) ** 2
+        check_pdx_gather(torch, ops, ref, st, qc,
+                         inp.ids(256, 128, n_nodes, 0.5), th2, "main shape")
+    log("[kernels] pdx pairwise / gather: plain versions agree, exit on/off "
+        "survivors bit-identical, every retired lane certified beyond θ²")
+
+
 def time_kernels(torch, ops, ref) -> dict:
     """Each kernel at the main path's shapes: agreement with its plain
     version, device time beside its bound, the plain version's time and a
@@ -522,6 +735,106 @@ def time_kernels(torch, ops, ref) -> dict:
         lambda r: ref.gather_sq_dists_int8(st.q, qx, idxs[r], st.scales),
         None, n_valid * d + B * d + 2 * B * K * 4 + 4, 3.0 * n_valid * d)
     del st, qx, idxs
+
+    # pairwise Hamming at the sketch NLJ's block: 512 queries x the 1M-row
+    # codes, W = 4 (d = 128); XOR, popcount and add per word counted as
+    # operations on the CUDA cores (the f32 rate)
+    B, N, W = 512, MAIN_N_DATA, 4
+    cx, cy = rand_words(inp, B, W), rand_words(inp, N, W)
+    check_hamming_pairwise(torch, ops, ref, cx, cy)
+    out["pairwise_hamming"] = entry(
+        f"({B},{W})x({N},{W}) int32 words", 0.0,
+        lambda _: ops.pairwise_hamming(cx, cy),
+        lambda _: [ref.pairwise_hamming(cx[r:r + 32], cy)   # int64 words
+                   for r in range(0, B, 32)], None,
+        (B + N) * W * 4 + B * N * 4, 3.0 * B * N * W)
+    del cx, cy
+
+    # gather Hamming at the traversal's expand shape over the merged codes
+    B, K, W = 256, 128, 4
+    codes, cx = rand_words(inp, n_nodes, W), rand_words(inp, B, W)
+    idxs = [ids(B, K, n_nodes, 0.5) for _ in range(REPS)]
+    n_valid = sum(int((i >= 0).sum()) for i in idxs) / REPS
+    for i in idxs[:3]:
+        check_hamming_gather(torch, ops, ref, codes, cx, i, "main shape")
+    out["rowwise_hamming"] = entry(
+        f"gather form: ({n_nodes},{W}) words, ({B},{K}) ids, "
+        f"{n_valid:.0f} valid", 0.0,
+        lambda r: ops.gather_hamming(codes, cx, idxs[r]),
+        lambda r: ref.gather_hamming(codes, cx, idxs[r]), None,
+        n_valid * W * 4 + B * W * 4 + 2 * B * K * 4, 3.0 * n_valid * W)
+    del codes, cx, idxs
+
+    # PDX pairwise at the pdx8 NLJ's block: 512 queries x 1M rows, d = 128
+    # (two slabs), early exit on at a θ where about half the lanes retire
+    # after the first slab; the bytes and MACs counted are what this run's
+    # lanes scanned. The library call: torch._int_mm per slab + epilogue
+    B, N, d = 512, MAIN_N_DATA, 128
+    st, qc = pdx_inputs(torch, inp, N, B, d)
+    theta = pdx_thetas(torch, st, qc)[0]
+    args = (qc.q, st.q, st.scales, qc.qslab, st.qslab, qc.qtail, st.qtail,
+            qc.norms, st.norms, qc.err, st.err, theta)
+    kw = dict(slab=st.slab, dim=st.dim, early_exit=True)
+    err = check_pdx_pairwise(torch, ops, ref, st, qc, theta)
+    _, nscan = ops.pairwise_sq_dists_pdx(*args, **kw)
+    scanned = float(nscan.double().sum())      # slabs scanned over lanes
+    del nscan
+    S, slab = st.n_slabs, st.slab
+    xs = [qc.q[:, k * slab:(k + 1) * slab].contiguous() for k in range(S)]
+    ys = [st.q[:, k * slab:(k + 1) * slab].contiguous().t() for k in range(S)]
+
+    def int_mm_pdx(_):
+        acc = torch.zeros((B, N), device=inp.dev)
+        for k in range(S):
+            s2 = st.scales[k] * st.scales[k]
+            dot = torch._int_mm(xs[k], ys[k]).float()
+            acc += (qc.qslab[:, k, None] + st.qslab[None, :, k]
+                    - 2.0 * s2 * dot).clamp_min(0.0)
+        return acc
+    try:
+        int_mm_pdx(0)
+        lib = int_mm_pdx
+    except RuntimeError as e:            # the library refuses the layout
+        log(f"[kernels] torch._int_mm (PDX) not timed: {e}")
+        lib = None
+    nbytes = (B + N) * (d + 4 * (2 * S + 2)) + 2 * B * N * 4
+    e = entry(f"({B},{d})x({N},{d}) int8, S={S}, early exit on, "
+              f"{scanned / (B * N * S):.4f} of slabs scanned", err,
+              lambda _: ops.pairwise_sq_dists_pdx(*args, **kw),
+              lambda _: ref.pairwise_sq_dists_pdx(*args, **kw), lib,
+              nbytes, 2.0 * scanned * slab)
+    e["bound_ms"], e["bound_by"] = bound_ms(nbytes, 2.0 * scanned * slab,
+                                            PEAK_INT8_OPS)
+    out["pairwise_sq_dists_pdx"] = e
+    del st, qc, args, xs, ys
+
+    # PDX gather at the band re-rank's shape: 256 x 128 ids over the
+    # merged table's f32 PDX rows, half NO_NODE, early exit on; bytes are
+    # the slabs this run's valid lanes scanned
+    B, K, d = 256, 128, 128
+    st, qc = pdx_inputs(torch, inp, n_nodes, B, d)
+    th2 = float(np.float32(pdx_thetas(torch, st, qc)[0])) ** 2
+    vn, xn = st.ftail[:, 0].contiguous(), qc.ftail[:, 0].contiguous()
+    idxs = [ids(B, K, n_nodes, 0.5) for _ in range(REPS)]
+    err = max(check_pdx_gather(torch, ops, ref, st, qc, i, th2, "main shape")
+              for i in idxs[:3])
+    scanned = sum(float(ops.pdx_gather_sq_dists(
+        st.vp, st.ftail, vn, qc.vp, qc.ftail, xn, i, th2, dim=d,
+        early_exit=True)[1].double().sum()) for i in idxs) / REPS
+    n_valid = sum(int((i >= 0).sum()) for i in idxs) / REPS
+    S, slab = st.n_slabs, st.slab
+    out["pdx_gather_sq_dists"] = entry(
+        f"({n_nodes},{d}) f32 PDX rows, ({B},{K}) ids, {n_valid:.0f} valid, "
+        f"{scanned / max(n_valid * S, 1):.4f} of their slabs scanned", err,
+        lambda r: ops.pdx_gather_sq_dists(st.vp, st.ftail, vn, qc.vp,
+                                          qc.ftail, xn, idxs[r], th2, dim=d,
+                                          early_exit=True),
+        lambda r: ref.pdx_gather_sq_dists(st.vp, st.ftail, vn, qc.vp,
+                                          qc.ftail, xn, idxs[r], th2, dim=d,
+                                          early_exit=True), None,
+        scanned * slab * 4 + n_valid * (S + 1) * 4 + B * (d + S + 1) * 4
+        + 3 * B * K * 4, 3.0 * scanned * slab)
+    del st, qc, idxs
     for name, r in out.items():
         log(f"[kernels] {name} {r['shape']}: max_abs_err={r['max_abs_err']} "
             f"ms={r['ms']:.4f} (events {r['event_ms']:.4f}) "
@@ -553,17 +866,28 @@ def check_sound(torch, X, Y, pairs, theta: float) -> int:
     return band
 
 
-def recalls(found: np.ndarray, truth: np.ndarray, n_data: int, n_query: int,
+def card_keys(torch, pairs: np.ndarray, n_data: int):
+    """Sorted unique int64 keys ``q·n_data + y`` of a (P, 2) pair array,
+    computed on the card (the set comparisons below run over tens of
+    millions of pairs)."""
+    p = torch.as_tensor(np.ascontiguousarray(pairs, np.int64), device=DEV)
+    if p.numel() == 0:
+        return torch.empty(0, dtype=torch.int64, device=DEV)
+    return torch.unique(p[:, 0] * n_data + p[:, 1])
+
+
+def recalls(torch, found: np.ndarray, truth, n_data: int, n_query: int,
             cap: int) -> tuple[float, float]:
     """(recall, recall within the pool cap): the second divides by
-    Σ_q min(|truth_q|, cap), the most a pool of ``cap`` slots can hold."""
-    from repro_torch.core.types import pair_keys
-    t = pair_keys(truth, n_data)
-    if t.size == 0:
+    Σ_q min(|truth_q|, cap), the most a pool of ``cap`` slots can hold.
+    ``truth`` is a pair array or its ``card_keys``."""
+    t = truth if isinstance(truth, torch.Tensor) else card_keys(
+        torch, truth, n_data)
+    if t.numel() == 0:
         return 1.0, 1.0
-    hit = np.intersect1d(pair_keys(found, n_data), t).size
-    per_q = np.bincount(t // n_data, minlength=n_query)
-    return hit / t.size, hit / np.minimum(per_q, cap).sum()
+    hit = int(torch.isin(card_keys(torch, found, n_data), t).sum())
+    per_q = torch.bincount(t // n_data, minlength=n_query)
+    return hit / t.numel(), hit / int(torch.clamp_max(per_q, cap).sum())
 
 
 def sync_us(torch, n: int = 1000) -> float:
@@ -588,7 +912,6 @@ def run_join(torch, ops, name: str, n_data: int, n_query: int,
     from repro_torch.configs.vectorjoin import make_engine
     from repro_torch.core import JoinConfig, exact_join_pairs
     from repro_torch.core.graph import BuildStats
-    from repro_torch.core.types import pair_keys
     from repro_torch.data.vectors import table1_dataset, thresholds
 
     t0 = time.perf_counter()
@@ -643,7 +966,9 @@ def run_join(torch, ops, name: str, n_data: int, n_query: int,
         raise AssertionError(f"{tag}: malformed pair array "
                              f"{pairs.dtype} {pairs.shape}")
     X = torch.as_tensor(ds.X, device=eng.Y.device)
+    t1 = time.perf_counter()
     band = check_sound(torch, X, eng.Y, pairs, theta)
+    sound_s = time.perf_counter() - t1
     nlj_s = None
     if base:
         truth = base["truth"]
@@ -652,11 +977,15 @@ def run_join(torch, ops, name: str, n_data: int, n_query: int,
         truth = exact_join_pairs(X, eng.Y, theta)
         torch.cuda.synchronize()
         nlj_s = time.perf_counter() - t0
-    rec, rec_cap = recalls(res.pairs, truth, n_data, n_query,
+    t1 = time.perf_counter()
+    truth_keys = card_keys(torch, truth, n_data)
+    rec, rec_cap = recalls(torch, res.pairs, truth_keys, n_data, n_query,
                            cfg.traversal.pool_cap)
+    recall_s = time.perf_counter() - t1
     log(f"[{tag}] sound (0 unsound; boundary band {band}) recall={rec:.6f} "
         f"recall_within_pool_cap={rec_cap:.6f} truth={len(truth)} "
-        f"f32 nlj_s={nlj_s}")
+        f"f32 nlj_s={nlj_s} (check seconds: sound {sound_s:.2f}, recall "
+        f"{recall_s:.2f})")
 
     # the same join with overlap off, on the cached index: identical pairs
     seq_cfg = dataclasses.replace(cfg, overlap=False)
@@ -664,8 +993,8 @@ def run_join(torch, ops, name: str, n_data: int, n_query: int,
     seq = eng.join(ds.X, seq_cfg)
     torch.cuda.synchronize()
     seq_s = time.perf_counter() - t0
-    if not np.array_equal(pair_keys(seq.pairs, n_data),
-                          pair_keys(res.pairs, n_data)):
+    if not torch.equal(card_keys(torch, seq.pairs, n_data),
+                       card_keys(torch, res.pairs, n_data)):
         raise AssertionError(f"{tag}: overlap on/off pair sets differ")
     log(f"[{tag}] overlap on join_s={join_s:.2f} off join_s={seq_s:.2f} "
         f"(identical pairs) ms_per_iter on {ms_iter:.3f} off "
@@ -674,6 +1003,7 @@ def run_join(torch, ops, name: str, n_data: int, n_query: int,
     return dict(recall=rec, launches=launches, n_ood=st.n_ood,
                 build_s=eng.build_seconds, join_s=join_s, seq_s=seq_s,
                 eng=eng, X=ds.X, cfg=seq_cfg, name=tag, ds=ds, truth=truth,
+                truth_keys=truth_keys,
                 theta=theta, knn={k: v.cpu() for k, v in knn.items()},
                 nbrs=merged.nbrs.cpu(), ms_iter=ms_iter)
 
@@ -706,46 +1036,158 @@ def check_knn_ties(run: dict, base: dict) -> None:
                              f"identical kNN lists")
 
 
-def check_sq8_nlj(torch, ops, run: dict) -> None:
-    """``method="nlj"`` under sq8 gives the f32 NLJ's pairs, except pairs
-    whose float64 distance lies within 16 f32 ulps of θ (counted): the
-    f32 NLJ decides by the matmul form, whose rounding near θ is of that
-    order at these norms, the sq8 NLJ by certified bounds and the
-    difference form."""
-    from repro_torch.core.types import pair_keys
+def check_nlj(torch, ops, run: dict, kernels, *, mode: str | None = None,
+              early_exit: bool = True) -> dict:
+    """``method="nlj"`` under ``mode`` (the engine's own by default) gives
+    the f32 NLJ's pairs, except pairs whose float64 distance lies within
+    16 f32 ulps of θ (counted): the f32 NLJ decides by the matmul form,
+    whose rounding near θ is of that order at these norms, the cascade
+    NLJ by certified bounds and the difference form. Returns the pairs,
+    the stats and the launches."""
     eng, ds = run["eng"], run["ds"]
+    cfg = eng.default
+    if mode is not None:
+        cfg = dataclasses.replace(cfg, quant=mode)
+    cfg = dataclasses.replace(cfg, method="nlj", traversal=dataclasses.replace(
+        cfg.traversal, early_exit=early_exit))
+    tag = f"{run['name'].split('/')[0]}/{cfg.quant}"
     n = ds.Y.shape[0]
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    res = eng.join(ds.X, method="nlj")
+    res = eng.join(ds.X, cfg)
     torch.cuda.synchronize()
     nlj_s = time.perf_counter() - t0
     launches = ops.launch_counts()
-    got, want = pair_keys(res.pairs, n), pair_keys(run["truth"], n)
-    diff = np.setxor1d(got, want)
+    t1 = time.perf_counter()
+    got, want = card_keys(torch, res.pairs, n), run["truth_keys"]
+    only_got = got[~torch.isin(got, want)]
+    diff = torch.cat([only_got, want[~torch.isin(want, got)]])
     theta = np.float32(run["theta"])
     ulp = float(np.spacing(theta))
     worst = 0.0
-    if diff.size:
-        q = torch.as_tensor(diff // n, device=DEV)
-        y = torch.as_tensor(diff % n, device=DEV)
+    if diff.numel():
+        q, y = diff // n, diff % n
         X = torch.as_tensor(ds.X, device=DEV)
         d64 = ((X[q].double() - eng.Y[y].double()) ** 2).sum(1).sqrt()
         off = (d64 - float(theta)).abs() / ulp
         worst = float(off.max())
         if worst > 16:
-            raise AssertionError(f"{run['name']} nlj: {int((off > 16).sum())}"
-                                 f" pairs differ from the f32 NLJ more than "
-                                 f"16 ulps of θ away (worst {worst:.1f})")
-    for k in ("pairwise_sq_dists_int8", "gather_sq_dists"):
-        if launches[k] == 0:
-            raise AssertionError(f"{run['name']} nlj never launched {k}")
-    extra = np.setdiff1d(got, want).size
-    log(f"[{run['name']}] nlj: {len(res.pairs)} pairs in {nlj_s:.2f}s, "
-        f"n_rerank={res.stats.n_rerank}, equal to the f32 NLJ but for "
-        f"{diff.size} pairs within 16 ulps of θ ({extra} only in sq8, "
-        f"{diff.size - extra} only in f32; farthest {worst:.2f} ulps); "
-        f"launches={launches}")
+            raise AssertionError(f"{tag} nlj: {int((off > 16).sum())} pairs "
+                                 f"differ from the f32 NLJ more than 16 ulps "
+                                 f"of θ away (worst {worst:.1f})")
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{tag} nlj never launched {missing}")
+    extra = only_got.numel()
+    st = res.stats
+    log(f"[{tag}] nlj (early exit {'on' if early_exit else 'off'}): "
+        f"{len(res.pairs)} pairs in {nlj_s:.2f}s, n_rerank={st.n_rerank}, "
+        f"n_esc8={st.n_esc8}, dims_scanned_frac={st.dims_scanned_frac:.4f}, "
+        f"equal to the f32 NLJ but for {diff.numel()} pairs within 16 ulps "
+        f"of θ ({extra} only in {cfg.quant}, {diff.numel() - extra} only in "
+        f"f32; farthest {worst:.2f} ulps; compared in "
+        f"{time.perf_counter() - t1:.2f}s); launches={launches}")
+    return dict(pairs=got, stats=st, launches=launches, seconds=nlj_s)
+
+
+def run_mode(torch, ops, run: dict, mode: str, *, floor: float, kernels,
+             nlj_kernels) -> dict:
+    """Phases 4b/5b: the merged-index join and the NLJ under ``mode`` on
+    the engine and merged index of an earlier sq8 run (no second index
+    build; the int8 store is shared, the sketch/PDX stores are built once).
+    Checks: the launch counts of ``kernels`` (reset just before, read just
+    after), every pair sound in float64, recall against the f32 NLJ at
+    least ``floor``, escalations under a sketch tier; then the same pairs
+    with overlap off and (PDX) with early exit off; and the NLJ (PDX tier
+    0: on and off, the same pairs and n_rerank, and fewer dimensions
+    scanned than a full scan)."""
+    from repro_torch.quant.cascade import TIERS_BY_MODE
+    eng, ds = run["eng"], run["ds"]
+    n_data, n_query = ds.Y.shape[0], ds.X.shape[0]
+    cfg = dataclasses.replace(eng.default, quant=mode)
+    tag = f"{run['name'].split('/')[0]}/{mode}"
+    builds0, bs0 = dict(eng.build_counts), eng.build_seconds
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = eng.join(ds.X, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    store_s = eng.build_seconds - bs0
+    join_s = wall - store_s
+    st = res.stats
+    new_builds = {k: v - builds0[k] for k, v in eng.build_counts.items()
+                  if v != builds0[k]}
+    log(f"[{tag}] stores_s={store_s:.2f} (new builds {new_builds}) "
+        f"join_s={join_s:.2f} pairs={len(res.pairs)} n_dist={st.n_dist} "
+        f"n_iters={st.n_iters} n_esc8={st.n_esc8} "
+        f"sketch_pruned_frac={1 - st.n_esc8 / max(st.n_dist, 1):.4f} "
+        f"n_rerank={st.n_rerank} overflow_retries={st.overflow_retries} "
+        f"dims_scanned_frac={st.dims_scanned_frac:.4f} "
+        f"n_overflow={st.n_overflow} n_ood={st.n_ood} "
+        f"ms_per_iter={join_s / max(st.n_iters, 1) * 1e3:.3f} "
+        f"quant_bytes={st.quant_bytes} launches={launches}")
+    if "merged" in new_builds:
+        raise AssertionError(f"{tag}: the merged index was built again")
+    pairs = res.pairs
+    if (pairs.dtype != np.int64 or pairs.ndim != 2 or pairs.shape[1] != 2
+            or not ((0 <= pairs[:, 0]) & (pairs[:, 0] < n_query)
+                    & (0 <= pairs[:, 1]) & (pairs[:, 1] < n_data)).all()):
+        raise AssertionError(f"{tag}: malformed pair array")
+    X = torch.as_tensor(ds.X, device=eng.Y.device)
+    band = check_sound(torch, X, eng.Y, pairs, run["theta"])
+    rec, rec_cap = recalls(torch, pairs, run["truth_keys"], n_data, n_query,
+                           cfg.traversal.pool_cap)
+    log(f"[{tag}] sound (0 unsound; boundary band {band}) recall={rec:.6f} "
+        f"recall_within_pool_cap={rec_cap:.6f} (floor {floor})")
+    if rec < floor:
+        raise AssertionError(f"{tag}: recall {rec} below the floor {floor}")
+    names = TIERS_BY_MODE[mode]
+    if "sketch1" in names and st.n_esc8 <= 0:
+        raise AssertionError(f"{tag}: no candidate escalated past the sketch")
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{tag} path never launched {missing}")
+
+    want = card_keys(torch, pairs, n_data)
+    variants = [("overlap off", dataclasses.replace(cfg, overlap=False))]
+    if "pdx" in names:
+        variants.append(("early exit off", dataclasses.replace(
+            cfg, traversal=dataclasses.replace(cfg.traversal,
+                                               early_exit=False))))
+    reranks = [st.n_rerank]
+    for label, c in variants:
+        t0 = time.perf_counter()
+        r2 = eng.join(ds.X, c)
+        torch.cuda.synchronize()
+        if not torch.equal(card_keys(torch, r2.pairs, n_data), want):
+            raise AssertionError(f"{tag}: {label} changes the pairs")
+        reranks.append(r2.stats.n_rerank)
+        log(f"[{tag}] {label}: identical pairs ({want.numel()}) in "
+            f"{time.perf_counter() - t0:.2f}s, "
+            f"n_rerank={r2.stats.n_rerank}, dims_scanned_frac="
+            f"{r2.stats.dims_scanned_frac:.4f}")
+    if len(set(reranks)) > 1:
+        raise AssertionError(f"{tag}: n_rerank differs with overlap or "
+                             f"early exit off {reranks}")
+
+    nlj = check_nlj(torch, ops, run, nlj_kernels, mode=mode)
+    # the NLJ sweep of a PDX tier 0 must retire lanes mid-vector; the
+    # join's band re-rank sees only pairs near θ and may scan them all.
+    # (Under a sketch tier 0 the NLJ exits early nowhere: no repeat.)
+    if names[0] == "pdx" and not nlj["stats"].dims_scanned_frac < 1:
+        raise AssertionError(f"{tag} nlj: the PDX sweep exited early nowhere")
+    if names[0] == "pdx":
+        off = check_nlj(torch, ops, run, nlj_kernels, mode=mode,
+                        early_exit=False)
+        if not (torch.equal(off["pairs"], nlj["pairs"])
+                and off["stats"].n_rerank == nlj["stats"].n_rerank):
+            raise AssertionError(f"{tag} nlj: pairs or n_rerank differ with "
+                                 f"early exit off")
+        log(f"[{tag}] nlj early exit on/off: identical pairs and n_rerank; "
+            f"seconds on {nlj['seconds']:.2f} off {off['seconds']:.2f}")
+    return dict(name=tag, recall=rec, launches=launches,
+                nlj_launches=nlj["launches"], join_s=join_s)
 
 
 def check_launched(run: dict, kernels) -> None:
@@ -812,6 +1254,7 @@ def main() -> int:
 
     check_kernels(torch, ops, ref)
     check_kernels_sq8(torch, ops, ref)
+    check_kernels_sketch_pdx(torch, ops, ref)
     if "--kernels-only" in sys.argv[1:]:
         log(f"[done] kernels only, {time.perf_counter() - t_all:.1f}s")
         return 0                             # no contract line: not the run
@@ -833,8 +1276,18 @@ def main() -> int:
     log(f"[sift-like] recall f32 {main_run['recall']:.6f} sq8 "
         f"{sq8_run['recall']:.6f}; ms_per_iter f32 "
         f"{main_run['ms_iter']:.3f} sq8 {sq8_run['ms_iter']:.3f}")
-    check_sq8_nlj(torch, ops, sq8_run)
-    del sq8_run["eng"], main_run["knn"], sq8_run["knn"]
+    check_nlj(torch, ops, sq8_run, SQ8_NLJ_KERNELS)
+    del main_run["knn"], sq8_run["knn"]
+    # phase 4b: sketch8 (= serving_sketch8: its quant_build is sq8 too)
+    # and pdx8 on the sq8 engine's merged index
+    sk8 = run_mode(torch, ops, sq8_run, "sketch8",
+                   floor=SKETCH8_RECALL_FLOOR, kernels=SKETCH8_KERNELS,
+                   nlj_kernels=SKETCH8_NLJ_KERNELS)
+    pd8 = run_mode(torch, ops, sq8_run, "pdx8", floor=PDX8_RECALL_FLOOR,
+                   kernels=PDX8_KERNELS, nlj_kernels=PDX8_NLJ_KERNELS)
+    log(f"[sift-like] recall sq8 {sq8_run['recall']:.6f} sketch8 "
+        f"{sk8['recall']:.6f} pdx8 {pd8['recall']:.6f}")
+    del sq8_run["eng"]
 
     ood_run = run_join(torch, ops, "laion-like", OOD_N_DATA, OOD_N_QUERY, 2)
     if ood_run["n_ood"] <= 0:
@@ -848,6 +1301,11 @@ def main() -> int:
     check_launched(ood8, SQ8_KERNELS)
     log(f"[laion-like] recall f32 {ood_run['recall']:.6f} sq8 "
         f"{ood8['recall']:.6f}")
+    # phase 5b: sketchpdx8 on the OOD sq8 engine's merged index
+    skpd = run_mode(torch, ops, ood8, "sketchpdx8",
+                    floor=OOD_SKETCHPDX8_RECALL_FLOOR,
+                    kernels=SKETCHPDX8_KERNELS,
+                    nlj_kernels=SKETCHPDX8_NLJ_KERNELS)
     del ood8["eng"]
 
     table = time_kernels(torch, ops, ref)
@@ -861,6 +1319,10 @@ def main() -> int:
         "topk_merge": "src/repro/kernels/topk_merge.py:70",
         "pairwise_sq_dists_int8": "src/repro/kernels/int8.py:64",
         "rowwise_sq_dists_int8": "src/repro/kernels/int8.py:119",
+        "pairwise_hamming": "src/repro/kernels/bits.py:56",
+        "rowwise_hamming": "src/repro/kernels/bits.py:93",
+        "pairwise_sq_dists_pdx": "src/repro/kernels/pdx.py:116",
+        "pdx_gather_sq_dists": "src/repro/kernels/pdx.py:222",
     }
     source = {k: "src/repro_torch/kernels/csrc/distance.cu" for k in
               ("pairwise_sq_dists", "pairlist_sq_dists", "rowwise_sq_dists",
@@ -870,7 +1332,15 @@ def main() -> int:
                                          "int8.cu",
                   rowwise_sq_dists_int8="src/repro_torch/kernels/csrc/"
                                         "int8.cu")
+    source.update({k: "src/repro_torch/kernels/csrc/bits.cu"
+                   for k in ("pairwise_hamming", "rowwise_hamming")})
+    source.update({k: "src/repro_torch/kernels/csrc/pdx.cu"
+                   for k in ("pairwise_sq_dists_pdx", "pdx_gather_sq_dists")})
     paths = {"f32": main_run["launches"], "sq8": sq8_run["launches"]}
+    # the sketch/PDX paths: their merged-index join plus their NLJ
+    for r in (sk8, pd8, skpd):
+        paths[r["name"].split("/")[1]] = {
+            k: r["launches"][k] + r["nlj_launches"][k] for k in r["launches"]}
     kernels = [dict(name=k, route="cuda", source=source[k],
                     replaces=replaces[k],
                     launches=sum(p[k] for p in paths.values()),

@@ -2,11 +2,13 @@
 
 ``PRESETS`` name the paper's §5.1.2 methods; ``EngineSpec`` is how a
 deployment instantiates ``JoinEngine`` (one device; the sharded specs
-arrive with the multi-GPU slice). ``quant="sq8"`` makes every join the
-engine serves filter on certified int8 bounds with an exact f32 re-rank of
-the ambiguous band; ``quant_build="sq8"`` drives the offline index builds
-through the same cascade (identical edges, f32 build traffic cut to the
-band).
+arrive with the multi-GPU slice). ``quant`` sets the storage tiers every
+join the engine serves filters through (``sq8``: certified int8 bounds;
+``sketch8``: a 1-bit sketch prune above int8; ``pdx8``: the PDX tier with
+mid-vector early exit; ``sketchpdx8``: the sketch above PDX), each with
+an exact f32 re-rank of the ambiguous band; ``quant_build`` drives the
+offline index builds through the int8 tier (identical edges, f32 build
+traffic cut to the band; a mode without an int8 tier builds in f32).
 """
 from __future__ import annotations
 
@@ -40,8 +42,8 @@ class EngineSpec:
     degree: int = 32               # index max out-degree R
     style: str = "nsg"
     max_cached_indexes: int = 4    # per-X artifact LRU capacity
-    quant: str = "off"             # storage mode of the joins (off | sq8)
-    quant_build: str = "off"       # cascade-driven index builds (off | sq8)
+    quant: str = "off"             # storage mode of the joins (QUANT_MODES)
+    quant_build: str = "off"       # cascade-driven index builds
 
     def build_kw(self) -> dict:
         kw = dict(k=self.k, degree=self.degree, style=self.style)
@@ -55,6 +57,10 @@ ENGINE_PRESETS = {
     "default": EngineSpec(),
     # CI-scale: smaller graphs, fast builds
     "ci": EngineSpec(k=32, degree=24),
+    # the reference's serving_sketch8 on one device: 1-bit sketch prune →
+    # int8 confirm → f32 re-rank, the offline build through the int8 tier
+    "serving_sketch8": EngineSpec(max_cached_indexes=8, quant="sketch8",
+                                  quant_build="sq8"),
 }
 
 

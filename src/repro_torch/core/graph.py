@@ -497,9 +497,11 @@ def build_index(vecs, *, k: int = 48, degree: int = 32,
         if isinstance(quant, str):
             from repro_torch.quant.cascade import (TIERS_BY_MODE,
                                                    build_cascade)
-            # the build consults only the confirming int8 tier
-            mode = "sq8" if "int8" in TIERS_BY_MODE[quant] else quant
-            cascade = build_cascade(vecs, mode)
+            # the build consults only the confirming int8 tier; a mode
+            # without one (pdx8, sketchpdx8) builds in f32, as the
+            # reference's build does (its kNN and prune find no int8 tier)
+            if "int8" in TIERS_BY_MODE[quant]:
+                cascade = build_cascade(vecs, "sq8")
         else:
             cascade = quant
     cand_d, cand_i = exact_knn(vecs, k, impl=impl, cascade=cascade,

@@ -4,9 +4,10 @@ Port of ``repro.core.traversal`` for the merged-index path: candidate
 probing with the per-lane visited bitmap and in-batch dedup, and
 ``range_expand`` (BFS, or the hybrid BBFS for OOD queries), exact f32 or
 through a ``FilterCascade`` (``cascade_bounds``: every distance is then a
-certified lower bound from the int8 gather kernel, and the hybrid beam
-carries certified upper bounds for its eviction guard). The greedy search
-of the search-path methods arrives with ROADMAP Queue A slice 5.
+certified lower bound from the tiers' gather kernels — sketch Hamming,
+int8, PDX int8 — and the hybrid beam carries certified upper bounds for
+its eviction guard). The greedy search of the search-path methods
+arrives with ROADMAP Queue A slice 5.
 
 How the JAX primitives map here (each choice keeps the reference's exact
 traversal order, so ``n_dist`` and ``n_iters`` match it):
@@ -60,28 +61,61 @@ def bit_of(ids: torch.Tensor) -> torch.Tensor:
 # probing: distances + visited-dedup for a (B, K) candidate id matrix
 # ---------------------------------------------------------------------------
 
-def cascade_bounds(cascade, qc, cand: torch.Tensor, valid: torch.Tensor, *,
-                   dist_impl: str | None):
-    """Certified bounds for candidate ids from a ``FilterCascade``
-    (``repro.core.traversal.cascade_bounds`` for the one-tier sq8 cascade;
-    the escalation through a cheaper tier arrives with the sketch tier,
-    ROADMAP Queue A slice 8). Invalid slots pass NO_NODE, so the int8
-    gather kernel reads no row for them. Returns ``(lb, ub)``."""
-    lb, ub, _ = cascade.final.gather_bounds(
-        qc[-1], torch.where(valid, cand, NO_NODE), impl=dist_impl)
-    return lb, ub
+def cascade_bounds(cascade, qc, cand: torch.Tensor, valid: torch.Tensor,
+                   esc_th2: float, *, dist_impl: str | None):
+    """Walk candidate ids through a ``FilterCascade``'s tier chain
+    (``repro.core.traversal.cascade_bounds``).
+
+    Tier 0 bounds every valid candidate; each later tier evaluates only
+    the escalation set, the candidates whose running certified lower
+    bound is still below ``esc_th2`` (θ²), and escalated candidates take
+    the max of the lower bounds (the chain lb₀ ≤ lb₁ ≤ … ≤ d). Slots a
+    tier does not evaluate pass NO_NODE, so its gather kernel reads no
+    row for them (the reference collapses them to row 0 and discards the
+    result; the bounds come out the same). Pruned candidates keep their
+    certified floor but are ordered by the pruning tier's navigation
+    estimate where it has one: ``max(lb, est)``.
+
+    Returns ``(dist, ub, n_esc)``: the navigation/threshold distance, a
+    certified upper bound (+inf where no tier with upper bounds evaluated
+    the candidate) and the per-lane count of candidates escalated into
+    tier 1 (``JoinStats.n_esc8``)."""
+    B = cand.shape[0]
+    lb = ub = est = None
+    esc = valid
+    n_esc = torch.zeros((B,), dtype=torch.int32, device=cand.device)
+    for i, (tier, q) in enumerate(zip(cascade.tiers, qc)):
+        if i > 0:
+            esc = esc & (lb < esc_th2)
+            if i == 1:
+                n_esc = torch.sum(esc, dim=1, dtype=torch.int32)
+        tlb, tub, test = tier.gather_bounds(
+            q, torch.where(esc, cand, NO_NODE), impl=dist_impl)
+        lb = tlb if i == 0 else torch.where(esc, torch.maximum(lb, tlb), lb)
+        if tub is not None:
+            tub = tub if i == 0 else torch.where(esc, tub, _INF)
+            ub = tub if ub is None else torch.minimum(ub, tub)
+        if test is not None and est is None:
+            est = test
+    dist = lb if est is None else torch.where(esc, lb,
+                                              torch.maximum(lb, est))
+    if ub is None:
+        ub = torch.full_like(lb, _INF)
+    return dist, ub, n_esc
 
 
 def _probe(vecs: torch.Tensor, x: torch.Tensor, cand: torch.Tensor,
            valid: torch.Tensor, visited: torch.Tensor, *, n_data: int,
            traverse_nondata: bool, dist_impl: str | None, cascade=None,
-           qc=None):
+           qc=None, esc_th2: float | None = None):
     """Distances to candidate ids with dedup + visited masking.
 
     ``visited`` (B, W) int32 is updated in place. Returns ``(dist (B,K) f32,
     +inf at invalid; ub (B,K) certified upper bounds (= dist on the exact
-    path); valid; visited; n_new (B,) int32)``. With a ``cascade`` (and
-    ``qc`` = ``cascade.encode(x)``), ``dist`` is a certified lower bound.
+    path); valid; visited; n_new (B,) int32; n_esc (B,) int32 candidates
+    escalated into tier 1)``. With a ``cascade`` (and ``qc`` =
+    ``cascade.encode(x)``), ``dist`` is a certified lower bound (or, on a
+    candidate a sketch tier pruned, its navigation estimate).
     """
     B, K = cand.shape
     valid = valid & (cand != NO_NODE)
@@ -104,33 +138,37 @@ def _probe(vecs: torch.Tensor, x: torch.Tensor, cand: torch.Tensor,
     # invalid slots pass NO_NODE: the kernels read no row and return +inf,
     # which is the reference's masked value
     if cascade is not None:
-        dist, ub = cascade_bounds(cascade, qc, cand, valid,
-                                  dist_impl=dist_impl)
+        dist, ub, n_esc = cascade_bounds(cascade, qc, cand, valid,
+                                         esc_th2, dist_impl=dist_impl)
+        dist = torch.where(valid, dist, _INF)
+        ub = torch.where(valid, ub, _INF)
     else:
         dist = ops.gather_sq_dists(vecs, x, torch.where(valid, cand, NO_NODE),
                                    impl=dist_impl)
         ub = dist
+        n_esc = torch.zeros((B,), dtype=torch.int32, device=cand.device)
     # mark visited: deduped ⇒ each (word, bit) is added once ⇒ add == or
     visited.scatter_add_(1, w, torch.where(valid, bit, 0))
     n_new = torch.sum(valid, dim=1, dtype=torch.int32)
-    return dist, ub, valid, visited, n_new
+    return dist, ub, valid, visited, n_new, n_esc
 
 
 def _expand(index_vecs: torch.Tensor, index_nbrs: torch.Tensor,
             x: torch.Tensor, sel_ids: torch.Tensor, sel_valid: torch.Tensor,
             visited: torch.Tensor, *, n_data: int, traverse_nondata: bool,
-            dist_impl: str | None, cascade=None, qc=None):
+            dist_impl: str | None, cascade=None, qc=None,
+            esc_th2: float | None = None):
     """Gather neighbor rows of selected nodes and probe them."""
     B, E = sel_ids.shape
     R = index_nbrs.shape[1]
     rows = index_nbrs[sel_ids.clamp_min(0).long()]           # (B, E, R)
     cand = rows.reshape(B, E * R)
     valid = sel_valid[:, :, None].expand(B, E, R).reshape(B, E * R)
-    dist, ub, valid, visited, n_new = _probe(
+    dist, ub, valid, visited, n_new, n_esc = _probe(
         index_vecs, x, cand, valid, visited, n_data=n_data,
         traverse_nondata=traverse_nondata, dist_impl=dist_impl,
-        cascade=cascade, qc=qc)
-    return cand, dist, ub, valid, visited, n_new
+        cascade=cascade, qc=qc, esc_th2=esc_th2)
+    return cand, dist, ub, valid, visited, n_new, n_esc
 
 
 def _take(a: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
@@ -175,6 +213,7 @@ class ExpandResult(NamedTuple):
     best_dist: torch.Tensor    # (B,) closest node seen overall
     best_idx: torch.Tensor     # (B,)
     n_dist: torch.Tensor       # (B,)
+    n_esc: torch.Tensor        # (B,) candidates escalated into tier 1
     n_iters: int               # loop iterations (host-stepped, exact)
     visited: torch.Tensor      # (B, W)
 
@@ -185,8 +224,8 @@ def range_expand(index: GraphIndex, x: torch.Tensor, theta: float, *,
                  init_dist: torch.Tensor, init_valid: torch.Tensor,
                  visited: torch.Tensor, best_dist: torch.Tensor,
                  best_idx: torch.Tensor, n_dist: torch.Tensor,
-                 cascade=None, qc=None, init_ub: torch.Tensor | None = None
-                 ) -> ExpandResult:
+                 cascade=None, qc=None, init_ub: torch.Tensor | None = None,
+                 n_esc: torch.Tensor | None = None) -> ExpandResult:
     """Enumerate all reachable in-range data points from initial candidates.
 
     ``init_*`` (B, K0) are already-visited candidates with known distances
@@ -198,7 +237,7 @@ def range_expand(index: GraphIndex, x: torch.Tensor, theta: float, *,
     pool is a superset of the exact one and the caller re-ranks it; the
     hybrid beam carries (lb, ub) pairs (``init_ub`` for the initial
     candidates) and protects entries with ub < ``hybrid_guard``·θ² from
-    eviction.
+    eviction. ``n_esc`` (B,) carries the probe's tier-1 escalations.
     """
     vecs, nbrs = index.vecs, index.nbrs
     dev = x.device
@@ -211,6 +250,8 @@ def range_expand(index: GraphIndex, x: torch.Tensor, theta: float, *,
                    if cascade is not None and cfg.hybrid_guard > 0 else None)
     if init_ub is None:
         init_ub = torch.full_like(init_dist, _INF)
+    if n_esc is None:
+        n_esc = torch.zeros((B,), dtype=torch.int32, device=dev)
 
     is_data = (init_idx >= 0) & (init_idx < n_data)
     inr = init_valid & is_data & (init_dist < th2)
@@ -281,11 +322,12 @@ def range_expand(index: GraphIndex, x: torch.Tensor, theta: float, *,
 
         # inactive lanes select nothing, so their visited words and counts
         # do not change: the update can go in place
-        cand, cd, cub, cv, visited, n_new = _expand(
+        cand, cd, cub, cv, visited, n_new, n_esc_new = _expand(
             vecs, nbrs, x, sel_ids, sel_valid, visited, n_data=n_data,
             traverse_nondata=traverse_nondata, dist_impl=cfg.dist_impl,
-            cascade=cascade, qc=qc)
+            cascade=cascade, qc=qc, esc_th2=th2)
         n_dist = n_dist + torch.where(active, n_new, 0)
+        n_esc = n_esc + torch.where(active, n_esc_new, 0)
 
         cis_data = (cand >= 0) & (cand < n_data)
         cinr = cv & cis_data & (cd < th2) & active[:, None]
@@ -345,5 +387,5 @@ def range_expand(index: GraphIndex, x: torch.Tensor, theta: float, *,
     return ExpandResult(
         pool_idx=pool_idx[:, :C], pool_dist=pool_dist[:, :C],
         n_pool=n_pool, overflow=overflow, best_dist=best_dist,
-        best_idx=best_idx, n_dist=n_dist, n_iters=n_iters,
+        best_idx=best_idx, n_dist=n_dist, n_esc=n_esc, n_iters=n_iters,
         visited=visited)

@@ -117,6 +117,13 @@ def env_flag(name: str, default: bool) -> bool:
     return default
 
 
+def early_exit_enabled(tcfg: TraversalConfig) -> bool:
+    """``tcfg.early_exit``, unless the ``REPRO_EARLY_EXIT`` env var
+    overrides it (``REPRO_EARLY_EXIT=off`` forces the full-scan PDX
+    kernels everywhere)."""
+    return env_flag("REPRO_EARLY_EXIT", tcfg.early_exit)
+
+
 METHODS = ("nlj", "index", "es", "es_hws", "es_sws", "es_mi", "es_mi_adapt")
 QUANT_MODES = ("off", "sq8", "sketch8", "pdx8", "sketchpdx8")
 

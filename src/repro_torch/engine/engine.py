@@ -6,14 +6,17 @@ per query set (keyed by a content fingerprint of X, kept in a small LRU)
 and serves joins and threshold sweeps from it. ``build_counts`` shows the
 reuse.
 
-Supported here: methods ``nlj``, ``es_mi`` and ``es_mi_adapt``, quant
-``off`` and ``sq8`` (joins and, through ``build_kw["quant"]``, the
-cascade-driven index build), one shard. Everything else raises
-``NotImplementedError`` naming the ROADMAP slice that brings it.
+Supported here: methods ``nlj``, ``es_mi`` and ``es_mi_adapt``, every
+quant mode (``off``, ``sq8``, ``sketch8``, ``pdx8``, ``sketchpdx8``; for
+joins and, through ``build_kw["quant"]``, the cascade-driven index build),
+one shard. Everything else raises ``NotImplementedError`` naming the
+ROADMAP slice that brings it.
 
-Under ``sq8`` the int8 store of each index artifact is built once
-(``tier_store``, counted in ``build_counts["quant"]``) and shared by the
-artifact's cascade-driven build and every join served from it.
+Each tier store of an index artifact (int8, sketch, PDX) is built once
+(``tier_store``, counted in ``build_counts["quant"]`` / ``["sketch"]`` /
+``["pdx"]``) and shared by the artifact's cascade-driven build and by
+every join served from it under any mode: a sketch8 join reuses the int8
+store an sq8 join built.
 
 ``device=None`` means the CUDA card; without one the constructor raises
 rather than run on the CPU (pass ``device="cpu"`` for the plain versions).
@@ -32,13 +35,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.types import (GraphIndex, JoinConfig, JoinResult,
-                                    JoinStats, resolve_device)
+                                    JoinStats, early_exit_enabled,
+                                    resolve_device)
 from repro_torch.engine import waves as W
 from repro_torch.obs import metrics as obs_metrics
 
 _MI_METHODS = ("es_mi", "es_mi_adapt")
 _SEARCH_METHODS = ("index", "es", "es_hws", "es_sws")
-_PORTED_QUANT = ("off", "sq8")
 
 # ~64 KiB of content sampled per fingerprint (see repro.engine.engine)
 _FP_SAMPLE_BYTES = 1 << 16
@@ -125,7 +128,8 @@ class JoinEngine:
         # compressed tier stores mirror the index artifacts they compress,
         # keyed by (tier name, artifact kind[, X fingerprint])
         self._tier_stores = _LRU(4 * max_cached_indexes)
-        self.build_counts: dict[str, int] = {"merged": 0, "quant": 0}
+        self.build_counts: dict[str, int] = {
+            "merged": 0, "quant": 0, "sketch": 0, "pdx": 0}
         self.build_seconds = 0.0
         self.serve_stats: dict[str, int] = {
             "joins": 0, "queries": 0, "pairs": 0}
@@ -147,12 +151,14 @@ class JoinEngine:
 
     def _build_kw_for(self, key: tuple, vecs) -> dict:
         """``build_kw`` with a ``quant`` mode resolved to a cascade over
-        the artifact's cached tier store, so the cascade-driven build and
-        the joins served from that artifact share one int8 store."""
+        the artifact's cached int8 tier store, so the cascade-driven build
+        and the joins served from that artifact share one store. The build
+        consults only an int8 tier: a mode without one (pdx8, sketchpdx8)
+        builds in f32, as ``graph.build_index`` maps it."""
+        from repro_torch.quant.cascade import TIERS_BY_MODE, make_cascade
         bk = dict(self.build_kw)
         mode = bk.pop("quant", None)
-        if mode and mode != "off":
-            from repro_torch.quant.cascade import make_cascade
+        if mode and "int8" in TIERS_BY_MODE[mode]:
             bk["quant"] = make_cascade(
                 [("int8", self.tier_store(key, "int8", vecs))])
         return bk
@@ -208,13 +214,20 @@ class JoinEngine:
         stats.quant_bytes += casc.nbytes
         return casc
 
-    def adopt(self, *, X=None, index_merged: GraphIndex | None = None
-              ) -> None:
-        """Install a prebuilt merged index for ``X`` (no build counted)."""
+    def adopt(self, *, X=None, index_merged: GraphIndex | None = None,
+              tier_stores: dict | None = None) -> None:
+        """Install a prebuilt merged index for ``X`` and prebuilt tier
+        stores (``{tier name: store}``, for example carried across from
+        the reference with ``quant.*_store_from_numpy``): over the merged
+        index of ``X`` when ``X`` is given, else over Y (the NLJ's
+        artifact). Nothing adopted counts as a build."""
         if index_merged is not None:
             if X is None:
                 raise ValueError("adopting index_merged requires X")
             self._merged.put(_fingerprint(X), index_merged)
+        key = ("merged", _fingerprint(X)) if X is not None else ("y",)
+        for name, store in (tier_stores or {}).items():
+            self._tier_stores.put((name,) + key, store)
 
     # -- configuration ------------------------------------------------------
 
@@ -238,11 +251,6 @@ class JoinEngine:
         from repro_torch.core.join import cascade_join_pairs
 
         cfg = self._resolve(cfg, method, theta)
-        if cfg.quant not in _PORTED_QUANT:
-            raise NotImplementedError(
-                f"quant={cfg.quant!r} arrives with its quantized slice "
-                f"(ROADMAP Queue A slice 8 for sketch8, 9 for pdx8 and "
-                f"sketchpdx8)")
         if cfg.method in _SEARCH_METHODS:
             raise NotImplementedError(
                 f"method {cfg.method!r} arrives with the search-path slice "
@@ -256,8 +264,13 @@ class JoinEngine:
             t0 = time.perf_counter()
             casc = self.cascade_for(("y",), self.Y, cfg, stats)
             pairs, counts = cascade_join_pairs(
-                Xd, self.Y, cfg.theta, casc, impl=cfg.traversal.dist_impl)
+                Xd, self.Y, cfg.theta, casc, impl=cfg.traversal.dist_impl,
+                early_exit=early_exit_enabled(cfg.traversal))
             stats.n_rerank = counts["n_rerank"]
+            if counts["escalated"]:
+                stats.n_esc8 = counts["escalated"][0]
+            stats.n_dims_scanned += counts["dims_scanned"]
+            stats.n_dims_total += counts["dims_total"]
             stats.other_seconds = time.perf_counter() - t0
             stats.n_dist = int(Xd.shape[0]) * int(self.Y.shape[0])
             return self._done(JoinResult(pairs=pairs, stats=stats), Xd)

@@ -6,9 +6,11 @@ wave has a device phase (``launch_mi_wave``: probe the query's own
 merged-index row, then BFS / hybrid BBFS, then the epilogue
 ``_finalize_wave``) and a host phase (``assemble_wave``: one device→host
 transfer of the pool block, then pair assembly). Under a quantized mode
-the traversal runs on certified int8 lower bounds, and the epilogue splits
-the pool into certified-sure entries and an ambiguous band that the f32
-gather kernel re-ranks through a ``RerankCap``-wide compaction; a wave
+the traversal runs on certified lower bounds walked through the cascade's
+tiers, and the epilogue splits the pool into certified-sure entries and an
+ambiguous band that is re-ranked exactly through a ``RerankCap``-wide
+compaction (the f32 gather kernel, or, with a PDX tier, the PDX gather
+kernel with early exit at θ² over the store's f32 PDX mirror); a wave
 whose band overflows the cap grows it and re-runs the epilogue
 (``_resolve_band``), so the emitted pairs never depend on the cap. With
 overlap on, wave k+1 is launched before wave k is assembled, the
@@ -34,7 +36,8 @@ import torch
 from repro_torch.core import traversal
 from repro_torch.core.ood import predict_ood
 from repro_torch.core.types import (NO_NODE, GraphIndex, JoinConfig,
-                                    JoinStats, TraversalConfig, env_flag)
+                                    JoinStats, TraversalConfig,
+                                    early_exit_enabled, env_flag)
 from repro_torch.kernels import ops
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -97,31 +100,58 @@ def collect_pairs(qids: np.ndarray, keep: np.ndarray,
 def _finalize_wave(cascade, qc, vecs: torch.Tensor, xw: torch.Tensor,
                    pool_idx: torch.Tensor, pool_dist: torch.Tensor,
                    n_pool: torch.Tensor, lane_valid: torch.Tensor,
-                   th2: float, *, cap: int, dist_impl: str | None):
+                   th2: float, *, cap: int, dist_impl: str | None,
+                   early_exit: bool = False):
     """Device epilogue of one wave (the reference's ``_finalize_wave`` with
     ``seed_mode="none"``). Without a cascade every filled pool slot of a
     valid lane is emitted. With one, the pooled lower bounds split into
     certified-sure entries and an ambiguous band; only the band, compacted
-    to ``cap`` slots per lane, is re-ranked exactly (f32 gather kernel).
+    to ``cap`` slots per lane, is re-ranked exactly: by the f32 gather
+    kernel, or, when the cascade has a PDX tier, by the PDX gather kernel
+    over its f32 mirror, which with ``early_exit`` retires lanes whose
+    partial sum plus certified tail bound exceeds θ² (+inf; their full
+    sum is certified ≥ θ², so ``keep`` and ``dist`` are the same on and
+    off).
 
     Returns ``(keep (B, C), dist (B, C) — exact where re-ranked, +inf off
-    keep, n_amb (B,) band occupancy)``; band entries ranked ≥ ``cap``
-    were not re-ranked, so the caller retries when ``n_amb > cap``."""
+    keep, n_amb (B,) band occupancy, n_dims_scanned, n_dims_total — 0-d
+    PDX re-rank scan counters, 0 without a PDX tier)``; band entries
+    ranked ≥ ``cap`` were not re-ranked, so the caller retries when
+    ``n_amb > cap``."""
     B, C = pool_idx.shape
-    keep = ((torch.arange(C, device=pool_idx.device)[None, :] < n_pool[:, None])
+    dev = pool_idx.device
+    keep = ((torch.arange(C, device=dev)[None, :] < n_pool[:, None])
             & lane_valid[:, None])
     dist = pool_dist
-    n_amb = torch.zeros((B,), dtype=torch.int32, device=pool_idx.device)
+    n_amb = torch.zeros((B,), dtype=torch.int32, device=dev)
+    n_scanned = torch.zeros((), dtype=torch.int64, device=dev)
+    n_total = torch.zeros((), dtype=torch.int64, device=dev)
     if cascade is not None:
         sure, amb = cascade.pool_band(qc, pool_dist, pool_idx, th2)
         sure = keep & sure
         amb = keep & amb
-        exact, within, n_amb = ops.compact_gather_sq_dists(
-            vecs, xw, pool_idx, amb, min(cap, C), impl=dist_impl)
-        keep = sure | (within & (exact < th2))
-        dist = torch.where(within & torch.isfinite(exact), exact, pool_dist)
+        pdx = cascade.tier("pdx")
+        if pdx is not None:
+            st = pdx.store
+            qcp = qc[cascade.names.index("pdx")]
+            exact, within, n_amb, n_scanned, n_total = \
+                ops.pdx_compact_gather_sq_dists(
+                    st.vp, st.ftail, st.ftail[:, 0].contiguous(), qcp.vp,
+                    qcp.ftail, qcp.ftail[:, 0].contiguous(), pool_idx, amb,
+                    min(cap, C), th2, dim=st.dim, early_exit=early_exit,
+                    impl=dist_impl)
+            keep = sure | (within & (exact < th2))
+            # exact < th2, not isfinite: a retired slot reads +inf here and
+            # a finite value ≥ θ² with exit off; both keep pool_dist
+            dist = torch.where(within & (exact < th2), exact, pool_dist)
+        else:
+            exact, within, n_amb = ops.compact_gather_sq_dists(
+                vecs, xw, pool_idx, amb, min(cap, C), impl=dist_impl)
+            keep = sure | (within & (exact < th2))
+            dist = torch.where(within & torch.isfinite(exact), exact,
+                               pool_dist)
     dist = torch.where(keep, dist, _INF)
-    return keep, dist, n_amb
+    return keep, dist, n_amb, n_scanned, n_total
 
 
 @dataclasses.dataclass
@@ -140,15 +170,19 @@ class WaveHandles:
     n_pool: torch.Tensor
     best_idx: torch.Tensor
     n_dist: torch.Tensor
+    n_esc: torch.Tensor
     overflow: torch.Tensor
     n_iters: tuple                 # host ints, summed at assembly
     # epilogue outputs (replaced wholesale on a capacity retry)
     keep: torch.Tensor
     dist: torch.Tensor
     n_amb: torch.Tensor
+    n_dims_scanned: torch.Tensor   # () PDX re-rank scan counters
+    n_dims_total: torch.Tensor
     capctl: RerankCap
     cap: int                       # band capacity the epilogue ran at
     dist_impl: str | None
+    early_exit: bool = False
     # device-phase trace span ("traversal" lane), opened at dispatch and
     # closed at the first host contact with the results (_resolve_band)
     span: object = None
@@ -167,10 +201,12 @@ def _refinalize(h: WaveHandles, stats: JoinStats) -> None:
     h.cap = h.capctl.cap
     with obs_trace.tracer().span("wave/refinalize", lane="assembly",
                                  cap=h.cap):
-        h.keep, h.dist, h.n_amb = _finalize_wave(
+        (h.keep, h.dist, h.n_amb, h.n_dims_scanned,
+         h.n_dims_total) = _finalize_wave(
             h.cascade, h.qc, h.vecs, h.xw, h.pool_idx, h.raw_pool_dist,
             h.n_pool, torch.as_tensor(h.lane_valid, device=h.xw.device),
-            h.th2, cap=h.cap, dist_impl=h.dist_impl)
+            h.th2, cap=h.cap, dist_impl=h.dist_impl,
+            early_exit=h.early_exit)
     _count_band(h, stats)
 
 
@@ -231,19 +267,23 @@ def assemble_wave(h: WaveHandles, stats: JoinStats, *,
     _resolve_band(h, stats)
     t0 = time.perf_counter()
     with obs_trace.tracer().span("wave/assemble", lane="assembly") as sp:
-        (pool_idx, pool_dist, keep, n_pool, best_idx, n_dist,
-         overflow) = (t.cpu().numpy() for t in (
+        (pool_idx, pool_dist, keep, n_pool, best_idx, n_dist, n_esc,
+         overflow, nds, ndt) = (t.cpu().numpy() for t in (
              h.pool_idx, h.dist, h.keep, h.n_pool, h.best_idx, h.n_dist,
-             h.overflow))
+             h.n_esc, h.overflow, h.n_dims_scanned, h.n_dims_total))
         lv = h.lane_valid
         pairs = collect_pairs(h.qids + qid_offset, keep, pool_idx)
         stats.n_dist += int(n_dist[lv].sum())
+        stats.n_esc8 += int(n_esc[lv].sum())
         stats.n_overflow += int(overflow[lv].sum())
         stats.n_rerank += int(h.n_amb_host[lv].sum())
+        stats.n_dims_scanned += int(nds)
+        stats.n_dims_total += int(ndt)
         stats.n_iters += sum(h.n_iters)
         stats.bytes_assembly += (
             pool_idx.nbytes + pool_dist.nbytes + keep.nbytes + n_pool.nbytes
-            + best_idx.nbytes + n_dist.nbytes + overflow.nbytes)
+            + best_idx.nbytes + n_dist.nbytes + n_esc.nbytes
+            + overflow.nbytes)
         if sp:
             sp.set(pairs=int(pairs.shape[0]),
                    lanes=int(np.count_nonzero(lv)))
@@ -262,7 +302,8 @@ def assemble_wave(h: WaveHandles, stats: JoinStats, *,
 
 def _mi_probe(merged: GraphIndex, x: torch.Tensor, qids: torch.Tensor,
               lane_valid: torch.Tensor, *, traverse_nondata: bool,
-              dist_impl: str | None, cascade=None, qc=None):
+              dist_impl: str | None, cascade=None, qc=None,
+              esc_th2: float | None = None):
     """Probe each query's own neighborhood row in the merged index."""
     B = x.shape[0]
     W = traversal.bitmap_words(merged.n_nodes)
@@ -272,14 +313,14 @@ def _mi_probe(merged: GraphIndex, x: torch.Tensor, qids: torch.Tensor,
                          traversal.bit_of(qids)[:, None])
     rows = merged.nbrs[qids.long()]                          # (B, R)
     valid = lane_valid[:, None].expand(rows.shape)
-    dist, ub, valid, visited, n_new = traversal._probe(
+    dist, ub, valid, visited, n_new, n_esc = traversal._probe(
         merged.vecs, x, rows, valid, visited, n_data=merged.n_data,
         traverse_nondata=traverse_nondata, dist_impl=dist_impl,
-        cascade=cascade, qc=qc)
+        cascade=cascade, qc=qc, esc_th2=esc_th2)
     best, arg = torch.min(dist, dim=1)
     besti = torch.gather(torch.where(valid, rows, NO_NODE), 1,
                          arg[:, None])[:, 0]
-    return rows, dist, ub, valid, visited, n_new, best, besti
+    return rows, dist, ub, valid, visited, n_new, n_esc, best, besti
 
 
 # ---------------------------------------------------------------------------
@@ -316,9 +357,9 @@ def launch_mi_wave(merged: GraphIndex, xw: torch.Tensor, qids: np.ndarray,
 
     dspan = tr.begin("wave/device", lane="traversal", cap=capctl.cap)
     t0 = time.perf_counter()
-    rows, dist, ub, valid, visited, n_new, best, besti = _mi_probe(
+    rows, dist, ub, valid, visited, n_new, n_esc0, best, besti = _mi_probe(
         merged, xw, node_ids, lv, traverse_nondata=hybrid,
-        dist_impl=tcfg.dist_impl, cascade=cascade, qc=qc)
+        dist_impl=tcfg.dist_impl, cascade=cascade, qc=qc, esc_th2=th2)
     if sync:
         _sync(dist)
         stats.greedy_seconds += time.perf_counter() - t0
@@ -329,23 +370,25 @@ def launch_mi_wave(merged: GraphIndex, xw: torch.Tensor, qids: np.ndarray,
         hybrid=hybrid, traverse_nondata=hybrid,
         init_idx=rows, init_dist=dist, init_valid=valid,
         visited=visited, best_dist=best, best_idx=besti,
-        n_dist=n_new, cascade=cascade, qc=qc, init_ub=ub)
+        n_dist=n_new, cascade=cascade, qc=qc, init_ub=ub, n_esc=n_esc0)
     if sync:
         _sync(r.pool_idx)
         stats.expand_seconds += time.perf_counter() - t0
 
-    keep, dist2, n_amb = _finalize_wave(
+    ee = early_exit_enabled(tcfg)
+    keep, dist2, n_amb, nds, ndt = _finalize_wave(
         cascade, qc, merged.vecs, xw, r.pool_idx, r.pool_dist, r.n_pool, lv,
-        th2, cap=capctl.cap, dist_impl=tcfg.dist_impl)
+        th2, cap=capctl.cap, dist_impl=tcfg.dist_impl, early_exit=ee)
     lsp.end(lanes=int(np.count_nonzero(lane_valid)), cap=capctl.cap,
             hybrid=hybrid)
     h = WaveHandles(
         qids=qids, lane_valid=np.asarray(lane_valid), xw=xw,
         vecs=merged.vecs, cascade=cascade, qc=qc, th2=th2,
         pool_idx=r.pool_idx, raw_pool_dist=r.pool_dist, n_pool=r.n_pool,
-        best_idx=r.best_idx, n_dist=r.n_dist, overflow=r.overflow,
-        n_iters=(r.n_iters,), keep=keep, dist=dist2, n_amb=n_amb,
-        capctl=capctl, cap=capctl.cap, dist_impl=tcfg.dist_impl, span=dspan)
+        best_idx=r.best_idx, n_dist=r.n_dist, n_esc=r.n_esc,
+        overflow=r.overflow, n_iters=(r.n_iters,), keep=keep, dist=dist2,
+        n_amb=n_amb, n_dims_scanned=nds, n_dims_total=ndt, capctl=capctl,
+        cap=capctl.cap, dist_impl=tcfg.dist_impl, early_exit=ee, span=dspan)
     _count_band(h, stats)
     return h
 

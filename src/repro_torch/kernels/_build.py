@@ -24,7 +24,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "distance.cu", CSRC / "int8.cu", CSRC / "topk_merge.cu")
+SOURCES = (CSRC / "distance.cu", CSRC / "int8.cu", CSRC / "topk_merge.cu",
+           CSRC / "bits.cu", CSRC / "pdx.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -32,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 # C signatures of csrc/*.cu (every pointer and the stream as void*)
 _SIGNATURES = {
     "repro_pairwise_sq_dists": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -44,6 +46,12 @@ _SIGNATURES = {
     "repro_rowwise_sq_dists_int8": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _LL,
                                     _I, _P),
     "repro_topk_merge": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "repro_pairwise_hamming": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "repro_rowwise_hamming": (_P, _P, _P, _P, _LL, _I, _I, _LL, _I, _P),
+    "repro_pairwise_sq_dists_pdx": (_P,) * 13 + (_I, _I, _I, _I, _F, _F, _F,
+                                                  _F, _I, _I, _P),
+    "repro_pdx_gather_sq_dists": (_P,) * 9 + (_LL, _I, _I, _I, _LL, _F, _F,
+                                              _F, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -2,7 +2,8 @@
 
 Implementation selection (``impl``) follows the tensors' device:
   * ``cuda`` — the hand-written kernels of ``csrc/*.cu`` (f32 distances,
-    int8 distances, the top-k merge), for CUDA tensors;
+    int8 distances, the top-k merge, sketch Hamming counts, PDX early-exit
+    distances), for CUDA tensors;
   * ``ref``  — the plain PyTorch versions in ``kernels/ref.py``, for CPU
     tensors (what the CPU tests run).
 An explicit ``impl`` must name the one its tensors' device takes.
@@ -26,7 +27,8 @@ IMPLS = ("ref", "cuda")
 LAUNCHES: dict[str, int] = {
     "pairwise_sq_dists": 0, "pairlist_sq_dists": 0, "rowwise_sq_dists": 0,
     "gather_sq_dists": 0, "topk_merge": 0, "pairwise_sq_dists_int8": 0,
-    "rowwise_sq_dists_int8": 0}
+    "rowwise_sq_dists_int8": 0, "pairwise_hamming": 0, "rowwise_hamming": 0,
+    "pairwise_sq_dists_pdx": 0, "pdx_gather_sq_dists": 0}
 _GRID_Y_MAX = 65535
 _MAX_BLOCKS = 2**31 - 1
 
@@ -464,6 +466,247 @@ def gather_sq_dists_int8(codes: torch.Tensor, qx: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# 1-bit sketch (Hamming) counts — int32 words holding uint32 sign bits
+# ---------------------------------------------------------------------------
+
+def pairwise_hamming_cuda(cx: torch.Tensor, cy: torch.Tensor) -> torch.Tensor:
+    dev = cx.device
+    _check("cx", cx, torch.int32, 2, dev)
+    _check("cy", cy, torch.int32, 2, dev)
+    B, W = cx.shape
+    N = cy.shape[0]
+    if cy.shape[1] != W:
+        raise ValueError(f"words differ: cx {tuple(cx.shape)}, "
+                         f"cy {tuple(cy.shape)}")
+    if -(-B // 64) > _GRID_Y_MAX or max(B, N, W) >= 2**31:
+        raise ValueError(f"shape too large for one launch: B={B} N={N} W={W}")
+    out = torch.empty((B, N), dtype=torch.int32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        code = lib.repro_pairwise_hamming(
+            cx.data_ptr(), cy.data_ptr(), out.data_ptr(), B, N, W,
+            int(N % 4 == 0 and out.data_ptr() % 16 == 0), _stream(dev))
+    LAUNCHES["pairwise_hamming"] += 1
+    _build.check(code, "pairwise_hamming")
+    return out
+
+
+def pairwise_hamming(cx: torch.Tensor, cy: torch.Tensor, *,
+                     impl: str | None = None) -> torch.Tensor:
+    """(B, W) × (N, W) int32 sketch words → (B, N) int32 Hamming counts
+    (the certified bounds come from ``quant.sketch``)."""
+    impl = _impl(impl, cx)
+    B, W = cx.shape
+    N = cy.shape[0]
+    if B == 0 or N == 0 or W == 0:
+        return torch.zeros((B, N), dtype=torch.int32, device=cx.device)
+    if impl == "ref":
+        return _ref.pairwise_hamming(cx, cy)
+    return pairwise_hamming_cuda(cx, cy)
+
+
+def _rowwise_hamming_cuda(cx, cands, ids, K: int) -> torch.Tensor:
+    """The one Hamming rowwise kernel: (B, K, W) candidates (``ids``
+    None) or rows ``ids`` of the (N, W) code table."""
+    dev = cx.device
+    _check("cx", cx, torch.int32, 2, dev)
+    B, W = cx.shape
+    if ids is None:
+        _check("ccands", cands, torch.int32, 3, dev)
+        if cands.shape[0] != B or cands.shape[2] != W:
+            raise ValueError(f"shapes differ: cx {tuple(cx.shape)}, ccands "
+                             f"{tuple(cands.shape)}")
+        N, ids_ptr = 0, None
+    else:
+        _check("codes", cands, torch.int32, 2, dev)
+        _check("idx", ids, torch.int32, 2, dev)
+        if cands.shape[1] != W or ids.shape[0] != B:
+            raise ValueError(f"shapes differ: codes {tuple(cands.shape)}, "
+                             f"cx {tuple(cx.shape)}, idx {tuple(ids.shape)}")
+        N, ids_ptr = cands.shape[0], ids.data_ptr()
+    n_pairs = B * K
+    if -(-n_pairs // 256) > _MAX_BLOCKS or max(K, W) >= 2**31:
+        raise ValueError(f"shape too large for one launch: B={B} K={K}")
+    vec4 = int(W % 4 == 0 and _aligned(16, cx, cands))
+    out = torch.empty((B, K), dtype=torch.int32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        code = lib.repro_rowwise_hamming(
+            cx.data_ptr(), cands.data_ptr(), ids_ptr, out.data_ptr(),
+            n_pairs, K, W, N, vec4, _stream(dev))
+    LAUNCHES["rowwise_hamming"] += 1
+    _build.check(code, "rowwise_hamming")
+    return out
+
+
+def rowwise_hamming(cx: torch.Tensor, ccands: torch.Tensor, *,
+                    impl: str | None = None) -> torch.Tensor:
+    """(B, W) × (B, K, W) int32 → (B, K) int32 Hamming counts over
+    per-query candidate codes."""
+    impl = _impl(impl, cx)
+    B, W = cx.shape
+    K = ccands.shape[1]
+    if B == 0 or K == 0 or W == 0:
+        return torch.zeros((B, K), dtype=torch.int32, device=cx.device)
+    if impl == "ref":
+        return _ref.rowwise_hamming(cx, ccands)
+    return _rowwise_hamming_cuda(cx, ccands, None, K)
+
+
+def gather_hamming(codes: torch.Tensor, cx: torch.Tensor, idx: torch.Tensor,
+                   *, impl: str | None = None) -> torch.Tensor:
+    """(N, W) codes × (B, W) query codes × (B, K) int32 ids → (B, K) int32
+    ``rowwise_hamming(cx, codes[idx])`` without building the gathered
+    tensor (the kernel reads each row by id). Ids outside [0, N)
+    (NO_NODE) read no row and give -1."""
+    impl = _impl(impl, cx)
+    B, K = idx.shape
+    if B == 0 or K == 0:
+        return torch.zeros((B, K), dtype=torch.int32, device=cx.device)
+    if impl == "ref":
+        return _ref.gather_hamming(codes, cx, idx)
+    return _rowwise_hamming_cuda(cx, codes, idx, K)
+
+
+# ---------------------------------------------------------------------------
+# PDX (dimension-partitioned) early-exit distances
+# ---------------------------------------------------------------------------
+
+def _pdx_guards(dim: int) -> tuple[float, float]:
+    """(relative, absolute) tail-bound deflation at dimension ``dim``."""
+    from repro_torch.quant.pdx import TAIL_GUARD, tail_guard
+    return tail_guard(dim), TAIL_GUARD
+
+
+def pairwise_sq_dists_pdx_cuda(qx, qy, scales, xslab, yslab, xtail, ytail,
+                               xn, yn, xe, ye, theta: float, *, slab: int,
+                               dim: int, early_exit: bool):
+    from repro_torch.quant.cascade import MATMUL_GUARD
+    dev = qx.device
+    _check("qx", qx, torch.int8, 2, dev)
+    _check("qy", qy, torch.int8, 2, dev)
+    _check("scales", scales, torch.float32, 1, dev)
+    B, dp = qx.shape
+    N = qy.shape[0]
+    S = scales.shape[0]
+    if qy.shape[1] != dp or slab <= 0 or S * slab != dp:
+        raise ValueError(f"shapes differ: qx {tuple(qx.shape)}, qy "
+                         f"{tuple(qy.shape)}, {S} slabs of {slab}")
+    for name, t, n in (("xslab", xslab, B), ("yslab", yslab, N),
+                       ("xtail", xtail, B), ("ytail", ytail, N)):
+        _check(name, t, torch.float32, 2, dev)
+        if tuple(t.shape) != (n, S):
+            raise ValueError(f"{name} {tuple(t.shape)} is not ({n}, {S})")
+    for name, t, n in (("xn", xn, B), ("yn", yn, N), ("xe", xe, B),
+                       ("ye", ye, N)):
+        _check(name, t, torch.float32, 1, dev)
+        if t.shape[0] != n:
+            raise ValueError(f"{name} {tuple(t.shape)} is not ({n},)")
+    if -(-B // 128) > _GRID_Y_MAX or max(B, N, dp) >= 2**31:
+        raise ValueError(f"shape too large for one launch: B={B} N={N}")
+    guard, guard_abs = _pdx_guards(dim)
+    vec16 = int(dp % 16 == 0 and slab % 16 == 0 and _aligned(16, qx, qy))
+    out = torch.empty((B, N), dtype=torch.float32, device=dev)
+    nscan = torch.empty((B, N), dtype=torch.int32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        code = lib.repro_pairwise_sq_dists_pdx(
+            qx.data_ptr(), qy.data_ptr(), scales.data_ptr(), xslab.data_ptr(),
+            yslab.data_ptr(), xtail.data_ptr(), ytail.data_ptr(),
+            xn.data_ptr(), yn.data_ptr(), xe.data_ptr(), ye.data_ptr(),
+            out.data_ptr(), nscan.data_ptr(), B, N, S, slab, float(theta),
+            guard, guard_abs, MATMUL_GUARD, int(early_exit), vec16,
+            _stream(dev))
+    LAUNCHES["pairwise_sq_dists_pdx"] += 1
+    _build.check(code, "pairwise_sq_dists_pdx")
+    return out, nscan
+
+
+def pairwise_sq_dists_pdx(qx, qy, scales, xslab, yslab, xtail, ytail, xn,
+                          yn, xe, ye, theta: float, *, slab: int, dim: int,
+                          early_exit: bool = False, impl: str | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """PDX early-exit quantized pairwise distances (the NLJ tier shape):
+    (B, S·slab) × (N, S·slab) int8 PDX codes → ``(dhat, nscan)``, (B, N)
+    f32 (+inf where a lane retired on its certified tail bound against the
+    L2 threshold ``theta``) and (B, N) int32 slabs scanned. Survivors'
+    sums are bit-identical with ``early_exit`` on and off."""
+    impl = _impl(impl, qx)
+    B = qx.shape[0]
+    N = qy.shape[0]
+    if B == 0 or N == 0:
+        return (torch.zeros((B, N), dtype=torch.float32, device=qx.device),
+                torch.zeros((B, N), dtype=torch.int32, device=qx.device))
+    if impl == "ref":
+        return _ref.pairwise_sq_dists_pdx(
+            qx, qy, scales, xslab, yslab, xtail, ytail, xn, yn, xe, ye,
+            theta, slab=slab, dim=dim, early_exit=early_exit)
+    return pairwise_sq_dists_pdx_cuda(
+        qx, qy, scales, xslab, yslab, xtail, ytail, xn, yn, xe, ye, theta,
+        slab=slab, dim=dim, early_exit=early_exit)
+
+
+def pdx_gather_sq_dists_cuda(vp, vtail, vnorm, xp, xtail, xn, idx,
+                             th2: float, *, dim: int, early_exit: bool):
+    dev = xp.device
+    _check("vp", vp, torch.float32, 2, dev)
+    _check("vtail", vtail, torch.float32, 2, dev)
+    _check("vnorm", vnorm, torch.float32, 1, dev)
+    _check("xp", xp, torch.float32, 2, dev)
+    _check("xtail", xtail, torch.float32, 2, dev)
+    _check("xn", xn, torch.float32, 1, dev)
+    _check("idx", idx, torch.int32, 2, dev)
+    B, dp = xp.shape
+    N, S = vtail.shape
+    K = idx.shape[1]
+    if (vp.shape != (N, dp) or xtail.shape != (B, S) or S == 0
+            or dp % S or vnorm.shape[0] != N or xn.shape[0] != B
+            or idx.shape[0] != B):
+        raise ValueError(f"shapes differ: vp {tuple(vp.shape)}, vtail "
+                         f"{tuple(vtail.shape)}, xp {tuple(xp.shape)}, xtail "
+                         f"{tuple(xtail.shape)}, idx {tuple(idx.shape)}")
+    slab = dp // S
+    n_pairs = B * K
+    if -(-n_pairs // 8) > _MAX_BLOCKS or max(K, dp) >= 2**31:
+        raise ValueError(f"shape too large for one launch: B={B} K={K}")
+    guard, guard_abs = _pdx_guards(dim)
+    vec4 = int(slab % 4 == 0 and _aligned(16, vp, xp))
+    out = torch.empty((B, K), dtype=torch.float32, device=dev)
+    nscan = torch.empty((B, K), dtype=torch.int32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        code = lib.repro_pdx_gather_sq_dists(
+            vp.data_ptr(), vtail.data_ptr(), vnorm.data_ptr(), xp.data_ptr(),
+            xtail.data_ptr(), xn.data_ptr(), idx.data_ptr(), out.data_ptr(),
+            nscan.data_ptr(), n_pairs, K, S, slab, N, float(th2), guard,
+            guard_abs, int(early_exit), vec4, _stream(dev))
+    LAUNCHES["pdx_gather_sq_dists"] += 1
+    _build.check(code, "pdx_gather_sq_dists")
+    return out, nscan
+
+
+def pdx_gather_sq_dists(vp, vtail, vnorm, xp, xtail, xn, idx, th2: float, *,
+                        dim: int, early_exit: bool = False,
+                        impl: str | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused PDX gather + early-exit f32 distance over candidate ids:
+    (N, S·slab) PDX rows × (B, S·slab) PDX queries × (B, K) int32 ids →
+    ``(dist, nscan)``. NO_NODE slots read no row and give (+inf, 0);
+    lanes retired against ``th2`` (θ²) give +inf; survivors carry the
+    slab-ordered f32 sum, bit-identical with ``early_exit`` on and off."""
+    impl = _impl(impl, xp)
+    B, K = idx.shape
+    if B == 0 or K == 0:
+        return (torch.zeros((B, K), dtype=torch.float32, device=xp.device),
+                torch.zeros((B, K), dtype=torch.int32, device=xp.device))
+    if impl == "ref":
+        return _ref.pdx_gather_sq_dists(vp, vtail, vnorm, xp, xtail, xn, idx,
+                                        th2, dim=dim, early_exit=early_exit)
+    return pdx_gather_sq_dists_cuda(vp, vtail, vnorm, xp, xtail, xn, idx, th2,
+                                    dim=dim, early_exit=early_exit)
+
+
+# ---------------------------------------------------------------------------
 # quantization error → certified distance bounds
 # ---------------------------------------------------------------------------
 
@@ -546,6 +789,32 @@ def compact_gather_sq_dists(vecs: torch.Tensor, x: torch.Tensor,
     exact = band_scatter(slots, gather_sq_dists(vecs, x, cand, impl=impl), C)
     within = mask & (torch.cumsum(mask, dim=1) - 1 < cap)
     return exact, within, n_masked
+
+
+def pdx_compact_gather_sq_dists(vp, vtail, vnorm, xp, xtail, xn, ids,
+                                mask, cap: int, th2: float, *, dim: int,
+                                early_exit: bool = False,
+                                impl: str | None = None):
+    """PDX twin of ``compact_gather_sq_dists``: the early-exit re-rank of
+    the masked band slots through a ``cap``-wide compaction (the PDX
+    gather kernel sees only B × cap ids). Returns ``(exact, within,
+    n_masked, n_scanned, n_total)`` — the first three as there (``exact``
+    is +inf on retired and on uncompacted slots), then the dimensions
+    scanned and the dimensions of a full scan over the compacted valid
+    lanes, as 0-d int64 tensors on the device."""
+    C = ids.shape[1]
+    slots, cand, n_masked = band_compact(mask, ids, cap)
+    dist_c, nscan_c = pdx_gather_sq_dists(
+        vp, vtail, vnorm, xp, xtail, xn, cand, th2, dim=dim,
+        early_exit=early_exit, impl=impl)
+    exact = band_scatter(slots, dist_c, C)
+    within = mask & (torch.cumsum(mask, dim=1) - 1 < cap)
+    slab = vp.shape[1] // vtail.shape[1]
+    valid = cand >= 0
+    n_scanned = torch.sum(torch.where(
+        valid, torch.clamp_max(nscan_c.long() * slab, dim), 0))
+    n_total = torch.sum(valid) * dim
+    return exact, within, n_masked, n_scanned, n_total
 
 
 def next_pow2(n: int) -> int:

@@ -5,7 +5,11 @@ and the path ``kernels.ops`` takes for tensors on the CPU. The formulas are
 the reference's: the matmul form clamped at 0 for pairwise distances, the
 difference form for per-query rows; the int8 versions dequantize first and
 then take the f32 form, so they round differently from the kernels, which
-stay in the integer domain per dimension group.
+stay in the integer domain per dimension group. The Hamming versions count
+differing bits of sign-bit sketches held as int32 words (the reference's
+uint32 bit patterns); the PDX versions accumulate slab by slab with the
+reference's retirement latch (``_pdx_live_loop``), in the kernels' own
+operation order.
 """
 from __future__ import annotations
 
@@ -116,7 +120,145 @@ def gather_sq_dists_int8(codes: torch.Tensor, qx: torch.Tensor,
     return torch.where(valid, d, torch.inf)
 
 
+# ---------------------------------------------------------------------------
+# 1-bit sketch codes: int32 words holding the reference's uint32 bits
+# ---------------------------------------------------------------------------
+
+def _popcount32(v: torch.Tensor) -> torch.Tensor:
+    """Per-element bit count of int32 words (SWAR on the 32-bit pattern
+    widened to int64, so every shift is logical)."""
+    v = v.long() & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) >> 24 & 0xFF).to(torch.int32)
+
+
+def pairwise_hamming(cx: torch.Tensor, cy: torch.Tensor) -> torch.Tensor:
+    """(B, W) × (N, W) int32 sketch words → (B, N) int32 differing-bit
+    counts."""
+    pc = _popcount32(cx[:, None, :] ^ cy[None, :, :])
+    return torch.sum(pc, dim=-1, dtype=torch.int32)
+
+
+def rowwise_hamming(cx: torch.Tensor, ccands: torch.Tensor) -> torch.Tensor:
+    """(B, W) × (B, K, W) int32 → (B, K) int32 counts over per-query
+    candidate codes."""
+    pc = _popcount32(ccands ^ cx[:, None, :])
+    return torch.sum(pc, dim=-1, dtype=torch.int32)
+
+
+def gather_hamming(codes: torch.Tensor, cx: torch.Tensor,
+                   idx: torch.Tensor) -> torch.Tensor:
+    """``rowwise_hamming(cx, codes[idx])``; ids outside [0, N) (NO_NODE)
+    give -1, which the sketch bound turns into +inf."""
+    valid = (idx >= 0) & (idx < codes.shape[0])
+    if codes.shape[0] == 0:
+        return torch.full(idx.shape, -1, dtype=torch.int32, device=idx.device)
+    safe = torch.where(valid, idx, 0).long()
+    h = rowwise_hamming(cx, codes[safe])
+    return torch.where(valid, h, -1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# PDX (dimension-partitioned) early-exit distances
+# ---------------------------------------------------------------------------
+
+def _f32(v: float) -> float:
+    """A python constant rounded to f32, as the kernels receive it."""
+    import numpy as np
+    return float(np.float32(v))
+
+
+def _pdx_live_loop(slab_contribs, tails, th, nk: int, early_exit: bool):
+    """Slab-ordered accumulation with the per-lane retirement latch.
+
+    ``slab_contribs[k]`` is the f32 contribution of slab k, ``tails[k]``
+    the deflated remaining-dims bound at the start of slab k, ``th`` the
+    per-lane threshold. Returns ``(acc, nscan)``: retired lanes read +inf
+    and the number of slabs they scanned; survivors hold the slab-ordered
+    sum, the same additions in the same order as with ``early_exit`` off
+    (so bit-identical to it)."""
+    acc = torch.zeros_like(slab_contribs[0])
+    if not early_exit:
+        for k in range(nk):
+            acc = acc + slab_contribs[k]
+        return acc, torch.full(acc.shape, nk, dtype=torch.int32,
+                               device=acc.device)
+    scanned = torch.zeros(acc.shape, dtype=torch.int32, device=acc.device)
+    for k in range(nk):
+        live = (scanned == k) & (acc + tails[k] <= th)
+        acc = torch.where(live, acc + slab_contribs[k], acc)
+        scanned = torch.where(live, k + 1, scanned)
+    return torch.where(scanned == nk, acc, torch.inf), scanned
+
+
+def pairwise_sq_dists_pdx(qx, qy, scales, xslab, yslab, xtail, ytail, xn,
+                          yn, xe, ye, theta: float, *, slab: int, dim: int,
+                          early_exit: bool
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, S·slab) × (N, S·slab) int8 PDX codes → ``(dhat, nscan)``: the
+    slab-ordered quantized distance, slab k adding ``max(xslab_k + yslab_k
+    − 2·s_k²·dot_k, 0)`` (``dot_k`` the int32 dot of the slab), +inf where
+    a lane retired, and the slabs each lane scanned. A lane retires at
+    slab k when its partial sum plus the deflated tail bound exceeds
+    ``(θ + xe + ye)² + MATMUL_GUARD·(xn + yn)``."""
+    from repro_torch.quant.cascade import MATMUL_GUARD
+    from repro_torch.quant.pdx import deflate_tail
+    nk = scales.shape[0]
+    # int8 products summed in float64 are exact integers (the kernel's
+    # int32 dot), on the CPU and on the card alike
+    x64 = qx.double()
+    y64 = qy.double()
+    energy = xn[:, None] + yn[None, :]
+    th = ((_f32(theta) + xe[:, None] + ye[None, :]) ** 2
+          + _f32(MATMUL_GUARD) * energy)
+    contribs, tails = [], []
+    for k in range(nk):
+        sl = slice(k * slab, (k + 1) * slab)
+        dot = x64[:, sl] @ y64[:, sl].T
+        s = scales[k]
+        c = (xslab[:, k][:, None] + yslab[:, k][None, :]
+             - 2.0 * (s * s) * dot.float())
+        contribs.append(torch.clamp_min(c, 0.0))
+        rt = (torch.sqrt(xtail[:, k])[:, None]
+              - torch.sqrt(ytail[:, k])[None, :]) ** 2
+        tails.append(deflate_tail(rt, energy, dim))
+    return _pdx_live_loop(contribs, tails, th, nk, early_exit)
+
+
+def pdx_gather_sq_dists(vp, vtail, vnorm, xp, xtail, xn, idx, th2: float,
+                        *, dim: int, early_exit: bool
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(N, S·slab) f32 PDX rows read at (B, K) ids against (B, S·slab)
+    PDX queries → ``(dist, nscan)``: the slab-ordered f32 difference-form
+    sum, +inf where a lane retired against ``th2``; NO_NODE slots give
+    (+inf, 0)."""
+    from repro_torch.quant.pdx import deflate_tail
+    valid = (idx >= 0) & (idx < vp.shape[0])
+    if vp.shape[0] == 0:
+        return (torch.full(idx.shape, torch.inf, device=idx.device),
+                torch.zeros(idx.shape, dtype=torch.int32, device=idx.device))
+    safe = torch.where(valid, idx, 0).long()
+    nk = vtail.shape[1]
+    slab = vp.shape[1] // max(nk, 1)
+    vcand, vt = vp[safe], vtail[safe]
+    energy = xn[:, None] + vnorm[safe]
+    th = torch.full(energy.shape, _f32(th2), device=energy.device)
+    contribs, tails = [], []
+    for k in range(nk):
+        sl = slice(k * slab, (k + 1) * slab)
+        diff = vcand[:, :, sl] - xp[:, None, sl]
+        contribs.append(torch.sum(diff * diff, dim=-1))
+        rt = (torch.sqrt(xtail[:, k])[:, None] - torch.sqrt(vt[:, :, k])) ** 2
+        tails.append(deflate_tail(rt, energy, dim))
+    d, ns = _pdx_live_loop(contribs, tails, th, nk, early_exit)
+    return torch.where(valid, d, torch.inf), torch.where(valid, ns, 0)
+
+
 __all__ = ["sq_norms", "pairwise_sq_dists", "pairlist_sq_dists",
            "rowwise_sq_dists", "gather_sq_dists", "topk_merge",
            "pairwise_sq_dists_int8", "rowwise_sq_dists_int8",
-           "gather_sq_dists_int8"]
+           "gather_sq_dists_int8", "pairwise_hamming", "rowwise_hamming",
+           "gather_hamming", "pairwise_sq_dists_pdx",
+           "pdx_gather_sq_dists"]

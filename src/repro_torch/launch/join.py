@@ -1,12 +1,12 @@
 """Vector-join launcher (port of ``repro.launch.join``, the single-device
-subset: quant ``off`` and ``sq8``).
+subset: every quant mode, methods ``nlj``/``es_mi``/``es_mi_adapt``).
 
 Runs ``nlj``, ``es_mi`` or ``es_mi_adapt`` on a synthetic Table-1-regime
 dataset through a ``JoinEngine`` on the CUDA card and checks the result
 against the exact NLJ:
 
   PYTHONPATH=src python -m repro_torch.launch.join --method es_mi_adapt \\
-      --regime ood --n-data 20000 --n-query 500 --theta-q 2 --quant sq8
+      --regime ood --n-data 20000 --n-query 500 --theta-q 2 --quant pdx8
 
 ``--device cpu`` runs the plain PyTorch versions instead of the kernels.
 All f32 matrix products are full IEEE f32 (TF32 off).
@@ -22,11 +22,10 @@ import numpy as np
 from repro_torch.configs.vectorjoin import (ENGINE_PRESETS, make_engine,
                                            preset)
 from repro_torch.core import exact_join_pairs
-from repro_torch.core.types import pair_keys, resolve_device
+from repro_torch.core.types import QUANT_MODES, pair_keys, resolve_device
 from repro_torch.data.vectors import make_dataset, thresholds
 
 LAUNCH_METHODS = ("nlj", "es_mi", "es_mi_adapt")
-LAUNCH_QUANT = ("off", "sq8")
 
 
 def main(argv=None) -> int:
@@ -41,20 +40,30 @@ def main(argv=None) -> int:
     ap.add_argument("--theta-q", type=int, default=1,
                     help="1-based index into the 7 Table-2-style thresholds")
     ap.add_argument("--wave", type=int, default=256)
-    ap.add_argument("--quant", choices=LAUNCH_QUANT, default=None,
+    ap.add_argument("--quant", choices=QUANT_MODES, default=None,
                     help="compressed storage: sq8 traverses int8 codes on "
                          "certified bounds and re-ranks the ambiguous band "
-                         "in exact f32 (default: the engine spec's mode)")
-    ap.add_argument("--quant-build", choices=LAUNCH_QUANT, default=None,
+                         "in exact f32; sketch8 adds a 1-bit sketch prune "
+                         "above int8; pdx8 swaps int8 for the PDX tier, "
+                         "whose kernels exit mid-vector on certified tail "
+                         "bounds; sketchpdx8 stacks the sketch above it "
+                         "(default: the engine spec's mode)")
+    ap.add_argument("--early-exit", choices=("on", "off"), default="on",
+                    help="PDX modes: retire lanes mid-vector on the "
+                         "certified tail bound (pairs identical either "
+                         "way; REPRO_EARLY_EXIT overrides both)")
+    ap.add_argument("--quant-build", choices=QUANT_MODES, default=None,
                     help="drive the offline index builds through the int8 "
-                         "cascade too: identical edges, f32 only for the "
-                         "ambiguous band (default: the engine spec's mode)")
+                         "tier of the mode too: identical edges, f32 only "
+                         "for the ambiguous band; a mode without an int8 "
+                         "tier builds in f32 (default: the engine spec's "
+                         "mode)")
     ap.add_argument("--no-overlap", action="store_true",
                     help="run the strictly sequential wave loop (pair sets "
                          "are identical either way)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--engine-spec", default="default",
-                    help="EngineSpec preset (default|ci)")
+                    help="EngineSpec preset (default|ci|serving_sketch8)")
     ap.add_argument("--no-truth", action="store_true",
                     help="skip the exact NLJ ground truth (big inputs)")
     ap.add_argument("--device", default=None,
@@ -70,8 +79,9 @@ def main(argv=None) -> int:
     quant = args.quant or spec.quant
     quant_build = (args.quant_build if args.quant_build is not None
                    else spec.quant_build)
-    cfg = dataclasses.replace(preset(args.method, theta=theta),
-                              wave_size=args.wave, quant=quant,
+    cfg = preset(args.method, theta=theta,
+                 early_exit=args.early_exit == "on")
+    cfg = dataclasses.replace(cfg, wave_size=args.wave, quant=quant,
                               overlap=not args.no_overlap)
     eng = make_engine(ds.Y, args.engine_spec, default=cfg, device=device,
                       quant_build=quant_build)
@@ -85,6 +95,12 @@ def main(argv=None) -> int:
     dt = time.perf_counter() - t0
     extra = (f", rerank={res.stats.n_rerank}, "
              f"quant_bytes={res.stats.quant_bytes}" if quant != "off" else "")
+    if quant == "sketch8":
+        pruned = res.stats.n_dist - res.stats.n_esc8
+        extra += (f", esc8={res.stats.n_esc8}, sketch_pruned={pruned}"
+                  f" ({pruned / max(res.stats.n_dist, 1):.0%})")
+    if quant in ("pdx8", "sketchpdx8"):
+        extra += f", dims_frac={res.stats.dims_scanned_frac:.3f}"
     print(f"[join] {len(res.pairs)} pairs in {dt:.2f}s "
           f"(n_dist={res.stats.n_dist}, ood={res.stats.n_ood}, "
           f"builds={eng.n_index_builds}{extra})")

@@ -12,8 +12,14 @@ Each kernel is held against its plain PyTorch version on the same inputs
 1e-5·(xn+yn) + 1e-6``, int8 rowwise and gather ``|Δ| ≤ 1e-5·value +
 1e-6`` — the plain versions dequantize first; the top-k merge exactly, ids
 and tie order included; the pair list bit-equal to the pairwise kernel),
-and the joins on the card against the same joins on the CPU over one
-index, in f32 and under sq8.
+the Hamming kernels exactly; the PDX kernels with early exit off within
+``|Δ| ≤ 1e-6·value + 1e-6·(xn+yn)`` (pairwise; the plain version repeats
+its operation order) and ``rtol = 1e-6``, ``atol = 1e-6·max d`` (gather),
+survivors bit-identical with early exit on and off, the pairwise slab
+counts equal to the plain version's), and the joins on the card against
+the same joins on the CPU over one index (and, under the sketch and PDX
+modes, over the CPU engine's stores), in f32, under sq8, sketch8, pdx8
+and sketchpdx8.
 """
 import dataclasses
 import zlib
@@ -278,3 +284,158 @@ def test_sq8_build_and_nlj_on_the_card(dev):
     assert np.setdiff1d(found, t).size == 0                     # sound
     nlj = eng.join(ds.X, method="nlj")
     np.testing.assert_array_equal(pair_keys(nlj.pairs, 3000), t)
+
+
+# -- the sketch (Hamming) and PDX kernels ---------------------------------------
+
+def _words(rng, *shape) -> torch.Tensor:
+    w = rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32)
+    return torch.from_numpy(w.view(np.int32))
+
+
+@pytest.mark.parametrize("B,N,W", [(1, 1, 1), (3, 5, 2), (65, 129, 4),
+                                   (300, 1000, 4), (20, 70, 40), (0, 5, 4),
+                                   (5, 0, 4)])
+def test_hamming_pairwise_kernel_matches_plain(dev, B, N, W):
+    rng = _rng("ham", B, N, W)
+    cx, cy = _words(rng, B, W), _words(rng, N, W)
+    n0 = ops.launch_counts()["pairwise_hamming"]
+    got = ops.pairwise_hamming(cx.to(dev), cy.to(dev))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["pairwise_hamming"] == n0 + (B * N > 0)
+    assert torch.equal(got.cpu(), ref.pairwise_hamming(cx, cy))
+
+
+@pytest.mark.parametrize("B,K,W", [(1, 1, 1), (3, 5, 2), (33, 65, 4),
+                                   (256, 128, 4), (7, 9, 3), (0, 4, 4),
+                                   (3, 0, 4)])
+def test_hamming_rowwise_and_gather_kernels_match_plain(dev, B, K, W):
+    rng = _rng("hamg", B, K, W)
+    codes, cx = _words(rng, 60, W), _words(rng, B, W)
+    idx = rng.integers(0, 60, (B, K)).astype(np.int32)
+    idx[rng.random((B, K)) < 0.5] = -1          # NO_NODE reads no row
+    idx = torch.from_numpy(idx)
+    cands = codes[idx.clamp_min(0).long()]
+    assert torch.equal(ops.rowwise_hamming(cx.to(dev), cands.to(dev)).cpu(),
+                       ref.rowwise_hamming(cx, cands))
+    assert torch.equal(
+        ops.gather_hamming(codes.to(dev), cx.to(dev), idx.to(dev)).cpu(),
+        ref.gather_hamming(codes, cx, idx))
+
+
+def _pdx(dev, n, b, d, key):
+    from repro_torch.quant.pdx import build_pdx, pdx_queries
+    rng = _rng("pdx", n, b, d, key)
+    scale = rng.uniform(0.2, 3.0, d)
+    st = build_pdx(torch.from_numpy(
+        (rng.normal(size=(n, d)) * scale).astype(np.float32)).to(dev))
+    qc = pdx_queries(torch.from_numpy(
+        (rng.normal(size=(b, d)) * scale).astype(np.float32)).to(dev), st)
+    return st, qc
+
+
+@pytest.mark.parametrize("B,N,d", [(1, 1, 8), (5, 9, 64), (129, 257, 128),
+                                   (200, 1000, 150), (0, 5, 64),
+                                   (5, 0, 64)])
+def test_pdx_pairwise_kernel_matches_plain(dev, B, N, d):
+    st, qc = _pdx(dev, max(N, 1), B, d, "pw")
+    st = dataclasses.replace(st, **{f: getattr(st, f)[:N] for f in (
+        "vp", "ftail", "q", "qslab", "qtail", "norms", "err")})
+    for frac in (0.45, 1.2):
+        med = float(torch.cdist(qc.vp[:32], st.vp[:512]).pow(2).median()) \
+            if B * N else 1.0
+        theta = (frac * med) ** 0.5
+        args = (qc.q, st.q, st.scales, qc.qslab, st.qslab, qc.qtail,
+                st.qtail, qc.norms, st.norms, qc.err, st.err, theta)
+        kw = dict(slab=st.slab, dim=st.dim)
+        off, n_off = ops.pairwise_sq_dists_pdx(*args, early_exit=False, **kw)
+        on, n_on = ops.pairwise_sq_dists_pdx(*args, early_exit=True, **kw)
+        cargs = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                      for a in args)
+        want, _ = ref.pairwise_sq_dists_pdx(*cargs, early_exit=False, **kw)
+        _, wn = ref.pairwise_sq_dists_pdx(*cargs, early_exit=True, **kw)
+        energy = (qc.norms[:, None] + st.norms[None, :]).cpu()
+        assert off.shape == (B, N)
+        assert bool(((off.cpu() - want).abs()
+                     <= 1e-6 * want.abs() + 1e-6 * energy).all())
+        assert torch.equal(n_on.cpu(), wn)
+        surv = n_on == st.n_slabs
+        assert torch.equal(on[surv], off[surv])          # bit-identical
+        assert bool(torch.isinf(on[~surv]).all())
+        assert bool((n_off == st.n_slabs).all())
+
+
+@pytest.mark.parametrize("B,K,d", [(1, 1, 8), (3, 5, 64), (33, 65, 128),
+                                   (256, 128, 128), (9, 20, 150), (0, 4, 64),
+                                   (3, 0, 64)])
+def test_pdx_gather_kernel_matches_plain(dev, B, K, d):
+    st, qc = _pdx(dev, 60, B, d, "g")
+    rng = _rng("pdxg", B, K, d)
+    idx = rng.integers(0, 60, (B, K)).astype(np.int32)
+    idx[rng.random((B, K)) < 0.5] = -1
+    idx = torch.from_numpy(idx).to(dev)
+    vn, xn = st.ftail[:, 0].contiguous(), qc.ftail[:, 0].contiguous()
+    med = float(torch.cdist(qc.vp, st.vp).pow(2).median()) if B else 1.0
+    for frac in (0.45, 1.2):
+        th2 = float(np.float32(frac * med))
+        args = (st.vp, st.ftail, vn, qc.vp, qc.ftail, xn, idx, th2)
+        off, _ = ops.pdx_gather_sq_dists(*args, dim=d, early_exit=False)
+        on, n_on = ops.pdx_gather_sq_dists(*args, dim=d, early_exit=True)
+        want, _ = ref.pdx_gather_sq_dists(
+            *(a.cpu() if isinstance(a, torch.Tensor) else a for a in args),
+            dim=d, early_exit=False)
+        _close_rows(off, want)
+        surv = (idx >= 0) & (n_on == st.n_slabs)
+        assert torch.equal(on[surv], off[surv])
+        ret = (idx >= 0) & (n_on < st.n_slabs)
+        assert bool((want.to(dev)[ret] >= th2).all())
+
+
+@pytest.mark.parametrize("quant", ["sketch8", "pdx8", "sketchpdx8"])
+def test_sketch_and_pdx_joins_on_the_card_match_the_cpu(dev, quant):
+    ds = make_dataset("manifold", n_data=1500, n_query=96, dim=150, seed=3)
+    d2 = np.sort(((ds.X.astype(np.float64)[:, None]
+                   - ds.Y.astype(np.float64)[None]) ** 2).sum(-1), axis=None)
+    theta = float(thresholds(ds, 3)[1])
+    i = np.searchsorted(d2, theta ** 2)
+    theta = float(np.sqrt(0.5 * (d2[i - 1] + d2[i])))   # mid-gap: no ties
+    cpu = torch.device("cpu")
+    merged = build_index(np.concatenate([ds.Y, ds.X]), k=24, degree=12,
+                         n_data=1500, device=cpu)
+    cfg = JoinConfig(theta=theta, wave_size=32, quant=quant)
+    want_eng = JoinEngine(ds.Y, default=cfg, device=cpu)
+    want = want_eng.join(ds.X, index_merged=merged)
+    # the card's engine joins over the CPU engine's stores, so both sides
+    # bound the same codes
+    from repro_torch.engine.engine import _fingerprint
+    from repro_torch.quant.cascade import TIERS_BY_MODE
+    key = ("merged", _fingerprint(ds.X))
+    stores = {n: _store_to(want_eng.tier_store(key, n, merged.vecs), dev)
+              for n in TIERS_BY_MODE[quant]}
+    ops.reset_launch_counts()
+    eng = JoinEngine(ds.Y, default=cfg, device=dev)
+    eng.adopt(X=ds.X, index_merged=_to(merged, dev), tier_stores=stores)
+    got = eng.join(ds.X)
+    counts = ops.launch_counts()
+    if "sketch" in quant:
+        assert counts["rowwise_hamming"] > 0
+    if "pdx" in quant:
+        assert counts["pdx_gather_sq_dists"] > 0
+    np.testing.assert_array_equal(pair_keys(got.pairs, 1500),
+                                  pair_keys(want.pairs, 1500))
+    for f in ("n_dist", "n_iters", "n_ood", "n_rerank", "n_esc8",
+              "n_dims_scanned"):
+        assert getattr(got.stats, f) == getattr(want.stats, f), f
+    truth = pair_keys(exact_join_pairs(ds.X, eng.Y, theta), 1500)
+    ops.reset_launch_counts()
+    nlj = eng.join(ds.X, method="nlj")
+    np.testing.assert_array_equal(pair_keys(nlj.pairs, 1500), truth)
+    assert ops.launch_counts()["pairwise_hamming" if "sketch" in quant
+                               else "pairwise_sq_dists_pdx"] > 0
+
+
+def _store_to(store, dev):
+    return dataclasses.replace(store, **{
+        f.name: getattr(store, f.name).to(dev)
+        for f in dataclasses.fields(store)
+        if isinstance(getattr(store, f.name), torch.Tensor)})

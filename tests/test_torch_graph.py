@@ -105,5 +105,7 @@ def test_nsw_style_and_quant_guard(ds_manifold):
     want = jgraph.build_index(ds_manifold.Y[:400], k=16, degree=8,
                               style="nsw")
     np.testing.assert_array_equal(idx.nbrs.numpy(), np.asarray(want.nbrs))
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        graph.build_index(Y, quant="pdx8")     # the PDX tier: not ported
+    # a mode without an int8 tier builds in f32, as the reference maps it
+    f32 = graph.build_index(Y, k=16, degree=8)
+    pdx8 = graph.build_index(Y, k=16, degree=8, quant="pdx8")
+    assert torch.equal(pdx8.nbrs, f32.nbrs)

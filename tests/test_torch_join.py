@@ -159,7 +159,7 @@ def test_merged_index_cached_and_sweep(ds_manifold, theta_mid):
     assert np.setdiff1d(found, pair_keys(truth, n)).size == 0   # sound
 
 
-@pytest.mark.parametrize("bad", [dict(quant="sketch8"), dict(method="es_hws")])
+@pytest.mark.parametrize("bad", [dict(method="index"), dict(method="es_hws")])
 def test_unported_paths_raise(ds_manifold, bad):
     eng = JoinEngine(ds_manifold.Y[:50], device=CPU)
     cfg = dataclasses.replace(JoinConfig(), **bad)

@@ -245,9 +245,15 @@ def test_cascade_knn_survivor_cap_grows_and_retries():
 
 
 def test_unported_tiers_raise():
+    """Every tier of the reference is ported (sketch8 and pdx8 build their
+    chains); a tier name that is not one of them is refused."""
+    from repro_torch.quant.cascade import build_tier_store, tier_class
     v = np.zeros((4, 8), np.float32)
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        build_cascade(v, "sketch8")
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        build_cascade(v, "pdx8")
+    assert build_cascade(v, "sketch8").names == ("sketch1", "int8")
+    assert build_cascade(v, "pdx8").names == ("pdx",)
+    assert build_cascade(v, "sketchpdx8").names == ("sketch1", "pdx")
+    with pytest.raises(ValueError, match="unknown tier"):
+        tier_class("int4")
+    with pytest.raises(ValueError, match="unknown tier"):
+        build_tier_store("int4", v)
     assert build_cascade(v, "off") is None

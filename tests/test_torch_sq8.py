@@ -122,7 +122,8 @@ def test_sq8_mi_join_identical_to_jax(cases, jax_results, name, method,
     want = jax_results[name, method]
     eng = JoinEngine(ds.Y, default=_cfg(method, theta, overlap), device=CPU)
     got = eng.join(ds.X, index_merged=_port_index(jidx))
-    assert eng.build_counts == {"merged": 0, "quant": 1}
+    assert eng.build_counts == {"merged": 0, "quant": 1, "sketch": 0,
+                                "pdx": 0}
     n = ds.Y.shape[0]
     np.testing.assert_array_equal(pair_keys(got.pairs, n),
                                   pair_keys(want.pairs, n))
@@ -211,7 +212,8 @@ def test_sq8_engine_builds_through_the_cascade(ds_manifold):
     assert eng.default.quant == "sq8"
     r1 = eng.join(X, theta=theta)
     r2 = eng.join(X, theta=theta * 1.1)
-    assert eng.build_counts == {"merged": 1, "quant": 1}
+    assert eng.build_counts == {"merged": 1, "quant": 1, "sketch": 0,
+                                "pdx": 0}
     f32 = make_engine(Y, "default", k=16, degree=8, device=CPU)
     assert torch.equal(eng.merged_index(X).nbrs, f32.merged_index(X).nbrs)
     truth = exact_join_pairs(X, eng.Y, theta * 1.1)
@@ -237,8 +239,14 @@ def test_launcher_sq8_matches_jax(capsys):
 
 
 def test_unported_quant_modes_raise(ds_manifold):
+    """Every quant mode of the reference is ported; a mode that is not one
+    of them is refused, by the config and by the index build."""
+    for quant in ("int4", "sketch4", ""):
+        with pytest.raises(ValueError, match="unknown quant mode"):
+            dataclasses.replace(JoinConfig(), quant=quant)
+        with pytest.raises(KeyError):
+            build_cascade(ds_manifold.Y[:50], quant)
     eng = JoinEngine(ds_manifold.Y[:50], device=CPU)
     for quant in ("sketch8", "pdx8"):
-        cfg = dataclasses.replace(JoinConfig(), quant=quant)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.join(ds_manifold.X[:4], cfg)
+        cfg = JoinConfig(method="nlj", theta=1.0, quant=quant)
+        assert eng.join(ds_manifold.X[:4], cfg).pairs.shape[1] == 2
