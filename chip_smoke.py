@@ -13,14 +13,23 @@ Phases (each raises on failure, so the script exits non-zero):
      (4096,128)x(65536,128) and at d = 64, the int8 gather at the
      traversal's shape with half the ids NO_NODE, the top-k merge with
      forced ties, the pair-list entry's bit equality with the pairwise
-     kernel, and the int8 pairwise error against float64 below the
-     cascade's MATMUL_GUARD;
+     kernel, the int8 pairwise error against float64 below the
+     cascade's MATMUL_GUARD, and the fused NLJ count (equal to the
+     pairwise kernel's counts; to its plain version but for pairs within
+     tolerance of θ²) up to the NLJ block (512,128)x(1M,128);
   3. drive the main path — ``make_engine("default").join`` with the default
      ``JoinConfig()`` (es_mi_adapt, quant off, overlap on) — on sift-like
      data (d = 128) at |Y| = 1,000,000, |X| = 10,000; check that every
      pair is sound in float64, that recall against the exact NLJ on the
      card meets the floor, that its kernels were launched, and that
      overlap off gives the same pairs;
+  3b. on the same engine: ``ops.nlj_count`` over all 10,000 queries in
+     one launch against the exact NLJ's per-query pair counts; then the
+     search path — es_sws (building G_Y and G_X), es_hws, and es and
+     index on the first SEARCH_CUT queries, es_sws again with overlap off
+     (identical pairs and cache counters) and under sq8 (an int8 store
+     over G_Y's rows, no second graph build) — each sound, at its recall
+     floor, through its kernels, with its n_dist beside es_mi_adapt's;
   4. the sq8 main path on the same data: ``make_engine(Y,
      EngineSpec(quant="sq8", quant_build="sq8")).join`` — the cascade-driven
      build (its kNN lists must equal the f32 build's but for ties at the
@@ -32,9 +41,9 @@ Phases (each raises on failure, so the script exits non-zero):
      where the hybrid BBFS must run (n_ood > 0), with the same checks, in
      f32 and under sq8;
   6. time each kernel at the main paths' shapes (phase 2's tolerances
-     again), and run the OOD path's overlap-off join once more under
-     torch.profiler to show how busy the device is. These come last
-     because an attached profiler slows every later launch.
+     again), and run the OOD path's overlap-off join of its first 500
+     queries under torch.profiler to show how busy the device is. These
+     come last because an attached profiler slows every later launch.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; a path that did not launch one of its kernels fails.
@@ -69,6 +78,14 @@ MAIN_N_DATA = 1_000_000
 MAIN_N_QUERY = 10_000
 # recall of the main path measured on an H100 (PERF.md) minus 0.05
 MAIN_RECALL_FLOOR = 0.937
+# the search path (phase 3b): es and index run on the first SEARCH_CUT
+# queries (the smoke's time limit; at full depth they took 21-23 s each
+# on an H100, PERF.md); recall floors measured there minus 0.05
+SEARCH_CUT = 2_000
+SEARCH_RECALL_FLOORS = {"index": 0.935, "es": 0.935, "es_hws": 0.937,
+                        "es_sws": 0.937, "es_sws/sq8": 0.912}
+# the profiled OOD join runs on the first PROFILE_QUERIES queries
+PROFILE_QUERIES = 500
 OOD_N_DATA = 200_000
 OOD_N_QUERY = 2_000
 REPS = 25
@@ -590,6 +607,81 @@ def check_kernels_sketch_pdx(torch, ops, ref) -> None:
         "survivors bit-identical, every retired lane certified beyond θ²")
 
 
+# ---------------------------------------------------------------------------
+# phase 2c: the fused NLJ count against its plain version
+# ---------------------------------------------------------------------------
+
+def check_nlj_count(torch, ops, ref, x, y, theta: float) -> float:
+    """``nlj_count`` (a) equals, exactly, the pairwise kernel's distances
+    compared with θ² and counted per row (the two kernels share the tile
+    and the epilogue, and the wrappers the norms), and (b) equals its
+    plain version exactly but for pairs whose plain distance lies within
+    the pairwise tolerance of θ², 1e-5·(xn+yn) + 1e-5·d (the plain
+    version's matrix product is cuBLAS's, summed in another order): each
+    query's |kernel − plain| is at most its count of such pairs. Returns
+    the largest |kernel − plain| over the queries."""
+    B, N, d = x.shape[0], y.shape[0], x.shape[1]
+    what = f"nlj_count ({B},{d})x({N},{d}) θ={theta:.4f}"
+    got = ops.nlj_count(x, y, theta=theta)
+    torch.cuda.synchronize()
+    if got.shape != (B,) or got.dtype != torch.int32:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)}")
+    if B * N * d == 0:                   # the reference's shape contract
+        n = N if (d == 0 and theta > 0) else 0
+        if not bool((got == n).all()):
+            raise AssertionError(f"{what}: empty-shape counts wrong")
+        return 0.0
+    th2 = ref.sq_theta(theta)
+    via = (ops.pairwise_sq_dists(x, y) < th2).sum(1, dtype=torch.int32)
+    if not torch.equal(got, via):
+        raise AssertionError(f"{what}: {int((got != via).sum())} counts "
+                             f"differ from the pairwise kernel's")
+    del via
+    plain = ref.nlj_count(x, y, theta)
+    diff = (got - plain).abs()
+    rows = diff.nonzero().squeeze(1)
+    yn = ref.sq_norms(y)
+    for r in rows.tolist():
+        dp = ref.pairwise_sq_dists(x[r:r + 1], y)[0]
+        tol = 1e-5 * (ref.sq_norms(x[r:r + 1]) + yn) + 1e-5 * dp
+        band = int(((dp - th2).abs() <= tol).sum())
+        if int(diff[r]) > band:
+            raise AssertionError(f"{what}: row {r} differs from the plain "
+                                 f"version by {int(diff[r])}, beyond its "
+                                 f"{band} pairs within tolerance of θ²")
+    if rows.numel():
+        log(f"[kernels] {what}: equal to the pairwise kernel's counts; "
+            f"{rows.numel()} of {B} rows differ from the plain version, "
+            f"each by at most its pairs within tolerance of θ²")
+    return float(diff.max())
+
+
+def nlj_theta(torch, ref, x, y, frac: float) -> float:
+    """θ at which about ``frac`` of the pairs of a sample lie within it."""
+    d = ref.pairwise_sq_dists(x[:64], y[:65536]).flatten()
+    k = max(1, min(d.numel(), int(frac * d.numel())))
+    return float(torch.kthvalue(d.cpu(), k).values) ** 0.5
+
+
+def check_kernels_nlj(torch, ops, ref) -> float:
+    """#5: ragged, sub-tile, empty shapes, d % 4 != 0, θ = 0 and the NLJ
+    block (512,128)x(1M,128) with about 1% of its pairs within θ."""
+    inp = Inputs(torch)
+    for B, N, d in [(0, 5, 8), (4, 0, 8), (5, 7, 0), (1, 1, 1), (3, 5, 7),
+                    (129, 257, 3), (200, 1000, 130), (1000, 3000, 33),
+                    (300, 700, 128)]:
+        x, y = inp.rn(B, d), inp.rn(N, d)
+        theta = nlj_theta(torch, ref, x, y, 0.3) if B * N * d else 1.0
+        for th in (theta, 0.0):
+            check_nlj_count(torch, ops, ref, x, y, th)
+    x, y = inp.rn(512, 128), inp.rn(MAIN_N_DATA, 128)
+    theta = nlj_theta(torch, ref, x, y, 0.01)
+    err = check_nlj_count(torch, ops, ref, x, y, theta)
+    log(f"[kernels] nlj_count: equal to the pairwise kernel's counts at "
+        f"every shape; NLJ block max |kernel − plain| = {err}")
+    return err
+
+
 def time_kernels(torch, ops, ref) -> dict:
     """Each kernel at the main path's shapes: agreement with its plain
     version, device time beside its bound, the plain version's time and a
@@ -835,6 +927,25 @@ def time_kernels(torch, ops, ref) -> dict:
         scanned * slab * 4 + n_valid * (S + 1) * 4 + B * (d + S + 1) * 4
         + 3 * B * K * 4, 3.0 * scanned * slab)
     del st, qc, idxs
+
+    # the fused NLJ count at the NLJ block: 512 queries x the 1M rows,
+    # about 1% of the pairs within θ; the library call is torch.matmul
+    # (TF32 off) with the epilogue, the compare and the row sum
+    B, N, d = 512, MAIN_N_DATA, 128
+    x, y = rn(B, d), rn(N, d)
+    theta = nlj_theta(torch, ref, x, y, 0.01)
+    th2 = ref.sq_theta(theta)
+    xn, yn = ref.sq_norms(x), ref.sq_norms(y)
+    within = float(ops.nlj_count(x, y, theta=theta).sum()) / (B * N)
+    out["nlj_count"] = entry(
+        f"({B},{d})x({N},{d}), {within:.4f} of pairs within θ",
+        check_nlj_count(torch, ops, ref, x, y, theta),
+        lambda _: ops.nlj_count(x, y, theta=theta),
+        lambda _: ref.nlj_count(x, y, theta),
+        lambda _: ((xn[:, None] + yn[None, :] - 2.0 * torch.matmul(x, y.T))
+                   .clamp_min(0.0) < th2).sum(1, dtype=torch.int32),
+        (B * d + N * d) * 4 + B * 4, 2.0 * B * N * d)
+    del x, y, xn, yn
     for name, r in out.items():
         log(f"[kernels] {name} {r['shape']}: max_abs_err={r['max_abs_err']} "
             f"ms={r['ms']:.4f} (events {r['event_ms']:.4f}) "
@@ -1001,7 +1112,8 @@ def run_join(torch, ops, name: str, n_data: int, n_query: int,
         f"{seq_s / max(seq.stats.n_iters, 1) * 1e3:.3f}")
     merged = eng.merged_index(ds.X)
     return dict(recall=rec, launches=launches, n_ood=st.n_ood,
-                build_s=eng.build_seconds, join_s=join_s, seq_s=seq_s,
+                n_dist=st.n_dist, n_iters=st.n_iters,
+                build_s=eng.build_seconds, join_s=join_s,
                 eng=eng, X=ds.X, cfg=seq_cfg, name=tag, ds=ds, truth=truth,
                 truth_keys=truth_keys,
                 theta=theta, knn={k: v.cpu() for k, v in knn.items()},
@@ -1190,6 +1302,196 @@ def run_mode(torch, ops, run: dict, mode: str, *, floor: float, kernels,
                 nlj_launches=nlj["launches"], join_s=join_s)
 
 
+# ---------------------------------------------------------------------------
+# phase 3b: the NLJ count of the exact NLJ, and the search path
+# ---------------------------------------------------------------------------
+
+def check_nlj_count_main(torch, ops, run: dict) -> dict:
+    """``ops.nlj_count`` over all the main path's queries in one call must
+    give, per query, the count of the exact NLJ's pairs: both compare the
+    same tile arithmetic with θ². Where a query's norm is summed another
+    way (the NLJ takes the norms of 512-row blocks, the count of the whole
+    query set), its count may differ, by at most its pairs within 16 f32
+    ulps of θ in float64; which case held is logged. Returns the
+    launches."""
+    eng, ds = run["eng"], run["ds"]
+    n_data, n_query = ds.Y.shape[0], ds.X.shape[0]
+    X = torch.as_tensor(ds.X, device=DEV)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = ops.nlj_count(X, eng.Y, theta=run["theta"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    if launches["nlj_count"] == 0:
+        raise AssertionError("the NLJ count check never launched nlj_count")
+    want = torch.bincount(run["truth_keys"] // n_data, minlength=n_query)
+    rows = (got.long() != want).nonzero().squeeze(1)
+    theta = np.float32(run["theta"])
+    ulp = float(np.spacing(theta))
+    Y64 = eng.Y.double() if rows.numel() else None
+    for q in rows.tolist():
+        d64 = ((Y64 - X[q].double()) ** 2).sum(1).sqrt()
+        band = int(((d64 - float(theta)).abs() <= 16 * ulp).sum())
+        if abs(int(got[q]) - int(want[q])) > band:
+            raise AssertionError(f"nlj_count: query {q} counts {int(got[q])} "
+                                 f"pairs, the exact NLJ {int(want[q])}, "
+                                 f"beyond its {band} pairs within 16 ulps")
+    case = ("equal for every query" if not rows.numel() else
+            f"{rows.numel()} queries differ, each by at most its pairs "
+            f"within 16 ulps of θ")
+    log(f"[sift-like] nlj_count over {n_query} queries in one launch "
+        f"({secs:.3f}s): {int(got.sum())} pairs against the exact NLJ's "
+        f"{int(want.sum())}: {case}")
+    return launches
+
+
+# the search path's kernels: the first join builds G_Y and G_X (kNN and
+# prune: pairwise, top-k merge; mean_nbr_dist: rowwise), the caching
+# methods' MST takes its star keys with rowwise and its edges with gather,
+# every traversal probes with gather; under sq8 the probes go through the
+# int8 gather and the band re-rank through the f32 gather
+SEARCH_KERNELS = ("pairwise_sq_dists", "topk_merge", "gather_sq_dists",
+                  "rowwise_sq_dists")
+CACHING_KERNELS = ("gather_sq_dists", "rowwise_sq_dists")
+SEARCH_SQ8_KERNELS = ("rowwise_sq_dists_int8", "gather_sq_dists",
+                      "rowwise_sq_dists")
+# (method, kernels its join must launch, queries it runs on)
+SEARCH_RUNS = (("es_sws", SEARCH_KERNELS, MAIN_N_QUERY),
+               ("es_hws", CACHING_KERNELS, MAIN_N_QUERY),
+               ("es", ("gather_sq_dists",), SEARCH_CUT),
+               ("index", ("gather_sq_dists",), SEARCH_CUT))
+CACHE_FIELDS = ("cache_hits", "cache_misses", "cache_evictions",
+                "peak_cache_entries")
+
+
+def search_join(torch, ops, run: dict, cfg, kernels, floor: float,
+                n_q: int | None = None) -> dict:
+    """One search-path join on the main engine over its first ``n_q``
+    queries (all by default), with the launch counts reset just before and read just
+    after: sound in float64, recall against the f32 NLJ at least
+    ``floor``, the path's kernels launched. Logs the builds it made, the
+    greedy/expand split of n_iters, ms per iteration and the cache
+    counters."""
+    from repro_torch.core import traversal
+    eng, ds = run["eng"], run["ds"]
+    n_data = ds.Y.shape[0]
+    n_q = ds.X.shape[0] if n_q is None else n_q
+    tag = (f"sift-like/{cfg.method}"
+           + (f"/{cfg.quant}" if cfg.quant != "off" else "")
+           + ("" if cfg.overlap else " overlap off"))
+    builds0, bs0 = dict(eng.build_counts), eng.build_seconds
+    greedy = traversal.greedy_search
+    n_greedy = 0
+
+    def counted(*a, **kw):
+        nonlocal n_greedy
+        g = greedy(*a, **kw)
+        n_greedy += g.n_iters
+        return g
+    traversal.greedy_search = counted
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = eng.join(ds.X[:n_q], cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    finally:
+        traversal.greedy_search = greedy
+    build_s = eng.build_seconds - bs0
+    join_s = wall - build_s
+    st = res.stats
+    new_builds = {k: v - builds0[k] for k, v in eng.build_counts.items()
+                  if v != builds0[k]}
+    log(f"[{tag}] queries={n_q} new builds {new_builds} "
+        f"build_s={build_s:.2f} join_s={join_s:.2f} pairs={len(res.pairs)} "
+        f"n_dist={st.n_dist} n_iters={st.n_iters} (greedy {n_greedy}, "
+        f"expand {st.n_iters - n_greedy}) "
+        f"ms_per_iter={join_s / max(st.n_iters, 1) * 1e3:.3f} "
+        f"greedy_s={st.greedy_seconds:.2f} expand_s={st.expand_seconds:.2f} "
+        + " ".join(f"{f}={getattr(st, f)}" for f in CACHE_FIELDS)
+        + f" n_overflow={st.n_overflow} n_rerank={st.n_rerank} "
+        f"overflow_retries={st.overflow_retries} launches={launches}")
+    pairs = res.pairs
+    if (pairs.dtype != np.int64 or pairs.ndim != 2 or pairs.shape[1] != 2
+            or not ((0 <= pairs[:, 0]) & (pairs[:, 0] < n_q)
+                    & (0 <= pairs[:, 1]) & (pairs[:, 1] < n_data)).all()):
+        raise AssertionError(f"{tag}: malformed pair array")
+    Xt = torch.as_tensor(ds.X, device=DEV)
+    band = check_sound(torch, Xt, eng.Y, pairs, run["theta"])
+    truth = run["truth_keys"]
+    rec, rec_cap = recalls(torch, pairs, truth[truth < n_q * n_data], n_data,
+                           n_q, cfg.traversal.pool_cap)
+    log(f"[{tag}] sound (0 unsound; boundary band {band}) recall={rec:.6f} "
+        f"recall_within_pool_cap={rec_cap:.6f} (floor {floor})")
+    if rec < floor:
+        raise AssertionError(f"{tag}: recall {rec} below the floor {floor}")
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{tag} path never launched {missing}")
+    return dict(name=tag, res=res, launches=launches, recall=rec,
+                join_s=join_s, n_q=n_q, n_greedy=n_greedy,
+                keys=card_keys(torch, pairs, n_data), new_builds=new_builds)
+
+
+def run_search(torch, ops, run: dict) -> dict:
+    """Phase 3b: index / es / es_hws / es_sws on the f32 main engine (its
+    Y, θ and exact NLJ reused; G_Y and G_X built by the first join), the
+    es_sws overlap-off repeat (the same pairs and cache counters), and
+    es_sws under sq8 on the same G_Y (an int8 store over its rows, no
+    second graph build). Returns the runs by path name."""
+    from repro_torch.core import JoinConfig
+    eng = run["eng"]
+    for k in ("knn_out", "build_stats"):     # the merged build's diagnostics
+        eng.build_kw.pop(k, None)
+    base = dataclasses.replace(JoinConfig(), theta=run["theta"])
+    runs = {}
+    for method, kernels, n_q in SEARCH_RUNS:
+        if n_q < MAIN_N_QUERY:
+            log(f"[sift-like/{method}] runs on the first {n_q} of "
+                f"{MAIN_N_QUERY} queries (the smoke's time limit)")
+        runs[method] = search_join(
+            torch, ops, run, dataclasses.replace(base, method=method),
+            kernels, SEARCH_RECALL_FLOORS[method], n_q)
+    if runs["es_sws"]["new_builds"] != {"index_y": 1, "index_x": 1}:
+        raise AssertionError(f"es_sws built {runs['es_sws']['new_builds']}, "
+                             f"not one G_Y and one G_X")
+    if any(r["new_builds"] for m, r in runs.items() if m != "es_sws"):
+        raise AssertionError("a later search join built an index again")
+
+    sws = runs["es_sws"]
+    off = search_join(torch, ops, run, dataclasses.replace(
+        base, method="es_sws", overlap=False), CACHING_KERNELS,
+        SEARCH_RECALL_FLOORS["es_sws"])
+    fields = ("n_dist", "n_iters") + CACHE_FIELDS
+    if not (torch.equal(off["keys"], sws["keys"])
+            and all(getattr(off["res"].stats, f)
+                    == getattr(sws["res"].stats, f) for f in fields)):
+        raise AssertionError("es_sws: overlap off changes the pairs or the "
+                             "cache counters")
+    log(f"[sift-like/es_sws] overlap on/off: identical pairs, n_dist, "
+        f"n_iters and cache counters; join_s on {sws['join_s']:.2f} off "
+        f"{off['join_s']:.2f}")
+
+    sq8 = search_join(torch, ops, run, dataclasses.replace(
+        base, method="es_sws", quant="sq8"), SEARCH_SQ8_KERNELS,
+        SEARCH_RECALL_FLOORS["es_sws/sq8"])
+    if sq8["new_builds"] != {"quant": 1}:
+        raise AssertionError(f"es_sws/sq8 built {sq8['new_builds']}, not "
+                             f"one int8 store over G_Y's rows")
+    runs["es_sws/sq8"] = sq8
+    per_q = " ".join(f"{m} {r['res'].stats.n_dist} "
+                     f"({r['res'].stats.n_dist / r['n_q']:.1f}/query)"
+                     for m, r in runs.items())
+    log(f"[sift-like] n_dist: {per_q} es_mi_adapt {run['n_dist']} "
+        f"({run['n_dist'] / MAIN_N_QUERY:.1f}/query)")
+    log(f"[sift-like] recall: " + " ".join(
+        f"{m} {r['recall']:.6f}" for m, r in runs.items())
+        + f" es_mi_adapt {run['recall']:.6f}")
+    return runs
+
+
 def check_launched(run: dict, kernels) -> None:
     """Every kernel of the path was launched during its join (build
     included)."""
@@ -1199,22 +1501,30 @@ def check_launched(run: dict, kernels) -> None:
 
 
 def profile_join(torch, run: dict) -> None:
-    """The overlap-off join once more under torch.profiler (device kernels
-    only): device busy time against the unprofiled wall time of the same
-    join, and the kernels that take it."""
+    """The overlap-off join of the first PROFILE_QUERIES queries under
+    torch.profiler (device kernels only): device busy time against the
+    unprofiled wall time of the same join, and the kernels that take it.
+    (The profiler's own processing of a whole join's half-million device
+    ops takes over a minute.)"""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    name = run["name"]
+    name, eng = run["name"], run["eng"]
+    X = run["X"][:PROFILE_QUERIES]
+    eng.merged_index(X)                       # built outside the window
+    t0 = time.perf_counter()
+    eng.join(X, run["cfg"])
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run["eng"].join(run["X"], run["cfg"])
+        eng.join(X, run["cfg"])
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in rows) / 1e6
-    log(f"[{name}] profiled overlap-off join: device busy {busy:.3f}s; "
-        f"unprofiled wall {run['seq_s']:.2f}s (busy share "
-        f"{busy / run['seq_s']:.3f}); profiled wall {wall:.2f}s; "
+    log(f"[{name}] profiled overlap-off join of {X.shape[0]} queries: "
+        f"device busy {busy:.3f}s; unprofiled wall {seq_s:.2f}s (busy share "
+        f"{busy / seq_s:.3f}); profiled wall {wall:.2f}s; "
         f"{sum(e.count for e in rows)} device ops")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"[{name}]   {e.self_device_time_total / 1e6:8.3f}s "
@@ -1255,6 +1565,7 @@ def main() -> int:
     check_kernels(torch, ops, ref)
     check_kernels_sq8(torch, ops, ref)
     check_kernels_sketch_pdx(torch, ops, ref)
+    check_kernels_nlj(torch, ops, ref)
     if "--kernels-only" in sys.argv[1:]:
         log(f"[done] kernels only, {time.perf_counter() - t_all:.1f}s")
         return 0                             # no contract line: not the run
@@ -1266,7 +1577,9 @@ def main() -> int:
         raise AssertionError(f"main path recall {main_run['recall']} below "
                              f"the floor {MAIN_RECALL_FLOOR}")
     check_launched(main_run, F32_KERNELS)
-    del main_run["eng"]                       # free the 1M-row index
+    nlj_check = check_nlj_count_main(torch, ops, main_run)
+    search = run_search(torch, ops, main_run)
+    del main_run["eng"]                       # free the 1M-row indexes
 
     sq8 = EngineSpec(quant="sq8", quant_build="sq8")
     sq8_run = run_join(torch, ops, "sift-like", MAIN_N_DATA, MAIN_N_QUERY, 1,
@@ -1323,6 +1636,7 @@ def main() -> int:
         "rowwise_hamming": "src/repro/kernels/bits.py:93",
         "pairwise_sq_dists_pdx": "src/repro/kernels/pdx.py:116",
         "pdx_gather_sq_dists": "src/repro/kernels/pdx.py:222",
+        "nlj_count": "src/repro/kernels/nlj.py:50",
     }
     source = {k: "src/repro_torch/kernels/csrc/distance.cu" for k in
               ("pairwise_sq_dists", "pairlist_sq_dists", "rowwise_sq_dists",
@@ -1336,7 +1650,10 @@ def main() -> int:
                    for k in ("pairwise_hamming", "rowwise_hamming")})
     source.update({k: "src/repro_torch/kernels/csrc/pdx.cu"
                    for k in ("pairwise_sq_dists_pdx", "pdx_gather_sq_dists")})
+    source["nlj_count"] = "src/repro_torch/kernels/csrc/nlj.cu"
     paths = {"f32": main_run["launches"], "sq8": sq8_run["launches"]}
+    paths.update({m: r["launches"] for m, r in search.items()})
+    paths["nlj_check"] = nlj_check
     # the sketch/PDX paths: their merged-index join plus their NLJ
     for r in (sk8, pd8, skpd):
         paths[r["name"].split("/")[1]] = {

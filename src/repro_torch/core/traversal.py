@@ -1,13 +1,13 @@
 """Batched graph traversal (paper Alg. 2 & 4), in PyTorch.
 
-Port of ``repro.core.traversal`` for the merged-index path: candidate
-probing with the per-lane visited bitmap and in-batch dedup, and
-``range_expand`` (BFS, or the hybrid BBFS for OOD queries), exact f32 or
-through a ``FilterCascade`` (``cascade_bounds``: every distance is then a
-certified lower bound from the tiers' gather kernels — sketch Hamming,
-int8, PDX int8 — and the hybrid beam carries certified upper bounds for
-its eviction guard). The greedy search of the search-path methods
-arrives with ROADMAP Queue A slice 5.
+Port of ``repro.core.traversal``: candidate probing with the per-lane
+visited bitmap and in-batch dedup, the greedy best-first search of the
+search-path methods (``greedy_search``), and ``range_expand`` (BFS, or
+the hybrid BBFS for OOD queries), exact f32 or through a
+``FilterCascade`` (``cascade_bounds``: every distance is then a certified
+lower bound from the tiers' gather kernels — sketch Hamming, int8, PDX
+int8 — and the hybrid beam carries certified upper bounds for its
+eviction guard).
 
 How the JAX primitives map here (each choice keeps the reference's exact
 traversal order, so ``n_dist`` and ``n_iters`` match it):
@@ -16,6 +16,7 @@ traversal order, so ``n_dist`` and ``n_iters`` match it):
     ``bool(done.all())`` device→host sync per iteration;
   * ``lax.top_k`` (ties to the lower index) → a stable descending sort;
     ``jnp.argsort`` (stable) → ``torch.sort(..., stable=True)``;
+    ``jnp.argmin`` → ``torch.min(..., dim)`` (the first minimum);
   * the uint32 visited bitmap → int32 words with the same bit layout
     (bit 31 is the sign); ``scatter_add_`` of distinct bits equals OR and
     never overflows;
@@ -35,6 +36,7 @@ import torch
 
 from repro_torch.core.types import NO_NODE, GraphIndex, TraversalConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import sq_theta
 
 _INF = float("inf")
 _SORT_PAD = 2**30
@@ -45,11 +47,6 @@ _PROTECT_OFF = 1e30
 
 def bitmap_words(n_nodes: int) -> int:
     return -(-n_nodes // 32)
-
-
-def sq_theta(theta: float) -> float:
-    """θ² rounded to f32, as the reference computes ``jnp.float32(θ) ** 2``."""
-    return float(np.float32(theta) ** 2)
 
 
 def bit_of(ids: torch.Tensor) -> torch.Tensor:
@@ -199,6 +196,125 @@ def _mark(flags: torch.Tensor, pos: torch.Tensor, m: torch.Tensor
     """``flags.at[lane, pos].max(m)``: set flags[b, pos[b, j]] where m."""
     return flags.to(torch.int32).scatter_reduce(
         1, pos, m.to(torch.int32), "amax").bool()
+
+
+def _beam_merge(bd, bi, bexp, cd, ci, cexp):
+    """Merge the beam with candidates, keep the L smallest (stable: ties
+    go to the beam, then to the lower slot); carry expanded flags."""
+    L = bd.shape[1]
+    alld = torch.cat([bd, cd], dim=1)
+    order = torch.sort(alld, dim=1, stable=True)[1][:, :L]
+    return (_take(alld, order), _take(torch.cat([bi, ci], dim=1), order),
+            _take(torch.cat([bexp, cexp], dim=1), order))
+
+
+# ---------------------------------------------------------------------------
+# greedy (best-first) phase — paper Alg. 2 lines 5–28 + §4.1 early stopping
+# ---------------------------------------------------------------------------
+
+class GreedyState(NamedTuple):
+    beam_dist: torch.Tensor     # (B, L) ascending squared dists
+    beam_idx: torch.Tensor      # (B, L)
+    beam_exp: torch.Tensor      # (B, L) expanded flags
+    visited: torch.Tensor       # (B, W)
+    best_dist: torch.Tensor     # (B,)
+    best_idx: torch.Tensor      # (B,)
+    since_improve: torch.Tensor  # (B,)
+    done: torch.Tensor          # (B,)
+    n_dist: torch.Tensor        # (B,)
+    n_esc: torch.Tensor         # (B,) candidates escalated into tier 1
+    n_iters: int                # loop iterations (host-stepped, exact)
+
+
+def greedy_search(index: GraphIndex, x: torch.Tensor, seeds: torch.Tensor,
+                  seeds_valid: torch.Tensor, theta: float, *,
+                  cfg: TraversalConfig, n_data: int,
+                  traverse_nondata: bool = True, cascade=None,
+                  qc=None) -> GreedyState:
+    """Batched best-first search until each lane finds an in-range point,
+    runs out of unexpanded beam entries, or goes ``cfg.patience``
+    iterations without a closer node (never, with patience < 0).
+
+    ``x`` (B, d) is a wave of queries, ``seeds`` (B, S) int32 start node
+    ids with ``seeds_valid`` (B, S). Under a ``cascade`` (``qc`` =
+    ``cascade.encode(x)``) every distance is a certified lower bound
+    walked through the tier chain (``_probe``). The visited bitmap it
+    returns is what ``range_expand`` continues from.
+    """
+    vecs, nbrs = index.vecs, index.nbrs
+    dev = x.device
+    B = x.shape[0]
+    L, E = cfg.beam_width, cfg.expand_per_iter
+    th2 = sq_theta(theta)
+    visited = torch.zeros((B, bitmap_words(vecs.shape[0])),
+                          dtype=torch.int32, device=dev)
+
+    # --- seed probing (Alg. 2 lines 5–11) ---
+    d0, _, v0, visited, n_dist, n_esc = _probe(
+        vecs, x, seeds, seeds_valid, visited, n_data=n_data,
+        traverse_nondata=traverse_nondata, dist_impl=cfg.dist_impl,
+        cascade=cascade, qc=qc, esc_th2=th2)
+    seed_ids = torch.where(v0, seeds, NO_NODE)
+    bd, bi, bexp = _beam_merge(
+        torch.full((B, L), _INF, device=dev),
+        torch.full((B, L), NO_NODE, dtype=torch.int32, device=dev),
+        torch.zeros((B, L), dtype=torch.bool, device=dev),
+        d0, seed_ids, torch.zeros_like(v0))
+    best_dist, arg0 = torch.min(d0, dim=1)
+    best_idx = torch.where(torch.isfinite(best_dist),
+                           _take(seed_ids, arg0[:, None])[:, 0], NO_NODE)
+    since = torch.zeros((B,), dtype=torch.int32, device=dev)
+    done = best_dist < th2
+    n_iters = 0
+
+    # host-stepped while loop: one device→host sync per iteration
+    while n_iters < cfg.max_iters and not bool(done.all()):
+        active = ~done
+        # pick the E closest unexpanded beam entries; a stable descending
+        # sort is lax.top_k's order (ties to the lower slot)
+        key = torch.where((~bexp) & (bi != NO_NODE) & torch.isfinite(bd),
+                          -bd, -_INF)
+        selk, selpos = torch.sort(key, dim=1, descending=True, stable=True)
+        selk, selpos = selk[:, :E], selpos[:, :E]
+        sel_valid = (selk > -_INF) & active[:, None]
+        sel_ids = _take(bi, selpos)
+        new_exp = _mark(bexp, selpos, sel_valid)
+        exhausted = ~torch.any(sel_valid, dim=1) & active
+
+        # inactive lanes select nothing, so their visited words and counts
+        # do not change: the update can go in place
+        cand, cd, _, cv, visited, n_new, n_esc_new = _expand(
+            vecs, nbrs, x, sel_ids, sel_valid, visited, n_data=n_data,
+            traverse_nondata=traverse_nondata, dist_impl=cfg.dist_impl,
+            cascade=cascade, qc=qc, esc_th2=th2)
+        n_dist = n_dist + torch.where(active, n_new, 0)
+        n_esc = n_esc + torch.where(active, n_esc_new, 0)
+
+        cids = torch.where(cv, cand, NO_NODE)
+        bd2, bi2, be2 = _beam_merge(bd, bi, new_exp, cd, cids,
+                                    torch.zeros_like(cv))
+        keep = active[:, None]
+        bd = torch.where(keep, bd2, bd)
+        bi = torch.where(keep, bi2, bi)
+        bexp = torch.where(keep, be2, bexp)
+
+        cbest, cargmin = torch.min(cd, dim=1)
+        improved = cbest < best_dist
+        best_dist = torch.where(active & improved, cbest, best_dist)
+        best_idx = torch.where(active & improved,
+                               _take(cids, cargmin[:, None])[:, 0], best_idx)
+        since = torch.where(active, torch.where(improved, 0, since + 1),
+                            since)
+
+        done = done | (best_dist < th2) | exhausted
+        if cfg.patience >= 0:
+            done = done | (since >= cfg.patience)
+        n_iters += 1
+
+    return GreedyState(
+        beam_dist=bd, beam_idx=bi, beam_exp=bexp, visited=visited,
+        best_dist=best_dist, best_idx=best_idx, since_improve=since,
+        done=done, n_dist=n_dist, n_esc=n_esc, n_iters=n_iters)
 
 
 # ---------------------------------------------------------------------------

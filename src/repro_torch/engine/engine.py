@@ -1,16 +1,19 @@
 """JoinEngine — a persistent join service over one data side Y (port of
 ``repro.engine.engine`` for the single-device f32 path).
 
-The engine holds Y on its device, builds the merged index G_{X∪Y} once
-per query set (keyed by a content fingerprint of X, kept in a small LRU)
-and serves joins and threshold sweeps from it. ``build_counts`` shows the
-reuse.
+The engine holds Y on its device and builds each index artifact once:
+the data index G_Y (for the search-path methods ``index``, ``es``,
+``es_hws``, ``es_sws``), and per query set (keyed by a content fingerprint
+of X, kept in small LRUs) the query index G_X (the MST order of
+``es_hws``/``es_sws``) and the merged index G_{X∪Y} (``es_mi``,
+``es_mi_adapt``). Joins and threshold sweeps are served from them;
+``build_counts`` shows the reuse.
 
-Supported here: methods ``nlj``, ``es_mi`` and ``es_mi_adapt``, every
-quant mode (``off``, ``sq8``, ``sketch8``, ``pdx8``, ``sketchpdx8``; for
-joins and, through ``build_kw["quant"]``, the cascade-driven index build),
-one shard. Everything else raises ``NotImplementedError`` naming the
-ROADMAP slice that brings it.
+Supported here: every method, every quant mode (``off``, ``sq8``,
+``sketch8``, ``pdx8``, ``sketchpdx8``; for joins and, through
+``build_kw["quant"]``, the cascade-driven index builds), one shard.
+Streaming (``submit``) and sharding raise ``NotImplementedError`` naming
+the ROADMAP slice that brings them.
 
 Each tier store of an index artifact (int8, sketch, PDX) is built once
 (``tier_store``, counted in ``build_counts["quant"]`` / ``["sketch"]`` /
@@ -41,7 +44,7 @@ from repro_torch.engine import waves as W
 from repro_torch.obs import metrics as obs_metrics
 
 _MI_METHODS = ("es_mi", "es_mi_adapt")
-_SEARCH_METHODS = ("index", "es", "es_hws", "es_sws")
+_CACHING_METHODS = ("es_hws", "es_sws")
 
 # ~64 KiB of content sampled per fingerprint (see repro.engine.engine)
 _FP_SAMPLE_BYTES = 1 << 16
@@ -124,12 +127,15 @@ class JoinEngine:
         self.n_shards = 1
         self.metrics = metrics if metrics is not None else \
             obs_metrics.metrics()
+        self._index_y: GraphIndex | None = None
+        self._index_x = _LRU(max_cached_indexes)
         self._merged = _LRU(max_cached_indexes)
         # compressed tier stores mirror the index artifacts they compress,
         # keyed by (tier name, artifact kind[, X fingerprint])
         self._tier_stores = _LRU(4 * max_cached_indexes)
         self.build_counts: dict[str, int] = {
-            "merged": 0, "quant": 0, "sketch": 0, "pdx": 0}
+            "index_y": 0, "index_x": 0, "merged": 0, "quant": 0,
+            "sketch": 0, "pdx": 0}
         self.build_seconds = 0.0
         self.serve_stats: dict[str, int] = {
             "joins": 0, "queries": 0, "pairs": 0}
@@ -163,29 +169,54 @@ class JoinEngine:
                 [("int8", self.tier_store(key, "int8", vecs))])
         return bk
 
+    def _build(self, kind: str, key: tuple, vecs, **kw) -> GraphIndex:
+        """One index build over ``vecs`` for artifact ``key``, timed and
+        counted in ``build_counts[kind]``."""
+        from repro_torch.core import graph
+        t0 = time.perf_counter()
+        index = graph.build_index(vecs, **kw,
+                                  **self._build_kw_for(key, vecs))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.build_seconds += time.perf_counter() - t0
+        self.build_counts[kind] += 1
+        return index
+
+    def index_y(self) -> GraphIndex:
+        """The data index G_Y (built once, reused by every search-path
+        join; its tier stores are keyed ``("index_y",)``)."""
+        self._cache_event("index_y", self._index_y is not None)
+        if self._index_y is None:
+            self._index_y = self._build("index_y", ("index_y",), self.Y)
+        return self._index_y
+
+    def index_x(self, X) -> GraphIndex:
+        """The query index G_X (the MST order of the HWS/SWS methods)."""
+        fp = _fingerprint(X)
+        hit = self._index_x.touch(fp)
+        self._cache_event("index_x", hit is not None)
+        if hit is None:
+            hit = self._build("index_x", ("index_x", fp), self._as_x(X))
+            self._index_x.put(fp, hit)
+        return hit
+
     def merged_index(self, X) -> GraphIndex:
         """Merged index G_{X∪Y} (greedy phase offloaded, paper §4.4)."""
         fp = _fingerprint(X)
         hit = self._merged.touch(fp)
         self._cache_event("merged", hit is not None)
         if hit is None:
-            from repro_torch.core import graph
-            t0 = time.perf_counter()
-            merged_vecs = torch.cat([self.Y, self._as_x(X)], dim=0)
-            hit = graph.build_index(
-                merged_vecs, n_data=int(self.Y.shape[0]),
-                **self._build_kw_for(("merged", fp), merged_vecs))
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.build_seconds += time.perf_counter() - t0
-            self.build_counts["merged"] += 1
+            hit = self._build("merged", ("merged", fp),
+                              torch.cat([self.Y, self._as_x(X)], dim=0),
+                              n_data=int(self.Y.shape[0]))
             self._merged.put(fp, hit)
         return hit
 
     def tier_store(self, key: tuple, tier_name: str, vecs):
         """The compressed store behind one cascade tier of one index
         artifact (built once, LRU'd). ``key`` names the artifact
-        (``("y",)`` or ``("merged", fp)``); ``vecs`` is its f32 table."""
+        (``("y",)``, ``("index_y",)``, ``("index_x", fp)`` or
+        ``("merged", fp)``); ``vecs`` is its f32 table."""
         from repro_torch.quant.cascade import build_tier_store, tier_class
 
         ck = (tier_name,) + key
@@ -214,16 +245,25 @@ class JoinEngine:
         stats.quant_bytes += casc.nbytes
         return casc
 
-    def adopt(self, *, X=None, index_merged: GraphIndex | None = None,
+    def adopt(self, *, index_y: GraphIndex | None = None, X=None,
+              index_x: GraphIndex | None = None,
+              index_merged: GraphIndex | None = None,
               tier_stores: dict | None = None) -> None:
-        """Install a prebuilt merged index for ``X`` and prebuilt tier
-        stores (``{tier name: store}``, for example carried across from
-        the reference with ``quant.*_store_from_numpy``): over the merged
-        index of ``X`` when ``X`` is given, else over Y (the NLJ's
-        artifact). Nothing adopted counts as a build."""
+        """Install prebuilt indexes (G_Y; G_X and the merged index of
+        ``X``) and prebuilt tier stores (``{tier name: store}``, for
+        example carried across from the reference with
+        ``quant.*_store_from_numpy``): over the merged index of ``X`` when
+        ``X`` is given, else over Y (the NLJ's artifact). Nothing adopted
+        counts as a build."""
+        if index_y is not None:
+            self._index_y = index_y
+        for name, index in (("index_x", index_x),
+                            ("index_merged", index_merged)):
+            if index is not None and X is None:
+                raise ValueError(f"adopting {name} requires X")
+        if index_x is not None:
+            self._index_x.put(_fingerprint(X), index_x)
         if index_merged is not None:
-            if X is None:
-                raise ValueError("adopting index_merged requires X")
             self._merged.put(_fingerprint(X), index_merged)
         key = ("merged", _fingerprint(X)) if X is not None else ("y",)
         for name, store in (tier_stores or {}).items():
@@ -245,20 +285,22 @@ class JoinEngine:
 
     def join(self, X, cfg: JoinConfig | None = None, *,
              method: str | None = None, theta: float | None = None,
+             index_y: GraphIndex | None = None,
+             index_x: GraphIndex | None = None,
              index_merged: GraphIndex | None = None) -> JoinResult:
-        """Join X against the engine's Y. A cached merged index is reused;
-        a missing one is built (and counted)."""
+        """Join X against the engine's Y. Cached indexes are reused;
+        whatever the method needs and is missing is built (and counted).
+        ``cfg.quant`` filters through the cascade over the method's index
+        artifact (G_Y for the search path, G_{X∪Y} for the MI methods, Y
+        for the NLJ)."""
         from repro_torch.core.join import cascade_join_pairs
 
         cfg = self._resolve(cfg, method, theta)
-        if cfg.method in _SEARCH_METHODS:
-            raise NotImplementedError(
-                f"method {cfg.method!r} arrives with the search-path slice "
-                f"(ROADMAP Queue A slice 5)")
         Xd = self._as_x(X)
         stats = JoinStats()
-        if index_merged is not None:
-            self.adopt(X=X, index_merged=index_merged)
+        if any(i is not None for i in (index_y, index_x, index_merged)):
+            self.adopt(index_y=index_y, X=X, index_x=index_x,
+                       index_merged=index_merged)
 
         if cfg.method == "nlj":
             t0 = time.perf_counter()
@@ -277,11 +319,19 @@ class JoinEngine:
 
         all_pairs: list[np.ndarray] = []
         t0 = time.perf_counter()
-        merged = self.merged_index(X)
-        casc = self.cascade_for(("merged", _fingerprint(X)), merged.vecs,
-                                cfg, stats)
-        stats.other_seconds += time.perf_counter() - t0
-        W.run_mi_join(Xd, merged, cfg, stats, all_pairs, cascade=casc)
+        if cfg.method in _MI_METHODS:
+            merged = self.merged_index(X)
+            casc = self.cascade_for(("merged", _fingerprint(X)), merged.vecs,
+                                    cfg, stats)
+            stats.other_seconds += time.perf_counter() - t0
+            W.run_mi_join(Xd, merged, cfg, stats, all_pairs, cascade=casc)
+        else:
+            iy = self.index_y()
+            ix = self.index_x(X) if cfg.method in _CACHING_METHODS else None
+            casc = self.cascade_for(("index_y",), iy.vecs, cfg, stats)
+            stats.other_seconds += time.perf_counter() - t0
+            W.run_search_join(Xd, iy, ix, cfg, stats, all_pairs,
+                              cascade=casc)
         pairs = (np.concatenate(all_pairs, axis=0) if all_pairs
                  else np.empty((0, 2), np.int64))
         return self._done(JoinResult(pairs=pairs, stats=stats), Xd)
@@ -291,6 +341,12 @@ class JoinEngine:
         """Threshold sweep: one index build amortized over all thetas."""
         return [self.join(X, cfg, method=method, theta=float(t))
                 for t in thetas]
+
+    def submit(self, X_batch, cfg: JoinConfig | None = None, **kw):
+        """Streaming joins are not ported yet."""
+        raise NotImplementedError(
+            "streaming submit arrives with the streaming engine slice "
+            "(ROADMAP Queue A slice 6)")
 
     # -- bookkeeping --------------------------------------------------------
 

@@ -1,4 +1,4 @@
-"""Wave runners for the merged-index join (port of ``repro.engine.waves``).
+"""Wave runners of the join (port of ``repro.engine.waves``).
 
 Queries are processed in waves of ``JoinConfig.wave_size`` lanes; a short
 final wave is padded with invalid lanes that are masked throughout. Each
@@ -22,18 +22,25 @@ device is mostly idle while the host assembles: the overlap keeps the
 reference's order and stats rather than hiding host time. A second CUDA
 stream with pinned non-blocking copies is later work.
 
-The search-path waves (``index``/``es``/``es_hws``/``es_sws``) arrive with
-ROADMAP Queue A slice 5.
+The search-path waves (``index``/``es``/``es_hws``/``es_sws``,
+``run_search_join``) run a greedy search from seeds over the data index
+G_Y, then the BFS range expansion from its beam. ``es_hws`` and ``es_sws``
+run in MST wavefronts over the query index G_X and seed each query from
+its parent's cache entry (Alg. 1 and 3: the whole kept pool for HWS, the
+closest node for SWS); with overlap on, the next wave seeds from a small
+blocking fetch of the previous wave's seed feedback (``fetch_feedback``)
+while its pool is still on the device.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 
 import numpy as np
 import torch
 
-from repro_torch.core import traversal
+from repro_torch.core import ordering, traversal
 from repro_torch.core.ood import predict_ood
 from repro_torch.core.types import (NO_NODE, GraphIndex, JoinConfig,
                                     JoinStats, TraversalConfig,
@@ -100,10 +107,11 @@ def collect_pairs(qids: np.ndarray, keep: np.ndarray,
 def _finalize_wave(cascade, qc, vecs: torch.Tensor, xw: torch.Tensor,
                    pool_idx: torch.Tensor, pool_dist: torch.Tensor,
                    n_pool: torch.Tensor, lane_valid: torch.Tensor,
-                   th2: float, *, cap: int, dist_impl: str | None,
-                   early_exit: bool = False):
-    """Device epilogue of one wave (the reference's ``_finalize_wave`` with
-    ``seed_mode="none"``). Without a cascade every filled pool slot of a
+                   best_idx: torch.Tensor, th2: float, *, cap: int,
+                   dist_impl: str | None, seed_mode: str = "none",
+                   seeds_max: int = 0, early_exit: bool = False):
+    """Device epilogue of one wave (the reference's ``_finalize_wave``).
+    Without a cascade every filled pool slot of a
     valid lane is emitted. With one, the pooled lower bounds split into
     certified-sure entries and an ambiguous band; only the band, compacted
     to ``cap`` slots per lane, is re-ranked exactly: by the f32 gather
@@ -114,10 +122,14 @@ def _finalize_wave(cascade, qc, vecs: torch.Tensor, xw: torch.Tensor,
     off).
 
     Returns ``(keep (B, C), dist (B, C) — exact where re-ranked, +inf off
-    keep, n_amb (B,) band occupancy, n_dims_scanned, n_dims_total — 0-d
-    PDX re-rank scan counters, 0 without a PDX tier)``; band entries
-    ranked ≥ ``cap`` were not re-ranked, so the caller retries when
-    ``n_amb > cap``."""
+    keep, n_amb (B,) band occupancy, seed_ids / seed_valid (B, S) — the
+    seed feedback, n_dims_scanned, n_dims_total — 0-d PDX re-rank scan
+    counters, 0 without a PDX tier)``; band entries ranked ≥ ``cap`` were
+    not re-ranked, so the caller retries when ``n_amb > cap``. The seed
+    feedback is, for ``seed_mode="es_hws"``, the first ``seeds_max`` kept
+    pool slots in ascending (dist, id) order — the order
+    ``update_sws_cache`` stores, so both agree bit for bit; for
+    ``"es_sws"`` the lane's best node; for ``"none"`` empty."""
     B, C = pool_idx.shape
     dev = pool_idx.device
     keep = ((torch.arange(C, device=dev)[None, :] < n_pool[:, None])
@@ -151,7 +163,20 @@ def _finalize_wave(cascade, qc, vecs: torch.Tensor, xw: torch.Tensor,
             dist = torch.where(within & torch.isfinite(exact), exact,
                                pool_dist)
     dist = torch.where(keep, dist, _INF)
-    return keep, dist, n_amb, n_scanned, n_total
+    if seed_mode == "es_hws":
+        # lexicographic (dist, id): a stable sort by id, then by dist
+        by_id = torch.sort(pool_idx, dim=1, stable=True)[1]
+        sd, o = torch.sort(torch.gather(dist, 1, by_id), dim=1, stable=True)
+        S = min(seeds_max, C)
+        seed_ids = torch.gather(pool_idx, 1, torch.gather(by_id, 1, o))[:, :S]
+        seed_valid = torch.isfinite(sd[:, :S])
+    elif seed_mode == "es_sws":
+        seed_ids = best_idx[:, None].to(torch.int32)
+        seed_valid = (best_idx != NO_NODE)[:, None] & lane_valid[:, None]
+    else:
+        seed_ids = torch.zeros((B, 0), dtype=torch.int32, device=dev)
+        seed_valid = torch.zeros((B, 0), dtype=torch.bool, device=dev)
+    return keep, dist, n_amb, seed_ids, seed_valid, n_scanned, n_total
 
 
 @dataclasses.dataclass
@@ -177,11 +202,15 @@ class WaveHandles:
     keep: torch.Tensor
     dist: torch.Tensor
     n_amb: torch.Tensor
+    seed_ids: torch.Tensor         # (B, S) seed feedback (S = 0: none)
+    seed_valid: torch.Tensor
     n_dims_scanned: torch.Tensor   # () PDX re-rank scan counters
     n_dims_total: torch.Tensor
     capctl: RerankCap
     cap: int                       # band capacity the epilogue ran at
     dist_impl: str | None
+    seed_mode: str = "none"
+    seeds_max: int = 0
     early_exit: bool = False
     # device-phase trace span ("traversal" lane), opened at dispatch and
     # closed at the first host contact with the results (_resolve_band)
@@ -201,11 +230,12 @@ def _refinalize(h: WaveHandles, stats: JoinStats) -> None:
     h.cap = h.capctl.cap
     with obs_trace.tracer().span("wave/refinalize", lane="assembly",
                                  cap=h.cap):
-        (h.keep, h.dist, h.n_amb, h.n_dims_scanned,
+        (h.keep, h.dist, h.n_amb, h.seed_ids, h.seed_valid, h.n_dims_scanned,
          h.n_dims_total) = _finalize_wave(
             h.cascade, h.qc, h.vecs, h.xw, h.pool_idx, h.raw_pool_dist,
             h.n_pool, torch.as_tensor(h.lane_valid, device=h.xw.device),
-            h.th2, cap=h.cap, dist_impl=h.dist_impl,
+            h.best_idx, h.th2, cap=h.cap, dist_impl=h.dist_impl,
+            seed_mode=h.seed_mode, seeds_max=h.seeds_max,
             early_exit=h.early_exit)
     _count_band(h, stats)
 
@@ -246,6 +276,26 @@ def _resolve_band(h: WaveHandles, stats: JoinStats) -> None:
     obs_metrics.metrics().histogram(
         "wave.band_occ", help="per-wave max ambiguous-band occupancy"
     ).observe(max_amb)
+
+
+def fetch_feedback(h: WaveHandles, stats: JoinStats) -> dict[int, np.ndarray]:
+    """The small blocking transfer between pipelined search waves: the band
+    occupancy (for the cap retry) and the per-lane seed entries. Returns
+    the seed overlay ``{qid: ids}``; for a caching method these are the
+    first ``seeds_max`` ids ``update_sws_cache`` later stores for the same
+    queries, so the next wave can seed from them before the pool reaches
+    the host."""
+    _resolve_band(h, stats)
+    if h.seed_mode == "none":
+        return {}
+    t0 = time.perf_counter()
+    with obs_trace.tracer().span("wave/feedback", lane="assembly"):
+        seed_ids = h.seed_ids.cpu().numpy()
+        seed_valid = h.seed_valid.cpu().numpy()
+    stats.wait_seconds += time.perf_counter() - t0
+    stats.bytes_feedback += seed_ids.nbytes + seed_valid.nbytes
+    return {int(q): np.asarray(seed_ids[i][seed_valid[i]], np.int32)
+            for i, q in enumerate(h.qids) if h.lane_valid[i]}
 
 
 @dataclasses.dataclass
@@ -376,9 +426,10 @@ def launch_mi_wave(merged: GraphIndex, xw: torch.Tensor, qids: np.ndarray,
         stats.expand_seconds += time.perf_counter() - t0
 
     ee = early_exit_enabled(tcfg)
-    keep, dist2, n_amb, nds, ndt = _finalize_wave(
+    keep, dist2, n_amb, seed_ids, seed_valid, nds, ndt = _finalize_wave(
         cascade, qc, merged.vecs, xw, r.pool_idx, r.pool_dist, r.n_pool, lv,
-        th2, cap=capctl.cap, dist_impl=tcfg.dist_impl, early_exit=ee)
+        r.best_idx, th2, cap=capctl.cap, dist_impl=tcfg.dist_impl,
+        early_exit=ee)
     lsp.end(lanes=int(np.count_nonzero(lane_valid)), cap=capctl.cap,
             hybrid=hybrid)
     h = WaveHandles(
@@ -387,8 +438,9 @@ def launch_mi_wave(merged: GraphIndex, xw: torch.Tensor, qids: np.ndarray,
         pool_idx=r.pool_idx, raw_pool_dist=r.pool_dist, n_pool=r.n_pool,
         best_idx=r.best_idx, n_dist=r.n_dist, n_esc=r.n_esc,
         overflow=r.overflow, n_iters=(r.n_iters,), keep=keep, dist=dist2,
-        n_amb=n_amb, n_dims_scanned=nds, n_dims_total=ndt, capctl=capctl,
-        cap=capctl.cap, dist_impl=tcfg.dist_impl, early_exit=ee, span=dspan)
+        n_amb=n_amb, seed_ids=seed_ids, seed_valid=seed_valid,
+        n_dims_scanned=nds, n_dims_total=ndt, capctl=capctl, cap=capctl.cap,
+        dist_impl=tcfg.dist_impl, early_exit=ee, span=dspan)
     _count_band(h, stats)
     return h
 
@@ -452,5 +504,226 @@ def run_mi_join(X: torch.Tensor, merged: GraphIndex, cfg: JoinConfig,
                 pending = h
             else:
                 drain(h)
+    if pending is not None:
+        drain(pending)
+
+
+# ---------------------------------------------------------------------------
+# search-path waves (index / es / es_hws / es_sws)
+# ---------------------------------------------------------------------------
+
+def effective_tcfg(cfg: JoinConfig) -> TraversalConfig:
+    """The INDEX baseline is ES with early stopping disabled."""
+    tcfg = cfg.traversal
+    if cfg.method == "index" and tcfg.patience >= 0:
+        tcfg = dataclasses.replace(tcfg, patience=-1)
+    return tcfg
+
+
+def launch_search_wave(index_y: GraphIndex, xw: torch.Tensor,
+                       qids: np.ndarray, lane_valid: np.ndarray,
+                       cfg: JoinConfig, stats: JoinStats, *,
+                       seeds: np.ndarray, seeds_valid: np.ndarray,
+                       cascade=None, qc=None,
+                       capctl: RerankCap | None = None, sync: bool = True,
+                       collect_seeds: bool = False) -> WaveHandles:
+    """The device phase of one search wave (Alg. 1 online): greedy search
+    from the (B, S) ``seeds`` the caller filled from its work-sharing
+    cache, range expansion from the greedy beam and visited bitmap, and
+    the epilogue (band re-rank under a cascade; with ``collect_seeds`` the
+    method's seed feedback). With ``sync`` the greedy and expansion phases
+    are timed separately (the sequential path)."""
+    tcfg = effective_tcfg(cfg)
+    dev = xw.device
+    if capctl is None:
+        capctl = RerankCap(tcfg)
+    tr = obs_trace.tracer()
+    lsp = tr.span("wave/launch", lane="assembly")
+    lv = torch.as_tensor(lane_valid, device=dev)
+    seeds_t = torch.as_tensor(seeds, device=dev).to(torch.int32)
+    sv = torch.as_tensor(seeds_valid, device=dev) & lv[:, None]
+    if cascade is not None and qc is None:
+        qc = cascade.encode(xw)
+    th2 = traversal.sq_theta(cfg.theta)
+
+    dspan = tr.begin("wave/device", lane="traversal", cap=capctl.cap)
+    t0 = time.perf_counter()
+    g = traversal.greedy_search(
+        index_y, xw, seeds_t, sv, cfg.theta, cfg=tcfg,
+        n_data=index_y.n_data, traverse_nondata=True, cascade=cascade, qc=qc)
+    if sync:
+        _sync(g.beam_dist)
+        stats.greedy_seconds += time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    r = traversal.range_expand(
+        index_y, xw, cfg.theta, cfg=tcfg, n_data=index_y.n_data,
+        hybrid=False, traverse_nondata=True, init_idx=g.beam_idx,
+        init_dist=g.beam_dist,
+        init_valid=(g.beam_idx != NO_NODE) & torch.isfinite(g.beam_dist),
+        visited=g.visited, best_dist=g.best_dist, best_idx=g.best_idx,
+        n_dist=g.n_dist, cascade=cascade, qc=qc, n_esc=g.n_esc)
+    if sync:
+        _sync(r.pool_idx)
+        stats.expand_seconds += time.perf_counter() - t0
+
+    seed_mode = cfg.method if collect_seeds else "none"
+    ee = early_exit_enabled(tcfg)
+    keep, dist, n_amb, seed_ids, seed_valid, nds, ndt = _finalize_wave(
+        cascade, qc, index_y.vecs, xw, r.pool_idx, r.pool_dist, r.n_pool,
+        lv, r.best_idx, th2, cap=capctl.cap, dist_impl=tcfg.dist_impl,
+        seed_mode=seed_mode, seeds_max=tcfg.seeds_max, early_exit=ee)
+    lsp.end(lanes=int(np.count_nonzero(lane_valid)), cap=capctl.cap)
+    h = WaveHandles(
+        qids=qids, lane_valid=np.asarray(lane_valid), xw=xw,
+        vecs=index_y.vecs, cascade=cascade, qc=qc, th2=th2,
+        pool_idx=r.pool_idx, raw_pool_dist=r.pool_dist, n_pool=r.n_pool,
+        best_idx=r.best_idx, n_dist=r.n_dist, n_esc=r.n_esc,
+        overflow=r.overflow, n_iters=(g.n_iters, r.n_iters), keep=keep,
+        dist=dist, n_amb=n_amb, seed_ids=seed_ids, seed_valid=seed_valid,
+        n_dims_scanned=nds, n_dims_total=ndt, capctl=capctl, cap=capctl.cap,
+        dist_impl=tcfg.dist_impl, seed_mode=seed_mode,
+        seeds_max=tcfg.seeds_max, early_exit=ee, span=dspan)
+    _count_band(h, stats)
+    return h
+
+
+def update_sws_cache(cache: dict[int, np.ndarray], out: WaveOutput,
+                     qids: np.ndarray, cfg: JoinConfig,
+                     stats: JoinStats, cache_n: int) -> int:
+    """SelectDataToCache (Alg. 3): HWS caches the whole kept pool, SWS the
+    single closest node. Returns the updated entry count.
+
+    HWS entries are ordered by the total (dist, id) key, the key the
+    device-side seed feedback sorts by, so a pipelined wave seeds from
+    exactly the prefix of the entry this writes."""
+    if cfg.method == "es_hws":
+        for i, q in enumerate(qids):
+            if not out.lane_valid[i]:
+                continue
+            old = cache.get(int(q))
+            if old is not None:          # overwrite evicts the old entry
+                stats.cache_evictions += 1
+                cache_n -= int(old.size)
+            ids = out.pool_idx[i][out.pool_keep[i]]
+            o = np.lexsort((ids, out.pool_dist[i][out.pool_keep[i]]))
+            cache[int(q)] = ids[o]
+            cache_n += int(ids.size)
+    elif cfg.method == "es_sws":
+        for i, q in enumerate(qids):
+            if not out.lane_valid[i]:
+                continue
+            if int(q) in cache:
+                stats.cache_evictions += 1
+                cache_n -= 1
+            b = int(out.best_idx[i])
+            cache[int(q)] = (np.asarray([b], np.int32) if b != NO_NODE
+                             else np.empty(0, np.int32))
+            cache_n += 1
+    stats.peak_cache_entries = max(stats.peak_cache_entries, cache_n)
+    return cache_n
+
+
+def seeds_from_cache(qids: np.ndarray, lane_valid: np.ndarray,
+                     parent: np.ndarray, cache, sy: int, wave_size: int,
+                     seeds_max: int, stats: JoinStats | None = None
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """Seed lanes from their parents' cache entries (Alg. 1 lines 5–9),
+    s_Y otherwise. ``cache`` is any mapping qid → id array (the pipelined
+    runner passes ``ChainMap(seed_overlay, cache)``). With ``stats`` every
+    lane with a parent counts as a cache hit (a non-empty entry) or a miss
+    (it fell back to s_Y)."""
+    seeds = np.full((wave_size, seeds_max), sy, np.int32)
+    seeds_valid = np.zeros((wave_size, seeds_max), bool)
+    seeds_valid[:, 0] = True
+    for i, q in enumerate(qids):
+        p = int(parent[int(q)]) if lane_valid[i] else -1
+        if p < 0:
+            continue
+        c = cache.get(p)
+        if c is not None and c.size > 0:
+            k = min(seeds_max, c.size)
+            seeds[i, :k] = c[:k]
+            seeds_valid[i, :k] = True
+            if stats is not None:
+                stats.cache_hits += 1
+        elif stats is not None:
+            stats.cache_misses += 1
+    return seeds, seeds_valid
+
+
+def run_search_join(X: torch.Tensor, index_y: GraphIndex,
+                    index_x: GraphIndex | None, cfg: JoinConfig,
+                    stats: JoinStats, all_pairs: list[np.ndarray], *,
+                    cascade=None, capctl: RerankCap | None = None) -> None:
+    """Full-batch index / es / es_hws / es_sws join (greedy + BFS).
+
+    The caching methods run in MST wavefronts over ``index_x``, so a
+    query's parent is complete before it starts; the others in query
+    order. With overlap on, wave k+1 is launched from wave k's seed
+    feedback (one small blocking fetch) before wave k is assembled; the
+    host updates the work-sharing cache one wave behind and drops each
+    overlay entry once the full entry is written, so the cache contents,
+    the pairs and the counters equal the sequential path's."""
+    nq = X.shape[0]
+    dev = X.device
+    needs_mst = cfg.method in ("es_hws", "es_sws")
+    sy = int(index_y.start)
+
+    t0 = time.perf_counter()
+    if needs_mst:
+        parent = ordering.mst_order(index_x, index_y.vecs[sy])
+        waves = ordering.wavefronts(parent, cfg.wave_size)
+    else:
+        parent = np.full(nq, -1, np.int64)
+        waves = [np.arange(c0, min(c0 + cfg.wave_size, nq))
+                 for c0 in range(0, nq, cfg.wave_size)]
+    stats.other_seconds += time.perf_counter() - t0
+
+    S = cfg.traversal.seeds_max
+    cache: dict[int, np.ndarray] = {}
+    cache_n = 0
+    overlay: dict[int, np.ndarray] = {}
+    seed_cache = collections.ChainMap(overlay, cache)
+    if capctl is None:
+        capctl = RerankCap(effective_tcfg(cfg))
+    ov = overlap_enabled(cfg)
+    pending: WaveHandles | None = None
+
+    def drain(h: WaveHandles) -> None:
+        nonlocal cache_n
+        out = assemble_wave(h, stats)
+        all_pairs.append(out.pairs)
+        t1 = time.perf_counter()
+        with obs_trace.tracer().span("wave/cache_update", lane="assembly"):
+            cache_n = update_sws_cache(cache, out, h.qids, cfg, stats,
+                                       cache_n)
+            for q in h.qids[h.lane_valid]:
+                overlay.pop(int(q), None)
+        stats.other_seconds += time.perf_counter() - t1
+
+    for wave in waves:
+        qids, lane_valid = pad_wave(wave, cfg.wave_size)
+        xw = X[torch.as_tensor(qids, device=dev)]
+        t0 = time.perf_counter()
+        seeds, seeds_valid = seeds_from_cache(
+            qids, lane_valid, parent, seed_cache, sy, cfg.wave_size, S,
+            stats=stats)
+        stats.other_seconds += time.perf_counter() - t0
+        # the seed feedback only bridges the one-wave gap the pipeline
+        # opens; the sequential path writes the cache before the next wave
+        h = launch_search_wave(index_y, xw, qids, lane_valid, cfg, stats,
+                               seeds=seeds, seeds_valid=seeds_valid,
+                               cascade=cascade, capctl=capctl,
+                               sync=not ov, collect_seeds=needs_mst and ov)
+        if ov and pending is not None:
+            drain(pending)
+            pending = None
+        if needs_mst and ov:
+            overlay.update(fetch_feedback(h, stats))
+        if ov:
+            pending = h
+        else:
+            drain(h)
     if pending is not None:
         drain(pending)

@@ -25,7 +25,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "distance.cu", CSRC / "int8.cu", CSRC / "topk_merge.cu",
-           CSRC / "bits.cu", CSRC / "pdx.cu")
+           CSRC / "bits.cu", CSRC / "pdx.cu", CSRC / "nlj.cu")
+# headers the sources include; they key the build too
+HEADERS = (CSRC / "tile.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -52,6 +54,7 @@ _SIGNATURES = {
                                                   _F, _I, _I, _P),
     "repro_pdx_gather_sq_dists": (_P,) * 9 + (_LL, _I, _I, _I, _LL, _F, _F,
                                               _F, _I, _I, _P),
+    "repro_nlj_count": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
 }
 
 _lock = threading.Lock()
@@ -73,7 +76,7 @@ def _nvcc() -> str:
 
 def _key() -> str:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 

@@ -12,10 +12,11 @@
 //    per element (64 FLOP/byte, above the H100's f32 ridge of ~20), so it
 //    is bound by the f32 FMA rate. The join needs IEEE f32 (TF32 moves
 //    pairs on the θ boundary), so the tensor cores are not used. Design:
-//    a classic CUDA-core SGEMM tile — 128x128 outputs per 256-thread
-//    block, an 8x8 register tile per thread built from float4 reads of
-//    k-major shared tiles (conflict-free), d walked in slices of 8, fmaf
-//    accumulation, the distance epilogue fused into the store. Ragged B,
+//    a classic CUDA-core SGEMM tile (tile.cuh, shared with nlj.cu) —
+//    128x128 outputs per 256-thread block, an 8x8 register tile per
+//    thread built from float4 reads of k-major shared tiles
+//    (conflict-free), d walked in slices of 8, fmaf accumulation, the
+//    distance epilogue fused into the store. Ragged B,
 //    N and d edges are masked in the kernel (loads read 0, stores are
 //    skipped), so the wrapper never pads. Norms come from the caller.
 //
@@ -42,7 +43,7 @@
 //    sparse survivor set (the sq8 cascade kNN build) reproduces the tile
 //    kernel's values bit for bit: both accumulate the dot as one fmaf
 //    chain over dimensions 0..d-1 from 0 and finish with the same
-//    dist_epilogue in this translation unit, and the caller passes the
+//    dist_epilogue (tile.cuh), and the caller passes the
 //    same norm tensor to both. Design: a warp takes 32 pairs; it stages
 //    32-float slices of their rows in shared memory with coalesced loads,
 //    then each lane runs its own pair's fmaf chain over the slice in
@@ -52,39 +53,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tile.cuh"
+
 namespace {
 
-constexpr int kBM = 128;
-constexpr int kBN = 128;
-constexpr int kBK = 8;
-constexpr int kThreads = 256;
-
-// Four consecutive floats of row r, columns [c, c+4), zero outside the
-// (nrows, d) matrix. vec4: d % 4 == 0 and a 16-byte aligned base pointer.
-__device__ __forceinline__ void load_row4(const float* __restrict__ p, long long r,
-                                          long long nrows, int c, int d, int vec4,
-                                          float v[4]) {
-  if (r < nrows) {
-    const float* rowp = p + r * (long long)d;
-    if (vec4 && c < d) {
-      const float4 t = __ldg(reinterpret_cast<const float4*>(rowp + c));
-      v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-      return;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = (c + i < d) ? __ldg(rowp + c + i) : 0.f;
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) v[i] = 0.f;
-}
-
-// The matmul-form distance epilogue shared by the tile kernel and the
-// pair-list kernel. 2.f * dot is exact, so whether nvcc contracts the
-// subtraction into an fma does not change the rounded result.
-__device__ __forceinline__ float dist_epilogue(float xn, float yn, float dot) {
-  return fmaxf(xn + yn - 2.f * dot, 0.f);
-}
+using repro_tile::dist_epilogue;
+using repro_tile::kBM;
+using repro_tile::kBN;
+using repro_tile::kBK;
+using repro_tile::kThreads;
 
 __global__ void __launch_bounds__(kThreads)
 pairwise_kernel(const float* __restrict__ x, const float* __restrict__ y,
@@ -92,55 +69,22 @@ pairwise_kernel(const float* __restrict__ x, const float* __restrict__ y,
                 float* __restrict__ out, int B, int N, int d, int vec4) {
   __shared__ __align__(16) float As[kBK][kBM];
   __shared__ __align__(16) float Bs[kBK][kBN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
   const long long row0 = (long long)blockIdx.y * kBM;
   const long long col0 = (long long)blockIdx.x * kBN;
-  // loader: the 128x8 slice of each operand is 1024 floats, 4 per thread
-  const int lr = tid / 2;
-  const int lc = (tid % 2) * 4;
-
   float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < d; k0 += kBK) {
-    float v[4];
-    load_row4(x, row0 + lr, B, k0 + lc, d, vec4, v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) As[lc + i][lr] = v[i];
-    load_row4(y, col0 + lr, N, k0 + lc, d, vec4, v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) Bs[lc + i][lr] = v[i];
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[k][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[k][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+  repro_tile::tile_dots(x, y, B, N, d, vec4, row0, col0, As, Bs, acc);
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const long long r = row0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
+    const long long r = row0 + repro_tile::tile_row(ty, i);
     if (r >= B) continue;
     const float xr = __ldg(xn + r);
     float* orow = out + r * (long long)N;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const long long c = col0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
+      const long long c = col0 + repro_tile::tile_col(tx, j);
       if (c < N) orow[c] = dist_epilogue(xr, __ldg(yn + c), acc[i][j]);
     }
   }

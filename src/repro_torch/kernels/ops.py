@@ -2,8 +2,8 @@
 
 Implementation selection (``impl``) follows the tensors' device:
   * ``cuda`` — the hand-written kernels of ``csrc/*.cu`` (f32 distances,
-    int8 distances, the top-k merge, sketch Hamming counts, PDX early-exit
-    distances), for CUDA tensors;
+    the fused NLJ count, int8 distances, the top-k merge, sketch Hamming
+    counts, PDX early-exit distances), for CUDA tensors;
   * ``ref``  — the plain PyTorch versions in ``kernels/ref.py``, for CPU
     tensors (what the CPU tests run).
 An explicit ``impl`` must name the one its tensors' device takes.
@@ -28,7 +28,7 @@ LAUNCHES: dict[str, int] = {
     "pairwise_sq_dists": 0, "pairlist_sq_dists": 0, "rowwise_sq_dists": 0,
     "gather_sq_dists": 0, "topk_merge": 0, "pairwise_sq_dists_int8": 0,
     "rowwise_sq_dists_int8": 0, "pairwise_hamming": 0, "rowwise_hamming": 0,
-    "pairwise_sq_dists_pdx": 0, "pdx_gather_sq_dists": 0}
+    "pairwise_sq_dists_pdx": 0, "pdx_gather_sq_dists": 0, "nlj_count": 0}
 _GRID_Y_MAX = 65535
 _MAX_BLOCKS = 2**31 - 1
 
@@ -186,6 +186,65 @@ def pairlist_sq_dists(x: torch.Tensor, y: torch.Tensor, qi: torch.Tensor,
     if impl == "ref":
         return _ref.pairlist_sq_dists(x, y, xn, yn, qi, yi)
     return pairlist_sq_dists_cuda(x, y, xn, yn, qi, yi)
+
+
+# ---------------------------------------------------------------------------
+# NLJ count: (B, d) x (N, d) -> (B,) matches within θ
+# ---------------------------------------------------------------------------
+
+def nlj_count_cuda(x: torch.Tensor, y: torch.Tensor, th2: float
+                   ) -> torch.Tensor:
+    """The CUDA kernel; x, y contiguous f32 on one card, non-empty;
+    ``th2`` is θ² rounded to f32."""
+    dev = x.device
+    _check("x", x, torch.float32, 2, dev)
+    _check("y", y, torch.float32, 2, dev)
+    B, d = x.shape
+    N = y.shape[0]
+    if y.shape[1] != d:
+        raise ValueError(f"dims differ: x {tuple(x.shape)}, y {tuple(y.shape)}")
+    if -(-B // 128) > _GRID_Y_MAX or max(B, N, d) >= 2**31:
+        raise ValueError(f"shape too large for one launch: B={B} N={N} d={d}")
+    # the norms the pairwise wrapper computes, so each comparison sees the
+    # pairwise kernel's value for the pair
+    xn, yn = _ref.sq_norms(x), _ref.sq_norms(y)
+    out = torch.zeros((B,), dtype=torch.int32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        code = lib.repro_nlj_count(
+            x.data_ptr(), y.data_ptr(), xn.data_ptr(), yn.data_ptr(),
+            out.data_ptr(), B, N, d, _vec4(d, x, y), th2, _stream(dev))
+    LAUNCHES["nlj_count"] += 1
+    _build.check(code, "nlj_count")
+    return out
+
+
+def nlj_count(x: torch.Tensor, y: torch.Tensor, *, theta: float,
+              impl: str | None = None) -> torch.Tensor:
+    """Exact per-query join counts |{j : dist(x_b, y_j) < θ}| → (B,) int32
+    (θ on L2, squared in f32). On the card one fused kernel: distance
+    tile, compare and row count, with no (B, N) matrix in device memory.
+    As the reference: ``B == 0`` gives ``(0,)``, ``N == 0`` zeros, and
+    ``d == 0`` (every distance 0) ``N`` when θ > 0, else 0."""
+    impl = _impl(impl, x)
+    B, d = x.shape
+    N = y.shape[0]
+    if B == 0:
+        return torch.zeros((0,), dtype=torch.int32, device=x.device)
+    if N == 0 or d == 0:
+        n = N if (d == 0 and theta > 0) else 0
+        return torch.full((B,), n, dtype=torch.int32, device=x.device)
+    if impl == "ref":
+        return _ref.nlj_count(x, y, theta)
+    return nlj_count_cuda(x, y, _ref.sq_theta(theta))
+
+
+def nlj_mask(x: torch.Tensor, y: torch.Tensor, *, theta: float,
+             impl: str | None = None) -> torch.Tensor:
+    """Exact boolean match matrix (B, N): the pairwise kernel, then the
+    compare with θ² (squared in f32)."""
+    d = pairwise_sq_dists(x, y, impl=impl)
+    return d < _ref.sq_theta(theta)
 
 
 # ---------------------------------------------------------------------------

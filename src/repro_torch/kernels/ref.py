@@ -2,7 +2,8 @@
 
 These are the semantic ground truth for the CUDA kernels in ``csrc/*.cu``
 and the path ``kernels.ops`` takes for tensors on the CPU. The formulas are
-the reference's: the matmul form clamped at 0 for pairwise distances, the
+the reference's: the matmul form clamped at 0 for pairwise distances (and
+the NLJ count, which compares them with θ² in query blocks), the
 difference form for per-query rows; the int8 versions dequantize first and
 then take the f32 form, so they round differently from the kernels, which
 stay in the integer domain per dimension group. The Hamming versions count
@@ -13,7 +14,13 @@ operation order.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def sq_theta(theta: float) -> float:
+    """θ² rounded to f32, as the reference computes ``jnp.float32(θ) ** 2``."""
+    return float(np.float32(theta) ** 2)
 
 
 def sq_norms(a: torch.Tensor) -> torch.Tensor:
@@ -47,6 +54,30 @@ def pairlist_sq_dists(x: torch.Tensor, y: torch.Tensor, xn: torch.Tensor,
     dot = torch.sum(x[q].float() * y[j].float(), dim=-1)
     d = torch.clamp_min(xn[q] + yn[j] - 2.0 * dot, 0.0)
     return torch.where(ok, d, torch.inf)
+
+
+def nlj_count(x: torch.Tensor, y: torch.Tensor, theta: float, *,
+              xn: torch.Tensor | None = None, yn: torch.Tensor | None = None,
+              block_elems: int = 1 << 26) -> torch.Tensor:
+    """(B,) int32 exact NLJ match count per query, |{n : d(x_b, y_n) < θ}|:
+    ``pairwise_sq_dists`` (clamped at 0) against θ² squared in f32, over
+    query blocks of at most ``block_elems`` distances, so a (B, N) matrix
+    is never held whole."""
+    x, y = x.float(), y.float()
+    th2 = sq_theta(theta)
+    xn = sq_norms(x) if xn is None else xn
+    yn = sq_norms(y) if yn is None else yn
+    out = torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
+    step = max(1, block_elems // max(y.shape[0], 1))
+    for b0 in range(0, x.shape[0], step):
+        d = pairwise_sq_dists(x[b0:b0 + step], y, xn[b0:b0 + step], yn)
+        out[b0:b0 + step] = torch.sum(d < th2, dim=1, dtype=torch.int32)
+    return out
+
+
+def nlj_mask(x: torch.Tensor, y: torch.Tensor, theta: float) -> torch.Tensor:
+    """(B, N) bool exact NLJ match matrix ``pairwise_sq_dists < θ²``."""
+    return pairwise_sq_dists(x, y) < sq_theta(theta)
 
 
 def rowwise_sq_dists(x: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,12 @@
 """Vector-join launcher (port of ``repro.launch.join``, the single-device
-subset: every quant mode, methods ``nlj``/``es_mi``/``es_mi_adapt``).
+one-shot subset: every method and every quant mode; no streaming, no
+shards, no sweep).
 
-Runs ``nlj``, ``es_mi`` or ``es_mi_adapt`` on a synthetic Table-1-regime
-dataset through a ``JoinEngine`` on the CUDA card and checks the result
-against the exact NLJ:
+Runs one of the paper's methods (the exact ``nlj``; the search path
+``index``, ``es``, ``es_hws``, ``es_sws``; the merged-index ``es_mi``,
+``es_mi_adapt``) on a synthetic Table-1-regime dataset through a
+``JoinEngine`` on the CUDA card and checks the result against the exact
+NLJ:
 
   PYTHONPATH=src python -m repro_torch.launch.join --method es_mi_adapt \\
       --regime ood --n-data 20000 --n-query 500 --theta-q 2 --quant pdx8
@@ -22,15 +25,14 @@ import numpy as np
 from repro_torch.configs.vectorjoin import (ENGINE_PRESETS, make_engine,
                                            preset)
 from repro_torch.core import exact_join_pairs
-from repro_torch.core.types import QUANT_MODES, pair_keys, resolve_device
+from repro_torch.core.types import (METHODS, QUANT_MODES, pair_keys,
+                                    resolve_device)
 from repro_torch.data.vectors import make_dataset, thresholds
-
-LAUNCH_METHODS = ("nlj", "es_mi", "es_mi_adapt")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--method", choices=LAUNCH_METHODS, default="es_mi_adapt")
+    ap.add_argument("--method", choices=METHODS, default="es_mi_adapt")
     ap.add_argument("--regime", default="manifold",
                     choices=("manifold", "weak", "clustered", "ood"))
     ap.add_argument("--n-data", type=int, default=20_000)

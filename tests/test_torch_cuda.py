@@ -16,10 +16,12 @@ the Hamming kernels exactly; the PDX kernels with early exit off within
 ``|Δ| ≤ 1e-6·value + 1e-6·(xn+yn)`` (pairwise; the plain version repeats
 its operation order) and ``rtol = 1e-6``, ``atol = 1e-6·max d`` (gather),
 survivors bit-identical with early exit on and off, the pairwise slab
-counts equal to the plain version's), and the joins on the card against
-the same joins on the CPU over one index (and, under the sketch and PDX
-modes, over the CPU engine's stores), in f32, under sq8, sketch8, pdx8
-and sketchpdx8.
+counts equal to the plain version's), the NLJ count exactly (against the
+plain version at a θ clear of boundary pairs, and against the pairwise
+kernel's distances at any θ), and the joins on the card against the same
+joins on the CPU over the same indexes (and, under the sketch and PDX
+modes, over the CPU engine's stores): the merged-index join in f32, under
+sq8, sketch8, pdx8 and sketchpdx8, and the search path's caching methods.
 """
 import dataclasses
 import zlib
@@ -439,3 +441,72 @@ def _store_to(store, dev):
         f.name: getattr(store, f.name).to(dev)
         for f in dataclasses.fields(store)
         if isinstance(getattr(store, f.name), torch.Tensor)})
+
+
+def _mid_gap_theta(x: np.ndarray, y: np.ndarray, q: float = 0.3) -> float:
+    """θ near the q-quantile of the distances, at the middle of the widest
+    float64 gap nearby: no pair within rounding of θ²."""
+    d2 = np.sort(((x.astype(np.float64)[:, None] - y.astype(np.float64)[None])
+                  ** 2).sum(-1), axis=None)
+    if d2.size < 2:
+        return 1.0
+    i = min(max(int(q * d2.size), 1), d2.size - 1)
+    lo, hi = max(i - 8, 1), min(i + 8, d2.size - 1)
+    j = lo + int(np.argmax(d2[lo:hi + 1] - d2[lo - 1:hi]))
+    return float(np.sqrt(0.5 * (d2[j - 1] + d2[j])))
+
+
+@pytest.mark.parametrize("B,N,d", PAIRWISE_SHAPES + [(129, 257, 3),
+                                                     (200, 1000, 130)])
+def test_nlj_count_kernel_matches_plain(dev, B, N, d):
+    """Counts exact against the plain version (θ mid-gap) and against the
+    pairwise kernel's own distances compared with θ² (any θ: the two
+    kernels share the tile and the epilogue)."""
+    rng = _rng("nlj", B, N, d)
+    x = torch.from_numpy(rng.normal(size=(B, d)).astype(np.float32))
+    y = torch.from_numpy(rng.normal(size=(N, d)).astype(np.float32))
+    theta = _mid_gap_theta(x.numpy(), y.numpy())
+    xd, yd = x.to(dev), y.to(dev)
+    for th in (theta, 0.0):
+        n0 = ops.launch_counts()["nlj_count"]
+        got = ops.nlj_count(xd, yd, theta=th)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["nlj_count"] == n0 + (B * N * d > 0)
+        assert got.dtype == torch.int32 and got.shape == (B,)
+        assert torch.equal(got.cpu(), ref.nlj_count(x, y, th) if d else
+                           ops.nlj_count(x, y, theta=th))
+    th2 = float(np.float32(1.1 * theta) ** 2)
+    via_pairwise = (ops.pairwise_sq_dists(xd, yd) < th2).sum(
+        1, dtype=torch.int32)
+    assert torch.equal(ops.nlj_count(xd, yd, theta=1.1 * theta),
+                       via_pairwise)
+    assert torch.equal(ops.nlj_mask(xd, yd, theta=theta).cpu(),
+                       ref.nlj_mask(x, y, theta))
+
+
+@pytest.mark.parametrize("method", ["es_sws", "es_hws"])
+def test_search_join_on_the_card_matches_the_cpu(dev, method):
+    """The search path on the card over the CPU engine's G_Y and G_X: the
+    same pairs and counters, through the greedy search's kernels."""
+    ds = make_dataset("manifold", n_data=1500, n_query=96, dim=32, seed=3)
+    d2 = np.sort(((ds.X.astype(np.float64)[:, None]
+                   - ds.Y.astype(np.float64)[None]) ** 2).sum(-1), axis=None)
+    theta = float(thresholds(ds, 3)[1])
+    i = np.searchsorted(d2, theta ** 2)
+    theta = float(np.sqrt(0.5 * (d2[i - 1] + d2[i])))   # mid-gap: no ties
+    cpu = torch.device("cpu")
+    iy = build_index(ds.Y, k=24, degree=12, device=cpu)
+    ix = build_index(ds.X, k=24, degree=12, device=cpu)
+    cfg = JoinConfig(method=method, theta=theta, wave_size=32)
+    want = JoinEngine(ds.Y, default=cfg, device=cpu).join(
+        ds.X, index_y=iy, index_x=ix)
+    ops.reset_launch_counts()
+    got = JoinEngine(ds.Y, default=cfg, device=dev).join(
+        ds.X, index_y=_to(iy, dev), index_x=_to(ix, dev))
+    counts = ops.launch_counts()
+    assert counts["gather_sq_dists"] > 0 and counts["rowwise_sq_dists"] > 0
+    np.testing.assert_array_equal(pair_keys(got.pairs, 1500),
+                                  pair_keys(want.pairs, 1500))
+    for f in ("n_dist", "n_iters", "cache_hits", "cache_misses",
+              "peak_cache_entries"):
+        assert getattr(got.stats, f) == getattr(want.stats, f), f

@@ -48,7 +48,8 @@ def test_every_module_imports_without_jax_or_repro():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
     assert "repro_torch.kernels.ops" in MODULES and len(MODULES) >= 20
     assert {"repro_torch.quant.sketch", "repro_torch.quant.pdx",
-            "repro_torch.quant.cascade"} <= set(MODULES)
+            "repro_torch.quant.cascade",
+            "repro_torch.core.ordering"} <= set(MODULES)
 
 
 @pytest.fixture

@@ -159,12 +159,14 @@ def test_merged_index_cached_and_sweep(ds_manifold, theta_mid):
     assert np.setdiff1d(found, pair_keys(truth, n)).size == 0   # sound
 
 
-@pytest.mark.parametrize("bad", [dict(method="index"), dict(method="es_hws")])
+@pytest.mark.parametrize("bad", [dict(method="es_sws"),
+                                 dict(method="es_mi_adapt")])
 def test_unported_paths_raise(ds_manifold, bad):
+    """Streaming (``submit``) and sharding are not ported yet."""
     eng = JoinEngine(ds_manifold.Y[:50], device=CPU)
     cfg = dataclasses.replace(JoinConfig(), **bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.join(ds_manifold.X[:4], cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A slice 6"):
+        eng.submit(ds_manifold.X[:4], cfg)
     with pytest.raises(NotImplementedError, match="slice 13"):
         JoinEngine(ds_manifold.Y[:50], device=CPU, n_shards=2)
 

@@ -139,3 +139,61 @@ def test_dispatch_never_falls_back():
     before = ops.launch_counts()
     ops.gather_sq_dists(x, x, torch.zeros(2, 1, dtype=torch.int32))
     assert ops.launch_counts() == before      # plain version: no launch
+
+
+def _clear_nlj_theta(x, y, q: float = 0.3) -> float:
+    """θ near the q-quantile of the pairs' distances, moved to the middle
+    of the widest gap between neighbouring float64 squared distances
+    nearby, so no pair lies within rounding of θ²."""
+    d2 = np.sort(((x.astype(np.float64)[:, None] - y.astype(np.float64)[None])
+                  ** 2).sum(-1), axis=None)
+    if d2.size < 2:
+        return 1.0
+    i = min(max(int(q * d2.size), 1), d2.size - 1)
+    lo, hi = max(i - 8, 1), min(i + 8, d2.size - 1)
+    j = lo + int(np.argmax(d2[lo:hi + 1] - d2[lo - 1:hi]))
+    return float(np.sqrt(0.5 * (d2[j - 1] + d2[j])))
+
+
+@pytest.mark.parametrize("impl", JAX_IMPLS)
+@pytest.mark.parametrize("B,N,d", PAIRWISE_SHAPES)
+def test_nlj_count_and_mask_match_jax(B, N, d, impl):
+    """Integer counts: exact, θ cleared of boundary pairs; θ = 0 counts
+    nothing; the reference's empty-shape contract (d = 0: every distance
+    is 0, so N pairs when θ > 0)."""
+    rng = _rng("nlj", B, N, d)
+    x = rng.normal(size=(B, d)).astype(np.float32)
+    y = rng.normal(size=(N, d)).astype(np.float32)
+    theta = _clear_nlj_theta(x, y)
+    for th in (theta, 0.0):
+        got = ops.nlj_count(torch.from_numpy(x), torch.from_numpy(y),
+                            theta=th)
+        want = jops.nlj_count(jnp.asarray(x), jnp.asarray(y), theta=th,
+                              impl=impl)
+        assert got.dtype == torch.int32 and got.shape == (B,)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    mask = ops.nlj_mask(torch.from_numpy(x), torch.from_numpy(y), theta=theta)
+    jmask = jops.nlj_mask(jnp.asarray(x), jnp.asarray(y), theta=theta,
+                          impl=impl)
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
+    if d > 0:
+        np.testing.assert_array_equal(mask.sum(1).numpy(),
+                                      ops.nlj_count(torch.from_numpy(x),
+                                                    torch.from_numpy(y),
+                                                    theta=theta).numpy())
+
+
+def test_nlj_count_plain_version_blocks_queries():
+    """The plain version counts in query blocks; any block size gives the
+    one-block counts, and it launches no kernel."""
+    rng = _rng("nlj-blocks")
+    x = torch.from_numpy(rng.normal(size=(37, 16)).astype(np.float32))
+    y = torch.from_numpy(rng.normal(size=(50, 16)).astype(np.float32))
+    before = ops.launch_counts()
+    whole = ref.nlj_count(x, y, 5.0)
+    for elems in (1, 50, 333, 10**6):
+        assert torch.equal(ref.nlj_count(x, y, 5.0, block_elems=elems), whole)
+    assert torch.equal(whole, ops.nlj_count(x, y, theta=5.0))
+    assert torch.equal(whole, (ref.pairwise_sq_dists(x, y) < 25.0).sum(
+        1, dtype=torch.int32))
+    assert ops.launch_counts() == before
