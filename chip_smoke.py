@@ -13,10 +13,12 @@ Phases (each raises on failure, so the script exits non-zero):
      (4096,128)x(65536,128) and at d = 64, the int8 gather at the
      traversal's shape with half the ids NO_NODE, the top-k merge with
      forced ties, the pair-list entry's bit equality with the pairwise
-     kernel, the int8 pairwise error against float64 below the
-     cascade's MATMUL_GUARD, and the fused NLJ count (equal to the
-     pairwise kernel's counts; to its plain version but for pairs within
-     tolerance of θ²) up to the NLJ block (512,128)x(1M,128);
+     kernel, the int8 pairwise kernel's bit equality with its exact plain
+     version and its error against float64 below the cascade's
+     MATMUL_GUARD, the fused int8 bounds kernel's bit equality with the
+     torch composition over the int8 d̂, and the fused NLJ count (equal to
+     the pairwise kernel's counts; to its plain version but for pairs
+     within tolerance of θ²) up to the NLJ block (512,128)x(1M,128);
   3. drive the main path — ``make_engine("default").join`` with the default
      ``JoinConfig()`` (es_mi_adapt, quant off, overlap on) — on sift-like
      data (d = 128) at |Y| = 1,000,000, |X| = 10,000; check that every
@@ -33,17 +35,20 @@ Phases (each raises on failure, so the script exits non-zero):
   4. the sq8 main path on the same data: ``make_engine(Y,
      EngineSpec(quant="sq8", quant_build="sq8")).join`` — the cascade-driven
      build (its kNN lists must equal the f32 build's but for ties at the
-     k-th distance), the join on certified int8 bounds with the exact
-     re-rank of the ambiguous band (sound, the same pairs with overlap on
-     and off, recall against the f32 NLJ), and ``method="nlj"`` under sq8
+     k-th distance; its mean ms per bound block is logged), the join on
+     certified int8 bounds with the exact re-rank of the ambiguous band
+     (sound, the same pairs with overlap on and off, recall against the
+     f32 NLJ), and ``method="nlj"`` under sq8
      (the f32 NLJ's pairs but for counted pairs within 16 f32 ulps of θ);
   5. the OOD path: laion-like data (d = 64), |Y| = 200,000, |X| = 2,000,
      where the hybrid BBFS must run (n_ood > 0), with the same checks, in
      f32 and under sq8;
   6. time each kernel at the main paths' shapes (phase 2's tolerances
-     again), and run the OOD path's overlap-off join of its first 500
-     queries under torch.profiler to show how busy the device is. These
-     come last because an attached profiler slows every later launch.
+     again; torch.mm with TF32 off logged beside the f32 pairwise kernel
+     as the CUDA cores' ceiling), and run the OOD path's overlap-off join
+     of its first 500 queries under torch.profiler to show how busy the
+     device is. These come last because an attached profiler slows every
+     later launch.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; a path that did not launch one of its kernels fails.
@@ -92,9 +97,9 @@ REPS = 25
 # kernels each path must launch
 F32_KERNELS = ("pairwise_sq_dists", "rowwise_sq_dists", "gather_sq_dists",
                "topk_merge")
-SQ8_KERNELS = ("pairwise_sq_dists_int8", "rowwise_sq_dists_int8",
+SQ8_KERNELS = ("pairwise_bounds_int8", "rowwise_sq_dists_int8",
                "topk_merge", "gather_sq_dists", "pairlist_sq_dists")
-SQ8_NLJ_KERNELS = ("pairwise_sq_dists_int8", "gather_sq_dists")
+SQ8_NLJ_KERNELS = ("pairwise_bounds_int8", "gather_sq_dists")
 # the sketch and PDX modes: the merged-index join's kernels, the NLJ's
 SKETCH8_KERNELS = ("rowwise_hamming", "rowwise_sq_dists_int8",
                    "gather_sq_dists")
@@ -256,28 +261,31 @@ def check_kernels(torch, ops, ref) -> None:
 
 
 def check_int8_pairwise(torch, ops, ref, st, qx, xn) -> float:
-    """int8 pairwise kernel against its plain version (|Δ| ≤ 1e-5·(xn+yn)
-    + 1e-6: the plain version dequantizes first and rounds differently)
-    and against float64 ‖x̂−ŷ‖², whose error the certified bounds cover
-    with MATMUL_GUARD·(xn+yn)."""
+    """int8 pairwise kernel bit for bit against its own arithmetic
+    (``ref.pairwise_sq_dists_int8_exact``: exact per-group dots, the
+    kernel's f32 steps), and against float64 ‖x̂−ŷ‖², whose error the
+    certified bounds cover with MATMUL_GUARD·(xn+yn)."""
     from repro_torch.quant.cascade import MATMUL_GUARD
     from repro_torch.quant.store import dequantize
     got = ops.pairwise_sq_dists_int8(qx, st.q, st.scales,
                                      group_size=st.group_size, xn=xn,
                                      yn=st.norms)
-    want = ref.pairwise_sq_dists_int8(qx, st.q, st.scales,
-                                      group_size=st.group_size)
+    want = ref.pairwise_sq_dists_int8_exact(qx, st.q, st.scales, xn,
+                                            st.norms,
+                                            group_size=st.group_size)
     torch.cuda.synchronize()
     what = f"int8 pairwise {tuple(qx.shape)}x{tuple(st.q.shape)}"
     if got.shape != want.shape:
         raise AssertionError(f"{what}: shape {got.shape} != {want.shape}")
     if want.numel() == 0:
         return 0.0
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what}: {int((got != want).sum())} values "
+                             f"differ from the exact plain version (max "
+                             f"{err})")
+    del want
     nsum = xn[:, None] + st.norms[None, :]
-    err = (got - want).abs()
-    if not bool((err <= 1e-5 * nsum + 1e-6).all()):
-        raise AssertionError(f"{what}: max err {float(err.max())} beyond "
-                             f"tolerance")
     x64 = dequantize(qx, st.scales, st.group_size).double()
     y64 = dequantize(st.q, st.scales, st.group_size).double()
     d64 = ((x64 * x64).sum(1)[:, None] + (y64 * y64).sum(1)[None, :]
@@ -286,7 +294,31 @@ def check_int8_pairwise(torch, ops, ref, st, qx, xn) -> float:
     if not bool((e64 < MATMUL_GUARD * nsum.double()).all()):
         raise AssertionError(f"{what}: error against float64 "
                              f"{float(e64.max())} reaches MATMUL_GUARD")
-    return float(err.max())
+    return err
+
+
+def check_int8_bounds(torch, ops, ref, st, qx, xn, xe) -> float:
+    """The fused bounds kernel (#6') bit for bit against the torch
+    composition (``ref.int8_bounds``) over the int8 pairwise kernel's d̂.
+    Returns max |Δ| (0)."""
+    from repro_torch.quant.cascade import MATMUL_GUARD
+    kw = dict(group_size=st.group_size, xn=xn, yn=st.norms)
+    lb, ub = ops.pairwise_bounds_int8(qx, st.q, st.scales, xe=xe, ye=st.err,
+                                      guard=MATMUL_GUARD, **kw)
+    wlb, wub = ref.int8_bounds(ops.pairwise_sq_dists_int8(
+        qx, st.q, st.scales, **kw), xn, st.norms, xe, st.err, MATMUL_GUARD)
+    torch.cuda.synchronize()
+    what = f"int8 bounds {tuple(qx.shape)}x{tuple(st.q.shape)}"
+    if lb.shape != wlb.shape or ub.shape != wub.shape:
+        raise AssertionError(f"{what}: shapes {lb.shape}/{ub.shape}")
+    if lb.numel() == 0:
+        return 0.0
+    err = max(float((lb - wlb).abs().max()), float((ub - wub).abs().max()))
+    if not (torch.equal(lb, wlb) and torch.equal(ub, wub)):
+        raise AssertionError(f"{what}: {int((lb != wlb).sum())} lb and "
+                             f"{int((ub != wub).sum())} ub values differ "
+                             f"from the composition (max {err})")
+    return err
 
 
 def check_int8_rows(torch, got, want, what: str) -> float:
@@ -368,8 +400,9 @@ def check_kernels_sq8(torch, ops, ref) -> None:
                     (129, 257, 33), (200, 1000, 130), (77, 300, 200),
                     (4096, 65536, 128), (4096, 65536, 64)]:
         st = build_store(rn(N, d) if N else rn(1, d)[:0])
-        qx, xn, _ = quantize_queries(rn(B, d), st)
+        qx, xn, xe = quantize_queries(rn(B, d), st)
         check_int8_pairwise(torch, ops, ref, st, qx, xn)
+        check_int8_bounds(torch, ops, ref, st, qx, xn, xe)
     # int8 rowwise (B, K, d) form and gather form
     for B, K, d in [(0, 4, 8), (3, 0, 8), (1, 1, 1), (3, 5, 7),
                     (7, 9, 130), (33, 65, 64), (16, 40, 200)]:
@@ -407,8 +440,9 @@ def check_kernels_sq8(torch, ops, ref) -> None:
     for B, N, d in [(129, 257, 33), (300, 1000, 64), (4096, 65536, 128)]:
         check_pairlist(torch, ops, rn(B, d), rn(N, d), 1 << 20, inp.gen)
     log("[kernels] int8 / top-k merge / pair-list: plain versions agree, "
-        "pair list bit-equal to the pairwise kernel, int8 pairwise error "
-        "below MATMUL_GUARD")
+        "int8 pairwise bit-equal to its exact plain version and the int8 "
+        "bounds kernel to the torch composition, pair list bit-equal to the "
+        "pairwise kernel, int8 pairwise error below MATMUL_GUARD")
 
 
 # ---------------------------------------------------------------------------
@@ -477,7 +511,7 @@ def check_pdx_pairwise(torch, ops, ref, st, qc, theta: float,
     1e-6·(xn+yn)); on and off: survivors bit-identical, retired lanes
     +inf; every retired lane's plain full-scan certified lower bound
     exceeds θ². Returns the max |kernel − plain| (exit off)."""
-    from repro_torch.quant.cascade import matmul_guard
+    from repro_torch.quant.cascade import MATMUL_GUARD
     args = (qc.q, st.q, st.scales, qc.qslab, st.qslab, qc.qtail, st.qtail,
             qc.norms, st.norms, qc.err, st.err, theta)
     kw = dict(slab=st.slab, dim=st.dim)
@@ -515,13 +549,12 @@ def check_pdx_pairwise(torch, ops, ref, st, qc, theta: float,
             raise AssertionError(f"{what}: max err {float(e.max())} beyond "
                                  f"tolerance")
         err = max(err, float(e.max()))
-        slack = qc.err[:, None] + st.err[None, sl]
-        guard = matmul_guard(qc.norms, st.norms[sl])
-        lb = ops.quant_lower_bound(torch.clamp_min(want - guard, 0.0), slack)
+        lb, _ = ref.int8_bounds(want, qc.norms, st.norms[sl], qc.err,
+                                st.err[sl], MATMUL_GUARD)
         if not bool((lb[~surv[:, sl]] > th2).all()):
             raise AssertionError(f"{what}: a retired lane's certified lower "
                                  f"bound is within θ²")
-        del want, wn, e, lb, slack, guard, energy
+        del want, wn, e, lb, energy
     log(f"[kernels] {what}: retired {float((~surv).float().mean()):.4f}, "
         f"slab counts equal to the plain version's on {n_same} of {B * N} "
         f"lanes")
@@ -710,6 +743,16 @@ def time_kernels(torch, ops, ref) -> dict:
         lambda _: ref.pairwise_sq_dists(x, y),
         lambda _: torch.cdist(x, y),
         (B * d + N * d + B * N) * 4, 2.0 * B * N * d)
+    # the CUDA cores' f32 ceiling as cuBLAS reaches it: the bare product,
+    # TF32 off (logged beside the kernel, used nowhere in the port)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the f32 timings would not be f32")
+    mm_ms = timed(torch, lambda _: torch.mm(x, y.T))[0]
+    out["pairwise_sq_dists"]["mm_ms"] = mm_ms
+    log(f"[kernels] pairwise_sq_dists: torch.mm (TF32 off) of the same "
+        f"operands {mm_ms:.4f} ms, {2.0 * B * N * d / mm_ms / 1e9:.1f} "
+        f"TFLOP/s; the kernel "
+        f"{2.0 * B * N * d / out['pairwise_sq_dists']['ms'] / 1e9:.1f}")
     del x, y
 
     # rowwise at the mean_nbr_dist block shape (65536 rows x R = 32); the
@@ -781,7 +824,7 @@ def time_kernels(torch, ops, ref) -> dict:
     # torch._int_mm per group plus the same epilogue
     B, N, d = 4096, 65536, 128
     st = build_store(rn(N, d))
-    qx, xn, _ = quantize_queries(rn(B, d), st)
+    qx, xn, xe = quantize_queries(rn(B, d), st)
     s2 = float(st.scales[0]) ** 2
     yt = st.q.t()
 
@@ -807,7 +850,28 @@ def time_kernels(torch, ops, ref) -> dict:
         B * d + N * d + (B + N) * 4 + 4 + B * N * 4, 2.0 * B * N * d,
         PEAK_INT8_OPS)
     out["pairwise_sq_dists_int8"] = e8
-    del st, qx, xn, yt
+
+    # the fused bounds entry (#6') at the same block: d̂ and both bounds in
+    # one pass, two f32 outputs. Plain: the composition over the plain
+    # (dequantizing) d̂; library: torch._int_mm, the epilogue and the same
+    # composition
+    from repro_torch.quant.cascade import MATMUL_GUARD
+    ye = st.err
+    kw = dict(xn=xn, yn=st.norms, xe=xe, ye=ye, guard=MATMUL_GUARD)
+    nb = B * d + N * d + 2 * (B + N) * 4 + 4 + 2 * B * N * 4
+    e8b = entry(
+        f"({B},{d})x({N},{d}) int8 -> (lb, ub)",
+        check_int8_bounds(torch, ops, ref, st, qx, xn, xe),
+        lambda _: ops.pairwise_bounds_int8(qx, st.q, st.scales, **kw),
+        lambda _: ref.int8_bounds(ref.pairwise_sq_dists_int8(
+            qx, st.q, st.scales), xn, st.norms, xe, ye, MATMUL_GUARD),
+        None if lib is None else (lambda _: ref.int8_bounds(
+            int_mm(0), xn, st.norms, xe, ye, MATMUL_GUARD)),
+        nb, 2.0 * B * N * d)
+    e8b["bound_ms"], e8b["bound_by"] = bound_ms(nb, 2.0 * B * N * d,
+                                                PEAK_INT8_OPS)
+    out["pairwise_bounds_int8"] = e8b
+    del st, qx, xn, yt, xe, ye
 
     # int8 gather (the rowwise kernel's gather entry) at the traversal's
     # expand shape over the merged table, half NO_NODE, cold ids
@@ -1062,6 +1126,15 @@ def run_join(torch, ops, name: str, n_data: int, n_query: int,
         f"syncs_per_wave={st.n_iters / max(n_waves, 1):.1f} "
         f"ms_per_iter={ms_iter:.3f} peak_mem_GB={peak / 2**30:.2f} "
         f"build_counts={eng.build_counts} launches={launches}")
+    if getattr(spec, "quant_build", "off") != "off":
+        # the cascade build's kNN sweep, as the build counted and timed it
+        b = bstats
+        if b.knn_blocks <= 0:
+            raise AssertionError(f"[{tag}] the cascade build reports no "
+                                 f"bound block")
+        log(f"[{tag}] cascade kNN sweep: {b.knn_blocks} bound blocks in "
+            f"{b.knn_sweep_s:.2f} device s, "
+            f"{b.knn_sweep_s / b.knn_blocks * 1e3:.2f} ms per bound block")
     if cfg.quant != "off":
         b = bstats
         log(f"[{tag}] build stats: knn_exact/row="
@@ -1589,7 +1662,7 @@ def main() -> int:
     log(f"[sift-like] recall f32 {main_run['recall']:.6f} sq8 "
         f"{sq8_run['recall']:.6f}; ms_per_iter f32 "
         f"{main_run['ms_iter']:.3f} sq8 {sq8_run['ms_iter']:.3f}")
-    check_nlj(torch, ops, sq8_run, SQ8_NLJ_KERNELS)
+    sq8_nlj = check_nlj(torch, ops, sq8_run, SQ8_NLJ_KERNELS)
     del main_run["knn"], sq8_run["knn"]
     # phase 4b: sketch8 (= serving_sketch8: its quant_build is sq8 too)
     # and pdx8 on the sq8 engine's merged index
@@ -1631,6 +1704,7 @@ def main() -> int:
         "gather_sq_dists": "src/repro/kernels/gather_distance.py:47",
         "topk_merge": "src/repro/kernels/topk_merge.py:70",
         "pairwise_sq_dists_int8": "src/repro/kernels/int8.py:64",
+        "pairwise_bounds_int8": "src/repro/kernels/int8.py:64",
         "rowwise_sq_dists_int8": "src/repro/kernels/int8.py:119",
         "pairwise_hamming": "src/repro/kernels/bits.py:56",
         "rowwise_hamming": "src/repro/kernels/bits.py:93",
@@ -1644,6 +1718,8 @@ def main() -> int:
     source.update(topk_merge="src/repro_torch/kernels/csrc/topk_merge.cu",
                   pairwise_sq_dists_int8="src/repro_torch/kernels/csrc/"
                                          "int8.cu",
+                  pairwise_bounds_int8="src/repro_torch/kernels/csrc/"
+                                       "int8.cu",
                   rowwise_sq_dists_int8="src/repro_torch/kernels/csrc/"
                                         "int8.cu")
     source.update({k: "src/repro_torch/kernels/csrc/bits.cu"
@@ -1651,7 +1727,8 @@ def main() -> int:
     source.update({k: "src/repro_torch/kernels/csrc/pdx.cu"
                    for k in ("pairwise_sq_dists_pdx", "pdx_gather_sq_dists")})
     source["nlj_count"] = "src/repro_torch/kernels/csrc/nlj.cu"
-    paths = {"f32": main_run["launches"], "sq8": sq8_run["launches"]}
+    paths = {"f32": main_run["launches"], "sq8": sq8_run["launches"],
+             "sq8/nlj": sq8_nlj["launches"]}
     paths.update({m: r["launches"] for m, r in search.items()})
     paths["nlj_check"] = nlj_check
     # the sketch/PDX paths: their merged-index join plus their NLJ

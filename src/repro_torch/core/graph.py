@@ -52,7 +52,12 @@ class BuildStats:
     f32 distance evaluations, ``f32_bytes_full`` what the plain f32 build
     would have moved for the same steps, ``tier_bytes`` the int8 traffic
     that replaced it; ``knn_pairs``/``knn_exact`` and ``prune_pairs``/
-    ``prune_exact`` count pairs bounded vs pairs needing exact f32."""
+    ``prune_exact`` count pairs bounded vs pairs needing exact f32.
+    Beyond the reference's: ``knn_blocks`` counts the kNN sweep's bound
+    blocks (one (query block, data block) bounds call each, redone
+    sweeps included) and ``knn_sweep_s`` their device seconds, taken
+    with CUDA events around each query block's sweep (0 off the card).
+    """
     knn_pairs: int = 0
     knn_exact: int = 0
     prune_pairs: int = 0
@@ -60,6 +65,8 @@ class BuildStats:
     f32_bytes: int = 0
     f32_bytes_full: int = 0
     tier_bytes: int = 0
+    knn_blocks: int = 0
+    knn_sweep_s: float = 0.0
 
     @property
     def f32_saved_frac(self) -> float:
@@ -187,6 +194,9 @@ def _cascade_knn(vecs: torch.Tensor, vn: torch.Tensor, tier, k: int, *,
     max_yn = float(st.norms.max()) if n else 0.0
     cap = ops.StickyCap(max(init_cap, k), max(n, 1))
     n_exact = torch.zeros((), dtype=torch.int64, device=dev)
+    n_sweeps = 0
+    events = []          # (start, end) CUDA events around each sweep
+    timed = stats is not None and dev.type == "cuda"
     for q0 in range(0, n, qblock):
         q1 = min(q0 + qblock, n)
         qc = tier.rows_as_queries(q0, q1)
@@ -194,8 +204,15 @@ def _cascade_knn(vecs: torch.Tensor, vn: torch.Tensor, tier, k: int, *,
         # track the true norms only up to the quantization error)
         margin = 4 * MATMUL_GUARD * (qc.norms + max_yn)
         while True:
+            if timed:
+                events.append(tuple(torch.cuda.Event(enable_timing=True)
+                                    for _ in range(2)))
+                events[-1][0].record()
             tau, sv_id, sv_lb, peak = _cascade_knn_sweep(
                 tier, qc, q0, q1, k, dblock, cap.cap, margin, impl)
+            if timed:
+                events[-1][1].record()
+            n_sweeps += 1
             need = int(peak)
             if need <= cap.cap:
                 break
@@ -221,6 +238,11 @@ def _cascade_knn(vecs: torch.Tensor, vn: torch.Tensor, tier, k: int, *,
         stats.tier_bytes += n_pairs * d
         stats.f32_bytes += ne * d * 4
         stats.f32_bytes_full += n_pairs * d * 4
+        stats.knn_blocks += n_sweeps * -(-st.n_vectors // dblock)
+        if events:
+            events[-1][1].synchronize()
+            stats.knn_sweep_s += sum(a.elapsed_time(b)
+                                     for a, b in events) / 1e3
     return out_d, out_i
 
 

@@ -44,7 +44,8 @@ _SIGNATURES = {
     "repro_pairlist_sq_dists": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _LL,
                                 _LL, _P),
     "repro_pairwise_sq_dists_int8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                     _I, _P),
+                                     _P),
+    "repro_pairwise_bounds_int8": (_P,) * 9 + (_I, _I, _I, _I, _F, _P),
     "repro_rowwise_sq_dists_int8": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _LL,
                                     _I, _P),
     "repro_topk_merge": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),

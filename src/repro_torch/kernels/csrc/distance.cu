@@ -12,13 +12,17 @@
 //    per element (64 FLOP/byte, above the H100's f32 ridge of ~20), so it
 //    is bound by the f32 FMA rate. The join needs IEEE f32 (TF32 moves
 //    pairs on the θ boundary), so the tensor cores are not used. Design:
-//    a classic CUDA-core SGEMM tile (tile.cuh, shared with nlj.cu) —
-//    128x128 outputs per 256-thread block, an 8x8 register tile per
-//    thread built from float4 reads of k-major shared tiles
-//    (conflict-free), d walked in slices of 8, fmaf accumulation, the
-//    distance epilogue fused into the store. Ragged B,
-//    N and d edges are masked in the kernel (loads read 0, stores are
-//    skipped), so the wrapper never pads. Norms come from the caller.
+//    a CUDA-core SGEMM tile (tile.cuh, shared with nlj.cu) — 128x128
+//    outputs per 256-thread block, two blocks an SM, an 8x8 register tile
+//    per thread from float4 reads of k-major shared slices, the next slice
+//    loaded into registers while the current one is multiplied (double
+//    buffered, one barrier a slice), fmaf accumulation. The distance
+//    epilogue is fused into the store: each thread writes its row's two
+//    runs of 4 columns as 16-byte stores, so a half-warp writes 256
+//    contiguous bytes (scalar stores only where N % 4 != 0 or at the
+//    ragged edge). Ragged B, N and d edges are masked in the kernel (loads
+//    read 0, stores are skipped), so the wrapper never pads. Norms come
+//    from the caller.
 //
 // 2. repro_rowwise_sq_dists — replaces
 //    repro/kernels/distance.py::rowwise_sq_dists_pallas.
@@ -60,21 +64,22 @@ namespace {
 using repro_tile::dist_epilogue;
 using repro_tile::kBM;
 using repro_tile::kBN;
-using repro_tile::kBK;
 using repro_tile::kThreads;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 pairwise_kernel(const float* __restrict__ x, const float* __restrict__ y,
                 const float* __restrict__ xn, const float* __restrict__ yn,
-                float* __restrict__ out, int B, int N, int d, int vec4) {
-  __shared__ __align__(16) float As[kBK][kBM];
-  __shared__ __align__(16) float Bs[kBK][kBN];
+                float* __restrict__ out, int B, int N, int d, int vec4,
+                int vec_out) {
+  __shared__ __align__(16) repro_tile::Smem sm;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
   const long long row0 = (long long)blockIdx.y * kBM;
   const long long col0 = (long long)blockIdx.x * kBN;
   float acc[8][8];
-  repro_tile::tile_dots(x, y, B, N, d, vec4, row0, col0, As, Bs, acc);
+  repro_tile::tile_dots(x, y, B, N, d, vec4, row0, col0, sm, acc);
+  float ync[8];
+  repro_tile::tile_col_norms(yn, N, col0, tx, ync);
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -83,9 +88,19 @@ pairwise_kernel(const float* __restrict__ x, const float* __restrict__ y,
     const float xr = __ldg(xn + r);
     float* orow = out + r * (long long)N;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const long long c = col0 + repro_tile::tile_col(tx, j);
-      if (c < N) orow[c] = dist_epilogue(xr, __ldg(yn + c), acc[i][j]);
+    for (int h = 0; h < 2; ++h) {
+      const long long c = col0 + repro_tile::tile_col(tx, 4 * h);
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[j] = dist_epilogue(xr, ync[4 * h + j], acc[i][4 * h + j]);
+      if (vec_out && c + 3 < N) {
+        *reinterpret_cast<float4*>(orow + c) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c + j < N) orow[c + j] = v[j];
+      }
     }
   }
 }
@@ -195,8 +210,10 @@ extern "C" int repro_pairwise_sq_dists(const float* x, const float* y,
                                        float* out, int B, int N, int d,
                                        int vec4, void* stream) {
   const dim3 grid((N + kBN - 1) / kBN, (B + kBM - 1) / kBM);
+  // 16-byte stores need every output row 16-byte aligned
+  const int vec_out = N % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   pairwise_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, y, xn, yn, out, B, N, d, vec4);
+      x, y, xn, yn, out, B, N, d, vec4, vec_out);
   return static_cast<int>(cudaGetLastError());
 }
 

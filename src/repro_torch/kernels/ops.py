@@ -2,8 +2,9 @@
 
 Implementation selection (``impl``) follows the tensors' device:
   * ``cuda`` — the hand-written kernels of ``csrc/*.cu`` (f32 distances,
-    the fused NLJ count, int8 distances, the top-k merge, sketch Hamming
-    counts, PDX early-exit distances), for CUDA tensors;
+    the fused NLJ count, int8 distances and the int8 tier's certified
+    bounds, the top-k merge, sketch Hamming counts, PDX early-exit
+    distances), for CUDA tensors;
   * ``ref``  — the plain PyTorch versions in ``kernels/ref.py``, for CPU
     tensors (what the CPU tests run).
 An explicit ``impl`` must name the one its tensors' device takes.
@@ -28,7 +29,8 @@ LAUNCHES: dict[str, int] = {
     "pairwise_sq_dists": 0, "pairlist_sq_dists": 0, "rowwise_sq_dists": 0,
     "gather_sq_dists": 0, "topk_merge": 0, "pairwise_sq_dists_int8": 0,
     "rowwise_sq_dists_int8": 0, "pairwise_hamming": 0, "rowwise_hamming": 0,
-    "pairwise_sq_dists_pdx": 0, "pdx_gather_sq_dists": 0, "nlj_count": 0}
+    "pairwise_sq_dists_pdx": 0, "pdx_gather_sq_dists": 0, "nlj_count": 0,
+    "pairwise_bounds_int8": 0}
 _GRID_Y_MAX = 65535
 _MAX_BLOCKS = 2**31 - 1
 
@@ -394,34 +396,63 @@ def _check_scales(scales: torch.Tensor, d: int, group_size: int,
                          f"in groups of {group_size}")
 
 
-def pairwise_sq_dists_int8_cuda(qx, qy, scales, xn, yn, group_size: int
-                                ) -> torch.Tensor:
+def _int8_pair_checks(qx, qy, scales, xn, yn, group_size: int,
+                      *rows) -> tuple[int, int, int]:
+    """Checks shared by the int8 pairwise entries; ``rows`` are further
+    (name, tensor, length) f32 vectors. Returns (B, N, d)."""
     dev = qx.device
     _check("qx", qx, torch.int8, 2, dev)
     _check("qy", qy, torch.int8, 2, dev)
-    _check("xn", xn, torch.float32, 1, dev)
-    _check("yn", yn, torch.float32, 1, dev)
     B, d = qx.shape
     N = qy.shape[0]
-    if qy.shape[1] != d or xn.shape[0] != B or yn.shape[0] != N:
-        raise ValueError(f"shapes differ: qx {tuple(qx.shape)}, qy "
-                         f"{tuple(qy.shape)}, norms {tuple(xn.shape)}/"
-                         f"{tuple(yn.shape)}")
+    if qy.shape[1] != d:
+        raise ValueError(f"dims differ: qx {tuple(qx.shape)}, "
+                         f"qy {tuple(qy.shape)}")
+    for name, t, n in (("xn", xn, B), ("yn", yn, N)) + rows:
+        _check(name, t, torch.float32, 1, dev)
+        if t.shape[0] != n:
+            raise ValueError(f"{name} {tuple(t.shape)} does not match "
+                             f"{n} rows")
     _check_scales(scales, d, group_size, dev)
     if -(-B // 128) > _GRID_Y_MAX or max(B, N, d) >= 2**31:
         raise ValueError(f"shape too large for one launch: B={B} N={N} d={d}")
-    vec16 = int(d % 16 == 0 and group_size % 16 == 0
-                and _aligned(16, qx, qy))
+    return B, N, d
+
+
+def pairwise_sq_dists_int8_cuda(qx, qy, scales, xn, yn, group_size: int
+                                ) -> torch.Tensor:
+    dev = qx.device
+    B, N, d = _int8_pair_checks(qx, qy, scales, xn, yn, group_size)
     out = torch.empty((B, N), dtype=torch.float32, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         code = lib.repro_pairwise_sq_dists_int8(
             qx.data_ptr(), qy.data_ptr(), scales.data_ptr(), xn.data_ptr(),
-            yn.data_ptr(), out.data_ptr(), B, N, d, group_size, vec16,
-            _stream(dev))
+            yn.data_ptr(), out.data_ptr(), B, N, d, group_size, _stream(dev))
     LAUNCHES["pairwise_sq_dists_int8"] += 1
     _build.check(code, "pairwise_sq_dists_int8")
     return out
+
+
+def pairwise_bounds_int8_cuda(qx, qy, scales, xn, yn, xe, ye, guard: float,
+                              group_size: int
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    dev = qx.device
+    B, N, d = _int8_pair_checks(qx, qy, scales, xn, yn, group_size,
+                                ("xe", xe, qx.shape[0]),
+                                ("ye", ye, qy.shape[0]))
+    lb = torch.empty((B, N), dtype=torch.float32, device=dev)
+    ub = torch.empty((B, N), dtype=torch.float32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        code = lib.repro_pairwise_bounds_int8(
+            qx.data_ptr(), qy.data_ptr(), scales.data_ptr(), xn.data_ptr(),
+            yn.data_ptr(), xe.data_ptr(), ye.data_ptr(), lb.data_ptr(),
+            ub.data_ptr(), B, N, d, group_size, _ref.f32(guard),
+            _stream(dev))
+    LAUNCHES["pairwise_bounds_int8"] += 1
+    _build.check(code, "pairwise_bounds_int8")
+    return lb, ub
 
 
 def _dequant_norms(q: torch.Tensor, scales: torch.Tensor,
@@ -452,6 +483,31 @@ def pairwise_sq_dists_int8(qx: torch.Tensor, qy: torch.Tensor,
     if yn is None:
         yn = _dequant_norms(qy, scales, group_size)
     return pairwise_sq_dists_int8_cuda(qx, qy, scales, xn, yn, group_size)
+
+
+def pairwise_bounds_int8(qx: torch.Tensor, qy: torch.Tensor,
+                         scales: torch.Tensor, *, xn: torch.Tensor,
+                         yn: torch.Tensor, xe: torch.Tensor, ye: torch.Tensor,
+                         guard: float, group_size: int = 128,
+                         impl: str | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, d) × (N, d) int8 → the int8 tier's certified (lb, ub) (B, N) on
+    the true squared distance: the quantized-domain ``d̂`` of
+    ``pairwise_sq_dists_int8`` widened by the matmul guard
+    ``guard·(xn + yn)`` and the triangle-inequality slack ``xe + ye``
+    (``ref.int8_bounds``). ``xn``/``yn`` are the dequantized squared norms,
+    ``xe``/``ye`` the exact per-row L2 quantization errors. On the card one
+    kernel writes both, bit for bit the composition over the pairwise
+    kernel's ``d̂``; on the CPU the composition itself."""
+    impl = _impl(impl, qx)
+    B, d = qx.shape
+    N = qy.shape[0]
+    if impl == "ref" or B == 0 or N == 0 or d == 0:
+        dhat = pairwise_sq_dists_int8(qx, qy, scales, group_size=group_size,
+                                      xn=xn, yn=yn, impl=impl)
+        return _ref.int8_bounds(dhat, xn, yn, xe, ye, guard)
+    return pairwise_bounds_int8_cuda(qx, qy, scales, xn, yn, xe, ye, guard,
+                                     group_size)
 
 
 def _rowwise_int8_cuda(qx, cands, ids, scales, group_size: int, K: int
@@ -769,21 +825,8 @@ def pdx_gather_sq_dists(vp, vtail, vnorm, xp, xtail, xn, idx, th2: float, *,
 # quantization error → certified distance bounds
 # ---------------------------------------------------------------------------
 
-def quant_lower_bound(d_hat: torch.Tensor, slack: torch.Tensor
-                      ) -> torch.Tensor:
-    """Certified lower bound on the true squared distance from the
-    quantized-domain ``d_hat`` and the per-pair L2 slack
-    ``‖x−x̂‖ + ‖y−ŷ‖`` (triangle inequality); +inf ``d_hat`` stays +inf."""
-    lb = torch.clamp_min(torch.sqrt(torch.clamp_min(d_hat, 0.0)) - slack,
-                         0.0)
-    return torch.where(torch.isfinite(d_hat), lb * lb, d_hat)
-
-
-def quant_upper_bound(d_hat: torch.Tensor, slack: torch.Tensor
-                      ) -> torch.Tensor:
-    """Certified upper bound on the true squared distance (symmetric)."""
-    ub = torch.sqrt(torch.clamp_min(d_hat, 0.0)) + slack
-    return torch.where(torch.isfinite(d_hat), ub * ub, d_hat)
+quant_lower_bound = _ref.quant_lower_bound
+quant_upper_bound = _ref.quant_upper_bound
 
 
 def quant_band_from_lb(lb: torch.Tensor, slack: torch.Tensor, th2

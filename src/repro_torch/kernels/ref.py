@@ -132,6 +132,57 @@ def pairwise_sq_dists_int8(qx: torch.Tensor, qy: torch.Tensor,
                              _dequant(qy, scales, group_size))
 
 
+def pairwise_sq_dists_int8_exact(qx: torch.Tensor, qy: torch.Tensor,
+                                 scales: torch.Tensor, xn: torch.Tensor,
+                                 yn: torch.Tensor, *,
+                                 group_size: int = 128) -> torch.Tensor:
+    """The int8 pairwise kernel's own arithmetic, for bit-exact checks:
+    each group's integer dot through a float64 product of the codes (exact:
+    |dot| ≤ 128²·gs < 2⁵³), then the kernel's f32 steps in torch — ``sum +=
+    s_g²·dot_g`` group by group from 0, then ``max(xn + yn − 2·sum, 0)``
+    with the given (dequantized) squared norms."""
+    d = qx.shape[1]
+    x64, y64 = qx.double(), qy.double()
+    total = torch.zeros((qx.shape[0], qy.shape[0]), dtype=torch.float32,
+                        device=qx.device)
+    for g in range(-(-d // group_size)):
+        sl = slice(g * group_size, min((g + 1) * group_size, d))
+        dot = (x64[:, sl] @ y64[:, sl].T).float()
+        s = scales[g]
+        total = total + (s * s) * dot
+    return torch.clamp_min(xn[:, None] + yn[None, :] - 2.0 * total, 0.0)
+
+
+def quant_lower_bound(d_hat: torch.Tensor, slack: torch.Tensor
+                      ) -> torch.Tensor:
+    """Certified lower bound on the true squared distance from the
+    quantized-domain ``d_hat`` and the per-pair L2 slack
+    ``‖x−x̂‖ + ‖y−ŷ‖`` (triangle inequality); +inf ``d_hat`` stays +inf."""
+    lb = torch.clamp_min(torch.sqrt(torch.clamp_min(d_hat, 0.0)) - slack,
+                         0.0)
+    return torch.where(torch.isfinite(d_hat), lb * lb, d_hat)
+
+
+def quant_upper_bound(d_hat: torch.Tensor, slack: torch.Tensor
+                      ) -> torch.Tensor:
+    """Certified upper bound on the true squared distance (symmetric)."""
+    ub = torch.sqrt(torch.clamp_min(d_hat, 0.0)) + slack
+    return torch.where(torch.isfinite(d_hat), ub * ub, d_hat)
+
+
+def int8_bounds(dhat: torch.Tensor, xn: torch.Tensor, yn: torch.Tensor,
+                xe: torch.Tensor, ye: torch.Tensor, guard: float
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 tier's certified (lb, ub) from a (B, N) matmul-form d̂:
+    the f32 cancellation guard ``guard·(xn + yn)`` first, then the
+    triangle-inequality slack ``xe + ye`` (``Int8Tier.pairwise_bounds``;
+    the plain version of the fused bounds kernel)."""
+    g = guard * (xn[:, None] + yn[None, :])
+    slack = xe[:, None] + ye[None, :]
+    return (quant_lower_bound(torch.clamp_min(dhat - g, 0.0), slack),
+            quant_upper_bound(dhat + g, slack))
+
+
 def rowwise_sq_dists_int8(qx: torch.Tensor, qcands: torch.Tensor,
                           scales: torch.Tensor, *,
                           group_size: int = 128) -> torch.Tensor:
@@ -195,9 +246,8 @@ def gather_hamming(codes: torch.Tensor, cx: torch.Tensor,
 # PDX (dimension-partitioned) early-exit distances
 # ---------------------------------------------------------------------------
 
-def _f32(v: float) -> float:
+def f32(v: float) -> float:
     """A python constant rounded to f32, as the kernels receive it."""
-    import numpy as np
     return float(np.float32(v))
 
 
@@ -242,8 +292,8 @@ def pairwise_sq_dists_pdx(qx, qy, scales, xslab, yslab, xtail, ytail, xn,
     x64 = qx.double()
     y64 = qy.double()
     energy = xn[:, None] + yn[None, :]
-    th = ((_f32(theta) + xe[:, None] + ye[None, :]) ** 2
-          + _f32(MATMUL_GUARD) * energy)
+    th = ((f32(theta) + xe[:, None] + ye[None, :]) ** 2
+          + f32(MATMUL_GUARD) * energy)
     contribs, tails = [], []
     for k in range(nk):
         sl = slice(k * slab, (k + 1) * slab)
@@ -275,7 +325,7 @@ def pdx_gather_sq_dists(vp, vtail, vnorm, xp, xtail, xn, idx, th2: float,
     slab = vp.shape[1] // max(nk, 1)
     vcand, vt = vp[safe], vtail[safe]
     energy = xn[:, None] + vnorm[safe]
-    th = torch.full(energy.shape, _f32(th2), device=energy.device)
+    th = torch.full(energy.shape, f32(th2), device=energy.device)
     contribs, tails = [], []
     for k in range(nk):
         sl = slice(k * slab, (k + 1) * slab)
@@ -289,7 +339,9 @@ def pdx_gather_sq_dists(vp, vtail, vnorm, xp, xtail, xn, idx, th2: float,
 
 __all__ = ["sq_norms", "pairwise_sq_dists", "pairlist_sq_dists",
            "rowwise_sq_dists", "gather_sq_dists", "topk_merge",
-           "pairwise_sq_dists_int8", "rowwise_sq_dists_int8",
+           "pairwise_sq_dists_int8", "pairwise_sq_dists_int8_exact",
+           "quant_lower_bound", "quant_upper_bound", "int8_bounds",
+           "rowwise_sq_dists_int8",
            "gather_sq_dists_int8", "pairwise_hamming", "rowwise_hamming",
            "gather_hamming", "pairwise_sq_dists_pdx",
            "pdx_gather_sq_dists"]

@@ -32,7 +32,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.quant.pdx import PdxQueries, PdxStore, pdx_queries
 from repro_torch.quant.sketch import (SketchStore, sketch_lower_bound_gather,
                                       sketch_lower_bound_pairwise,
@@ -44,12 +44,6 @@ from repro_torch.quant.store import QuantStore, quantize_queries
 # filter and the cascade-driven build both guard by it (the reference's
 # constant).
 MATMUL_GUARD = 8 * 1.2e-7
-
-
-def matmul_guard(xn: torch.Tensor, yn: torch.Tensor) -> torch.Tensor:
-    """(B,) × (N,) norms → (B, N) absolute-error guard for matmul-form
-    f32 distances between those rows."""
-    return MATMUL_GUARD * (xn[:, None] + yn[None, :])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,18 +117,16 @@ class Int8Tier:
                         y0: int = 0, y1: int | None = None):
         """(B, N) certified (lb, ub) against store rows [y0, y1) (all by
         default): the matmul-form epilogue's f32 cancellation is covered
-        by ``matmul_guard`` before the triangle-inequality slack."""
+        by ``MATMUL_GUARD``·(xn + yn) before the triangle-inequality
+        slack. On the card one kernel computes d̂ and both bounds
+        (``ops.pairwise_bounds_int8``), bit for bit the composition the
+        CPU runs (``kernels.ref.int8_bounds`` over d̂)."""
         st = self.store
         y1 = st.n_vectors if y1 is None else y1
-        yn = st.norms[y0:y1]
-        dhat = ops.pairwise_sq_dists_int8(
+        return ops.pairwise_bounds_int8(
             qc.q, st.q[y0:y1], st.scales, group_size=st.group_size,
-            xn=qc.norms, yn=yn, impl=impl)
-        slack = qc.err[:, None] + st.err[y0:y1][None, :]
-        guard = matmul_guard(qc.norms, yn)
-        lb = ops.quant_lower_bound(torch.clamp_min(dhat - guard, 0.0), slack)
-        ub = ops.quant_upper_bound(dhat + guard, slack)
-        return lb, ub
+            xn=qc.norms, yn=st.norms[y0:y1], xe=qc.err, ye=st.err[y0:y1],
+            guard=MATMUL_GUARD, impl=impl)
 
     def pair_refine(self, qc: Int8Queries, qi: torch.Tensor,
                     yi: torch.Tensor):
@@ -265,12 +257,9 @@ class PdxTier:
             qc.q, st.q[y0:y1], st.scales, qc.qslab, st.qslab[y0:y1],
             qc.qtail, st.qtail[y0:y1], qc.norms, yn, qc.err, ye, theta,
             slab=st.slab, dim=st.dim, early_exit=early_exit, impl=impl)
-        slack = qc.err[:, None] + ye[None, :]
-        guard = matmul_guard(qc.norms, yn)
         # +inf d̂ (a retired lane) stays +inf through both bounds: its
         # certified lower bound already exceeds the threshold
-        lb = ops.quant_lower_bound(torch.clamp_min(dhat - guard, 0.0), slack)
-        ub = ops.quant_upper_bound(dhat + guard, slack)
+        lb, ub = ref.int8_bounds(dhat, qc.norms, yn, qc.err, ye, MATMUL_GUARD)
         return lb, ub, nscan
 
     def pairwise_bounds(self, qc: PdxQueries, *, impl: str | None,

@@ -10,8 +10,13 @@ Each kernel is held against its plain PyTorch version on the same inputs
 (pairwise ``atol = 1e-5·(‖x‖²+‖y‖²)``, ``rtol = 1e-5``; rowwise and gather
 ``rtol = 1e-6``, ``atol = 1e-6·max d``; int8 pairwise ``|Δ| ≤
 1e-5·(xn+yn) + 1e-6``, int8 rowwise and gather ``|Δ| ≤ 1e-5·value +
-1e-6`` — the plain versions dequantize first; the top-k merge exactly, ids
-and tie order included; the pair list bit-equal to the pairwise kernel),
+1e-6`` — the plain versions dequantize first; the int8 pairwise kernel
+also bit for bit against ``ref.pairwise_sq_dists_int8_exact``, its own
+arithmetic, and the fused int8 bounds kernel bit for bit against the
+torch composition over the pairwise kernel's d̂; the top-k merge exactly,
+ids and tie order included; the pair list bit-equal to the pairwise
+kernel, also at shapes that cross the f32 tile's and its pipeline's
+edges and from an unaligned base),
 the Hamming kernels exactly; the PDX kernels with early exit off within
 ``|Δ| ≤ 1e-6·value + 1e-6·(xn+yn)`` (pairwise; the plain version repeats
 its operation order) and ``rtol = 1e-6``, ``atol = 1e-6·max d`` (gather),
@@ -31,11 +36,13 @@ import pytest
 import torch
 
 from repro_torch.core import JoinConfig, build_index, exact_join_pairs
+from repro_torch.core.graph import BuildStats
 from repro_torch.core.types import GraphIndex, pair_keys
 from repro_torch.data.vectors import make_dataset, thresholds
 from repro_torch.engine import JoinEngine
 from repro_torch.kernels import ops, ref
 from repro_torch.quant import build_store, quantize_queries
+from repro_torch.quant.cascade import MATMUL_GUARD, Int8Queries, Int8Tier
 
 pytestmark = pytest.mark.cuda
 
@@ -241,6 +248,131 @@ def test_pairlist_equals_the_pairwise_kernel(dev, B, N, d):
     assert bool(torch.isinf(bad).all())
 
 
+# B and N around the 128-wide tile (1, 127, 129, 4097) and d around the
+# 8/16-deep slices and 16-byte loads
+TILE_EDGES = [(1, 1), (127, 129), (129, 127), (4097, 129), (129, 4097),
+              (1, 4097), (4097, 1)]
+
+
+def _unaligned(a):
+    """``a``'s values in a contiguous view whose base is 4 bytes past a
+    16-byte boundary (the kernels' scalar-load path)."""
+    n, d = a.shape
+    buf = torch.empty(n * d + 1, dtype=a.dtype, device=a.device)
+    buf[1:] = a.reshape(-1)
+    return buf[1:].view(n, d)
+
+
+@pytest.mark.parametrize("d", [1, 3, 33, 127, 128, 130, 256])
+@pytest.mark.parametrize("B,N", TILE_EDGES)
+def test_f32_tile_edges(dev, B, N, d):
+    """The pairwise kernel against its plain version, the pair list bit
+    for bit against it and the NLJ count against its counts, at ragged
+    tile and slice edges, with y aligned and from an unaligned base."""
+    rng = _rng("edge", B, N, d)
+    x = torch.from_numpy(rng.normal(size=(B, d)).astype(np.float32)).to(dev)
+    y0 = torch.from_numpy(rng.normal(size=(N, d)).astype(np.float32)).to(dev)
+    xn = ref.sq_norms(x)
+    for y in (y0, _unaligned(y0)):
+        yn = ref.sq_norms(y)
+        got = ops.pairwise_sq_dists(x, y, xn=xn, yn=yn)
+        want = ref.pairwise_sq_dists(x, y, xn, yn).double()
+        tol = 1e-5 * (xn[:, None] + yn[None, :]).double() + 1e-5 * want.abs()
+        assert bool(((got.double() - want).abs() <= tol).all())
+        qi = torch.from_numpy(rng.integers(0, B, 3000).astype(np.int32)).to(dev)
+        yi = torch.from_numpy(rng.integers(0, N, 3000).astype(np.int32)).to(dev)
+        pl = ops.pairlist_sq_dists(x, y, qi, yi, xn=xn, yn=yn)
+        assert torch.equal(pl, got[qi.long(), yi.long()])
+        theta = float(got.flatten().kthvalue(max(1, got.numel() // 3))
+                      .values) ** 0.5
+        th2 = ref.sq_theta(theta)
+        assert torch.equal(ops.nlj_count(x, y, theta=theta),
+                           (got < th2).sum(1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("gs", [32, 64, 128])
+@pytest.mark.parametrize("d", INT8_DIMS)
+@pytest.mark.parametrize("B,N", [(1, 1), (37, 301), (256, 1000), (129, 4097)])
+def test_int8_pairwise_kernel_is_exact(dev, B, N, d, gs):
+    """The int8 pairwise kernel bit for bit against its own arithmetic
+    (``ref.pairwise_sq_dists_int8_exact``), with 16-byte, narrower and
+    unaligned code rows."""
+    rng = _rng("i8exact", B, N, d, gs)
+    st = build_store(torch.from_numpy(
+        rng.normal(size=(N, d)).astype(np.float32)).to(dev), group_size=gs)
+    qx, xn, _ = quantize_queries(torch.from_numpy(
+        rng.normal(size=(B, d)).astype(np.float32)).to(dev), st)
+    for qy in (st.q, st.q[1:], _unaligned(st.q)):
+        yn = st.norms[:qy.shape[0]]
+        n0 = ops.launch_counts()["pairwise_sq_dists_int8"]
+        got = ops.pairwise_sq_dists_int8(qx, qy, st.scales, group_size=gs,
+                                         xn=xn, yn=yn)
+        assert ops.launch_counts()["pairwise_sq_dists_int8"] == n0 + (
+            qy.shape[0] > 0)
+        want = ref.pairwise_sq_dists_int8_exact(qx, qy, st.scales, xn, yn,
+                                                group_size=gs)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("d,gs", [(2000, 128), (1999, 64)])
+def test_int8_kernels_stream_a_query_tile_too_deep_for_shared_memory(
+        dev, d, gs):
+    """Past ~1,300 dims the 128-row query tile does not fit in shared
+    memory and streams through the ring beside the data tiles: still
+    bit for bit the exact plain version and the composition (16-byte and
+    byte loads)."""
+    rng = _rng("i8deep", d, gs)
+    st = build_store(torch.from_numpy(
+        rng.normal(size=(301, d)).astype(np.float32)).to(dev), group_size=gs)
+    qx, xn, xe = quantize_queries(torch.from_numpy(
+        rng.normal(size=(37, d)).astype(np.float32)).to(dev), st)
+    got = ops.pairwise_sq_dists_int8(qx, st.q, st.scales, group_size=gs,
+                                     xn=xn, yn=st.norms)
+    want = ref.pairwise_sq_dists_int8_exact(qx, st.q, st.scales, xn,
+                                            st.norms, group_size=gs)
+    assert torch.equal(got, want)
+    lb, ub = ops.pairwise_bounds_int8(qx, st.q, st.scales, group_size=gs,
+                                      xn=xn, yn=st.norms, xe=xe, ye=st.err,
+                                      guard=MATMUL_GUARD)
+    wlb, wub = ref.int8_bounds(want, xn, st.norms, xe, st.err, MATMUL_GUARD)
+    assert torch.equal(lb, wlb) and torch.equal(ub, wub)
+
+
+@pytest.mark.parametrize("d,gs", [(64, 128), (128, 128), (200, 128),
+                                  (200, 64), (100, 32)])
+@pytest.mark.parametrize("B,N", [(1, 1), (37, 301), (256, 1000), (0, 5),
+                                 (5, 0)])
+def test_int8_bounds_kernel_is_the_composition(dev, B, N, d, gs):
+    """The fused bounds kernel bit for bit against the torch composition
+    over the pairwise kernel's d̂ (and over the exact plain version), and
+    ``Int8Tier.pairwise_bounds`` on the card through it."""
+    rng = _rng("i8bounds", B, N, d, gs)
+    st = build_store(torch.from_numpy(
+        rng.normal(size=(max(N, 1), d)).astype(np.float32)).to(dev),
+        group_size=gs)
+    qy, yn, ye = st.q[:N], st.norms[:N], st.err[:N]
+    qx, xn, xe = quantize_queries(torch.from_numpy(
+        rng.normal(size=(B, d)).astype(np.float32)).to(dev), st)
+    n0 = ops.launch_counts()["pairwise_bounds_int8"]
+    lb, ub = ops.pairwise_bounds_int8(qx, qy, st.scales, group_size=gs,
+                                      xn=xn, yn=yn, xe=xe, ye=ye,
+                                      guard=MATMUL_GUARD)
+    assert ops.launch_counts()["pairwise_bounds_int8"] == n0 + (B * N > 0)
+    dhat = ops.pairwise_sq_dists_int8(qx, qy, st.scales, group_size=gs,
+                                      xn=xn, yn=yn)
+    exact = ref.pairwise_sq_dists_int8_exact(qx, qy, st.scales, xn, yn,
+                                             group_size=gs)
+    for dh in (dhat, exact):
+        wlb, wub = ref.int8_bounds(dh, xn, yn, xe, ye, MATMUL_GUARD)
+        assert torch.equal(lb, wlb) and torch.equal(ub, wub)
+    tier = Int8Tier(st)
+    qc = Int8Queries(q=qx, norms=xn, err=xe)
+    n0 = ops.launch_counts()["pairwise_bounds_int8"]
+    tlb, tub = tier.pairwise_bounds(qc, impl=None, y0=0, y1=N)
+    assert ops.launch_counts()["pairwise_bounds_int8"] == n0 + (B * N > 0)
+    assert torch.equal(tlb, lb) and torch.equal(tub, ub)
+
+
 @pytest.mark.parametrize("regime", ["manifold", "ood"])
 def test_sq8_join_on_the_card_matches_the_cpu(dev, regime):
     ds = make_dataset(regime, n_data=1500, n_query=96, dim=32, seed=3)
@@ -270,14 +402,19 @@ def test_sq8_build_and_nlj_on_the_card(dev):
     ds = make_dataset("manifold", n_data=3000, n_query=64, dim=24, seed=5)
     theta = float(thresholds(ds, 7)[2])
     ops.reset_launch_counts()
-    eng = JoinEngine(ds.Y, build_kw=dict(k=24, degree=12, quant="sq8"),
+    bs = BuildStats()
+    eng = JoinEngine(ds.Y, build_kw=dict(k=24, degree=12, quant="sq8",
+                                         build_stats=bs),
                      default=JoinConfig(theta=theta, quant="sq8"),
                      device=dev)
     res = eng.join(ds.X)
     counts = ops.launch_counts()
-    for k in ("pairwise_sq_dists_int8", "rowwise_sq_dists_int8",
+    for k in ("pairwise_bounds_int8", "rowwise_sq_dists_int8",
               "topk_merge", "pairlist_sq_dists", "gather_sq_dists"):
         assert counts[k] > 0, k
+    # every bound block of the build's kNN sweep is one #6' launch
+    assert bs.knn_blocks == counts["pairwise_bounds_int8"]
+    assert bs.knn_sweep_s > 0
     f32 = build_index(np.concatenate([ds.Y, ds.X]), k=24, degree=12,
                       n_data=3000, device=dev)
     assert torch.equal(eng.merged_index(ds.X).nbrs, f32.nbrs)

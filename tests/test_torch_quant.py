@@ -223,6 +223,7 @@ def test_cascade_build_matches_jax_and_f32(regime):
     assert bs.f32_bytes < 0.5 * bs.f32_bytes_full, bs.as_dict()
     assert 0 < bs.knn_exact < bs.knn_pairs
     assert 0 <= bs.prune_exact <= bs.prune_pairs
+    assert bs.knn_blocks > 0 and bs.knn_sweep_s == 0.0   # timed on the card
 
 
 def test_cascade_knn_survivor_cap_grows_and_retries():
