@@ -9,8 +9,13 @@ Phases (each raises on failure, so the script exits non-zero):
      (one process per source, in parallel);
   2. hold each kernel against its plain PyTorch version at ragged,
      sub-tile, empty and NO_NODE shapes, and at the main paths' shapes:
-     the f32 kernels, the int8 pairwise kernel at the sq8 kNN block
-     (4096,128)x(65536,128) and at d = 64, the int8 gather at the
+     the f32 kernels (the gather bit-equal to the rowwise kernel over the
+     gathered rows, its pair-list entry to it, also from unaligned
+     bases), the int8 pairwise kernel at the sq8 kNN block
+     (4096,128)x(65536,128) and at d = 64, the int8 gather (bit-equal to
+     its exact plain version, with groups of 128, 64, 12 and 7 dims and
+     unaligned codes) and its pair list, the int8 tier's fused gather
+     bounds bit-equal to the torch composition over its d̂, at the
      traversal's shape with half the ids NO_NODE, the top-k merge with
      forced ties, the pair-list entry's bit equality with the pairwise
      kernel, the int8 pairwise kernel's bit equality with its exact plain
@@ -43,12 +48,16 @@ Phases (each raises on failure, so the script exits non-zero):
   5. the OOD path: laion-like data (d = 64), |Y| = 200,000, |X| = 2,000,
      where the hybrid BBFS must run (n_ood > 0), with the same checks, in
      f32 and under sq8;
-  6. time each kernel at the main paths' shapes (phase 2's tolerances
-     again; torch.mm with TF32 off logged beside the f32 pairwise kernel
-     as the CUDA cores' ceiling), and run the OOD path's overlap-off join
-     of its first 500 queries under torch.profiler to show how busy the
-     device is. These come last because an attached profiler slows every
-     later launch.
+  6. time each kernel at the main paths' shapes, the gathers also at the
+     NLJ's pair block (4,194,304 pairs over a 512-query block), every
+     CUDA-event median first and the profiler's device times after them
+     (phase 2's tolerances again; torch.mm with TF32 off logged beside the
+     f32 pairwise kernel as the CUDA cores' ceiling), trace one pair
+     block of the NLJ's escalation (``join.escalate_block``, the int8
+     tier over 1M random rows) under torch.profiler, and run the OOD
+     path's overlap-off join of its first 500 queries under
+     torch.profiler to show how busy the device is. These come last
+     because an attached profiler slows every later launch.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; a path that did not launch one of its kernels fails.
@@ -91,23 +100,27 @@ SEARCH_RECALL_FLOORS = {"index": 0.935, "es": 0.935, "es_hws": 0.937,
                         "es_sws": 0.937, "es_sws/sq8": 0.912}
 # the profiled OOD join runs on the first PROFILE_QUERIES queries
 PROFILE_QUERIES = 500
+# the NLJ's query block and the pair block its escalation runs in
+# (core/join.py: block, pair_block)
+NLJ_QBLOCK = 512
+PAIR_BLOCK = 1 << 22
 OOD_N_DATA = 200_000
 OOD_N_QUERY = 2_000
 REPS = 25
 # kernels each path must launch
 F32_KERNELS = ("pairwise_sq_dists", "rowwise_sq_dists", "gather_sq_dists",
                "topk_merge")
-SQ8_KERNELS = ("pairwise_bounds_int8", "rowwise_sq_dists_int8",
+SQ8_KERNELS = ("pairwise_bounds_int8", "gather_bounds_int8",
                "topk_merge", "gather_sq_dists", "pairlist_sq_dists")
-SQ8_NLJ_KERNELS = ("pairwise_bounds_int8", "gather_sq_dists")
+SQ8_NLJ_KERNELS = ("pairwise_bounds_int8", "gather_sq_dists_pairs")
 # the sketch and PDX modes: the merged-index join's kernels, the NLJ's
-SKETCH8_KERNELS = ("rowwise_hamming", "rowwise_sq_dists_int8",
+SKETCH8_KERNELS = ("rowwise_hamming", "gather_bounds_int8",
                    "gather_sq_dists")
-SKETCH8_NLJ_KERNELS = ("pairwise_hamming", "rowwise_sq_dists_int8",
-                       "gather_sq_dists")
-PDX8_KERNELS = ("rowwise_sq_dists_int8", "pdx_gather_sq_dists")
-PDX8_NLJ_KERNELS = ("pairwise_sq_dists_pdx", "gather_sq_dists")
-SKETCHPDX8_KERNELS = ("rowwise_hamming", "rowwise_sq_dists_int8",
+SKETCH8_NLJ_KERNELS = ("pairwise_hamming", "gather_bounds_int8_pairs",
+                       "gather_sq_dists_pairs")
+PDX8_KERNELS = ("gather_bounds_int8", "pdx_gather_sq_dists")
+PDX8_NLJ_KERNELS = ("pairwise_sq_dists_pdx", "gather_sq_dists_pairs")
+SKETCHPDX8_KERNELS = ("rowwise_hamming", "gather_bounds_int8",
                       "pdx_gather_sq_dists")
 SKETCHPDX8_NLJ_KERNELS = SKETCH8_NLJ_KERNELS
 # recall floors of the sketch/PDX joins: measured on an H100 (PERF.md)
@@ -128,14 +141,12 @@ def log(*a) -> None:
     print(f"{time.perf_counter() - _T0:7.1f}s", *a, flush=True)
 
 
-def device_ms(torch, fn, *, reps: int = REPS) -> tuple[float, float]:
-    """Device time of one ``fn(rep)`` call in ms, two ways: the CUDA kernel
-    time torch.profiler records, summed and divided by ``reps`` (host gaps
-    between launches excluded; 0 if the profiler records no device time),
-    and the median of CUDA events around each call (host launch overhead
-    included, which dominates a kernel of a few microseconds)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def event_ms(torch, fn, *, reps: int = REPS) -> float:
+    """Median of CUDA events around each of ``reps`` calls ``fn(rep)``,
+    after one warm-up call: the per-call cost a caller sees, host launch
+    overhead included (which dominates a kernel of a few microseconds).
+    Taken before any profiler session: once torch.profiler has attached,
+    every later launch costs more host time."""
     fn(0)
     torch.cuda.synchronize()
     ts = []
@@ -147,12 +158,23 @@ def device_ms(torch, fn, *, reps: int = REPS) -> tuple[float, float]:
         e1.record()
         e1.synchronize()
         ts.append(e0.elapsed_time(e1))
+    return statistics.median(ts)
+
+
+def profiled_ms(torch, fn, *, reps: int = REPS) -> float:
+    """Device time of one ``fn(rep)`` call in ms: the CUDA kernel time
+    torch.profiler records over ``reps`` calls, divided by ``reps`` (host
+    gaps between launches excluded); 0 if it records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for i in range(reps):
             fn(i)
         torch.cuda.synchronize()
-    return kernel_us(prof, DeviceType) / reps / 1e3, statistics.median(ts)
+    return kernel_us(prof, DeviceType) / reps / 1e3
 
 
 def kernel_us(prof, DeviceType) -> float:
@@ -160,13 +182,6 @@ def kernel_us(prof, DeviceType) -> float:
     return sum(getattr(e, "self_device_time_total", 0.0)
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA)
-
-
-def timed(torch, fn) -> tuple[float, float]:
-    """(ms, event_ms): the profiler's device time where it records one,
-    else the CUDA-event median."""
-    dev_ms, ev_ms = device_ms(torch, fn)
-    return (dev_ms if dev_ms > 0 else ev_ms), ev_ms
 
 
 def bound_ms(nbytes: float, flops: float,
@@ -217,6 +232,84 @@ def check_rows(torch, got, want, what: str) -> float:
     return float(err.max())
 
 
+def unaligned(t):
+    """``t``'s values in a contiguous 2-D view whose base is one element
+    past an aligned address (the kernels' narrow-load paths)."""
+    n, d = t.shape
+    buf = t.new_empty(n * d + 1)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(n, d)
+
+
+def pair_list(torch, idx):
+    """A (B, K) id matrix as the pair list (qi = b, yi = idx[b, k])."""
+    B, K = idx.shape
+    qi = torch.arange(B, device=idx.device, dtype=torch.int32)
+    return qi.repeat_interleave(K), idx.reshape(-1).contiguous()
+
+
+def check_f32_gathers(torch, ops, ref, v, x, idx, what: str) -> float:
+    """#3: the gather kernel against its plain version; bit for bit
+    against the rowwise kernel (#2) over the gathered rows where both take
+    the same load path (the two share each lane's slots, fmaf chain and
+    xor-tree), and its pair-list entry bit for bit against it. Returns
+    max |kernel − plain|."""
+    got = ops.gather_sq_dists(v, x, idx)
+    err = check_rows(torch, got, ref.gather_sq_dists(v, x, idx),
+                     f"gather {what}")
+    if idx.numel() == 0:
+        return err
+    qi, yi = pair_list(torch, idx)
+    if not torch.equal(ops.gather_sq_dists_pairs(v, x, qi, yi),
+                       got.reshape(-1)):
+        raise AssertionError(f"gather {what}: the pair-list entry differs")
+    d = x.shape[1]
+    if v.shape[0] and (d % 4 != 0 or (v.data_ptr() % 16 == 0
+                                      and x.data_ptr() % 16 == 0)):
+        valid = (idx >= 0) & (idx < v.shape[0])
+        cands = v[torch.where(valid, idx, 0).long()]
+        rw = torch.where(valid, ops.rowwise_sq_dists(x, cands), torch.inf)
+        if not torch.equal(rw, got):
+            raise AssertionError(f"gather {what}: "
+                                 f"{int((rw != got).sum())} values differ "
+                                 f"from the rowwise kernel's")
+    return err
+
+
+def check_int8_gathers(torch, ops, ref, codes, qx, idx, scales, gs: int,
+                       err, qerr, what: str) -> float:
+    """#7 bit for bit against its exact plain version (per-group integer
+    sums, the kernel's f32 steps) and within tolerance of the dequantizing
+    one; #7' (both entries, the pair list over the same pairs) bit for bit
+    against the torch composition over its d̂. Returns max |kernel −
+    dequantizing plain|."""
+    kw = dict(group_size=gs)
+    got = ops.gather_sq_dists_int8(codes, qx, idx, scales, **kw)
+    e = check_int8_rows(torch, got, ref.gather_sq_dists_int8(
+        codes, qx, idx, scales, **kw), f"int8 gather {what}")
+    if idx.numel() == 0:
+        return e
+    if not torch.equal(got, ref.gather_sq_dists_int8_exact(
+            codes, qx, idx, scales, **kw)):
+        raise AssertionError(f"int8 gather {what}: differs from its exact "
+                             f"plain version")
+    qi, yi = pair_list(torch, idx)
+    valid = (idx >= 0) & (idx < codes.shape[0])
+    want = ref.gather_bounds(got, qerr[:, None]
+                             + err[torch.where(valid, idx, 0).long()])
+    lb, ub = ops.gather_bounds_int8(codes, qx, idx, scales, err=err,
+                                    qerr=qerr, **kw)
+    plb, pub = ops.gather_bounds_int8_pairs(codes, qx, qi, yi, scales,
+                                            err=err, qerr=qerr, **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(lb, want[0]) and torch.equal(ub, want[1])
+            and torch.equal(plb, lb.reshape(-1))
+            and torch.equal(pub, ub.reshape(-1))):
+        raise AssertionError(f"int8 gather bounds {what}: differ from the "
+                             f"composition over the kernel's d̂")
+    return e
+
+
 class Inputs:
     """Random kernel inputs on the card, from a fixed seed."""
 
@@ -248,16 +341,23 @@ def check_kernels(torch, ops, ref) -> None:
                     (4096, 65536, 128), (4096, 65536, 64)]:
         check_pairwise(torch, ops, ref, rn(B, d), rn(N, d))
     for B, K, d in [(0, 4, 8), (3, 0, 8), (5, 3, 0), (1, 1, 1), (3, 5, 7),
-                    (7, 9, 130), (33, 65, 64)]:
+                    (7, 9, 130), (33, 65, 64), (9, 1, 128), (17, 37, 256)]:
         x, c = rn(B, d), rn(B, K, d)
         check_rows(torch, ops.rowwise_sq_dists(x, c),
                    ref.rowwise_sq_dists(x, c), f"rowwise {(B, K, d)}")
         v = rn(50, d)
         for frac in (0.0, 0.3, 1.0):
             i = ids(B, K, 50, frac)
-            check_rows(torch, ops.gather_sq_dists(v, x, i),
-                       ref.gather_sq_dists(v, x, i), f"gather {(B, K, d)}")
-    log("[kernels] ragged / empty / NO_NODE shapes agree")
+            check_f32_gathers(torch, ops, ref, v, x, i, f"{(B, K, d)}")
+            if B and d:
+                check_f32_gathers(torch, ops, ref, unaligned(v),
+                                  unaligned(x), i, f"{(B, K, d)} unaligned")
+    # the traversal's shape: 256 lanes x 128 ids over the merged table
+    n_nodes = MAIN_N_DATA + MAIN_N_QUERY
+    check_f32_gathers(torch, ops, ref, rn(n_nodes, 128), rn(256, 128),
+                      ids(256, 128, n_nodes, 0.5), "main shape")
+    log("[kernels] ragged / empty / NO_NODE / unaligned shapes agree; the "
+        "gather bit-equal to the rowwise kernel and its pair list to it")
 
 
 def check_int8_pairwise(torch, ops, ref, st, qx, xn) -> float:
@@ -339,6 +439,31 @@ def check_int8_rows(torch, got, want, what: str) -> float:
     return float(err.max())
 
 
+def check_int8_bound_rows(torch, got, want, what: str) -> float:
+    """#7' (lb, ub) against its plain version, the composition over the
+    dequantizing d̂: +inf (NO_NODE) slots identical, the others within
+    ``check_int8_rows``' d̂ tolerance at the scale of ub (a change of d̂
+    moves lb by at most itself, and ub by at most ub/d̂ times itself).
+    Returns max |kernel − plain| over both."""
+    torch.cuda.synchronize()
+    err = 0.0
+    fin = want[1].isfinite()
+    tol = 1e-5 * want[1][fin].abs() + 1e-6
+    for g, w, nm in zip(got, want, ("lb", "ub")):
+        if g.shape != w.shape:
+            raise AssertionError(f"{what} {nm} shape {g.shape} != {w.shape}")
+        if not bool((g.isfinite() == w.isfinite()).all()):
+            raise AssertionError(f"{what} {nm}: +inf (NO_NODE) slots differ")
+        if not bool(fin.any()):
+            continue
+        e = (g[fin] - w[fin]).abs()
+        if not bool((e <= tol).all()):
+            raise AssertionError(f"{what} {nm}: max err {float(e.max())} "
+                                 f"beyond tolerance")
+        err = max(err, float(e.max()))
+    return err
+
+
 def check_topk(torch, ops, ref, bd, bi, cd, ci, what: str) -> None:
     """top-k merge against the plain version: exact, ids and tie order."""
     gd, gi = ops.topk_merge(bd, bi, cd, ci)
@@ -403,34 +528,39 @@ def check_kernels_sq8(torch, ops, ref) -> None:
         qx, xn, xe = quantize_queries(rn(B, d), st)
         check_int8_pairwise(torch, ops, ref, st, qx, xn)
         check_int8_bounds(torch, ops, ref, st, qx, xn, xe)
-    # int8 rowwise (B, K, d) form and gather form
+    # int8 rowwise (B, K, d) form, gather form, its pair list and #7',
+    # with groups of 128, 64 (PDX slabs), 12 and 7 dimensions, and from an
+    # unaligned code table
     for B, K, d in [(0, 4, 8), (3, 0, 8), (1, 1, 1), (3, 5, 7),
-                    (7, 9, 130), (33, 65, 64), (16, 40, 200)]:
-        st = build_store(rn(50, d))
-        qx = quantize_queries(rn(B, d), st)[0]
-        qc = st.q[torch.randint(0, 50, (B, K), device=inp.dev,
-                                generator=inp.gen).long()]
-        check_int8_rows(torch, ops.rowwise_sq_dists_int8(
-            qx, qc, st.scales, group_size=st.group_size),
-            ref.rowwise_sq_dists_int8(qx, qc, st.scales,
-                                      group_size=st.group_size),
-            f"int8 rowwise {(B, K, d)}")
-        for frac in (0.0, 0.5, 1.0):
-            i = ids(B, K, 50, frac)
-            check_int8_rows(torch, ops.gather_sq_dists_int8(
-                st.q, qx, i, st.scales, group_size=st.group_size),
-                ref.gather_sq_dists_int8(st.q, qx, i, st.scales,
-                                         group_size=st.group_size),
-                f"int8 gather {(B, K, d)}")
-    # the traversal's shape: 256 lanes x 128 ids over the merged table
+                    (7, 9, 130), (33, 65, 64), (16, 40, 200), (9, 1, 128),
+                    (5, 33, 0)]:
+        for gs in (128, 64, 12, 7):
+            st = build_store(rn(50, d), group_size=gs)
+            qx, _, qe = quantize_queries(rn(B, d), st)
+            qc = st.q[torch.randint(0, 50, (B, K), device=inp.dev,
+                                    generator=inp.gen).long()]
+            check_int8_rows(torch, ops.rowwise_sq_dists_int8(
+                qx, qc, st.scales, group_size=gs),
+                ref.rowwise_sq_dists_int8(qx, qc, st.scales, group_size=gs),
+                f"int8 rowwise {(B, K, d)} gs {gs}")
+            for frac in (0.0, 0.5, 1.0):
+                i = ids(B, K, 50, frac)
+                for codes in ((st.q, unaligned(st.q)) if d else (st.q,)):
+                    check_int8_gathers(torch, ops, ref, codes, qx, i,
+                                       st.scales, gs, st.err, qe,
+                                       f"{(B, K, d)} gs {gs} "
+                                       f"{codes.data_ptr() % 16}")
+    # the traversal's shape: 256 lanes x 128 ids over the merged table, in
+    # the sq8 (one group) and the pdx8 (two 64-dim slabs) grids
     n_nodes = MAIN_N_DATA + MAIN_N_QUERY
-    st = build_store(rn(n_nodes, 128))
-    qx = quantize_queries(rn(256, 128), st)[0]
-    i = ids(256, 128, n_nodes, 0.5)
-    check_int8_rows(torch, ops.gather_sq_dists_int8(
-        st.q, qx, i, st.scales), ref.gather_sq_dists_int8(
-        st.q, qx, i, st.scales), "int8 gather main shape")
-    del st
+    y = rn(n_nodes, 128)
+    for gs in (128, 64):
+        st = build_store(y, group_size=gs)
+        qx, _, qe = quantize_queries(rn(256, 128), st)
+        check_int8_gathers(torch, ops, ref, st.q, qx,
+                           ids(256, 128, n_nodes, 0.5), st.scales, gs,
+                           st.err, qe, f"main shape gs {gs}")
+    del st, y
     # top-k merge: ragged/empty and the kNN block (4096,48)+(4096,48)
     for B, L, K in [(0, 4, 4), (3, 0, 5), (5, 4, 0), (1, 1, 1), (7, 5, 13),
                     (33, 48, 48), (4096, 48, 48)]:
@@ -440,9 +570,10 @@ def check_kernels_sq8(torch, ops, ref) -> None:
     for B, N, d in [(129, 257, 33), (300, 1000, 64), (4096, 65536, 128)]:
         check_pairlist(torch, ops, rn(B, d), rn(N, d), 1 << 20, inp.gen)
     log("[kernels] int8 / top-k merge / pair-list: plain versions agree, "
-        "int8 pairwise bit-equal to its exact plain version and the int8 "
-        "bounds kernel to the torch composition, pair list bit-equal to the "
-        "pairwise kernel, int8 pairwise error below MATMUL_GUARD")
+        "int8 pairwise and gather bit-equal to their exact plain versions "
+        "and the int8 bounds kernels (pairwise and gather, both gather "
+        "entries) to the torch composition, the pair lists bit-equal to "
+        "their kernels, int8 pairwise error below MATMUL_GUARD")
 
 
 # ---------------------------------------------------------------------------
@@ -715,23 +846,48 @@ def check_kernels_nlj(torch, ops, ref) -> float:
     return err
 
 
+def distinct_rows(torch, idxs) -> float:
+    """The distinct valid ids an id set reads, averaged over the sets: the
+    table rows a gather must move at least once (its bound's bytes)."""
+    return sum(torch.unique(i[i >= 0]).numel() for i in idxs) / len(idxs)
+
+
+def nlj_pair_block(torch, inp, n_rows: int):
+    """The NLJ's escalation shape: PAIR_BLOCK (query, data) pairs over an
+    NLJ_QBLOCK-query block, query-major with the data ids of each query
+    ascending (as ``nonzero`` gives them), ids drawn from ``n_rows``."""
+    per = PAIR_BLOCK // NLJ_QBLOCK
+    qi = torch.arange(NLJ_QBLOCK, device=inp.dev, dtype=torch.int32)
+    yi = torch.randint(0, n_rows, (NLJ_QBLOCK, per), device=inp.dev,
+                       generator=inp.gen, dtype=torch.int32)
+    return (qi.repeat_interleave(per),
+            torch.sort(yi, dim=1)[0].reshape(-1).contiguous())
+
+
 def time_kernels(torch, ops, ref) -> dict:
     """Each kernel at the main path's shapes: agreement with its plain
     version, device time beside its bound, the plain version's time and a
-    library call's. Runs after the join phases: once torch.profiler has
-    attached to the card, every later launch costs more host time."""
+    library call's. Every entry's CUDA-event median is taken first, in one
+    pass before any profiler session (it is the per-call cost the joins
+    see); the device times under torch.profiler come after. Runs after the
+    join phases: an attached profiler slows every later launch."""
     inp = Inputs(torch)
     rn, ids = inp.rn, inp.ids
     out = {}
+    # (record, key, fn): device times taken at the end; each timed fn binds
+    # its inputs as default arguments, for the names move on to the next
+    # kernel's before it runs again
+    pending = []
 
-    def entry(shape, err, fn, plain, library, nbytes, flops):
-        ms, ev = timed(torch, fn)
-        bms, by = bound_ms(nbytes, flops)
-        return dict(shape=shape, max_abs_err=err, ms=ms, event_ms=ev,
-                    plain_ms=timed(torch, plain)[0],
-                    library_ms=None if library is None
-                    else timed(torch, library)[0],
-                    bound_ms=bms, bound_by=by)
+    def entry(shape, err, fn, plain, library, nbytes, flops,
+              peak=PEAK_F32_FLOPS):
+        bms, by = bound_ms(nbytes, flops, peak)
+        r = dict(shape=shape, max_abs_err=err, event_ms=event_ms(torch, fn),
+                 bound_ms=bms, bound_by=by, library_ms=None)
+        pending.extend([(r, "ms", fn), (r, "plain_ms", plain)]
+                       + ([] if library is None
+                          else [(r, "library_ms", library)]))
+        return r
 
     # pairwise at the kNN build's block shape (qblock 4096 x dblock 65536);
     # compute-bound, so the L2-resident inputs do not flatter it
@@ -739,20 +895,16 @@ def time_kernels(torch, ops, ref) -> dict:
     x, y = rn(B, d), rn(N, d)
     out["pairwise_sq_dists"] = entry(
         f"({B},{d})x({N},{d})", check_pairwise(torch, ops, ref, x, y),
-        lambda _: ops.pairwise_sq_dists(x, y),
-        lambda _: ref.pairwise_sq_dists(x, y),
-        lambda _: torch.cdist(x, y),
+        lambda _, x=x, y=y: ops.pairwise_sq_dists(x, y),
+        lambda _, x=x, y=y: ref.pairwise_sq_dists(x, y),
+        lambda _, x=x, y=y: torch.cdist(x, y),
         (B * d + N * d + B * N) * 4, 2.0 * B * N * d)
     # the CUDA cores' f32 ceiling as cuBLAS reaches it: the bare product,
     # TF32 off (logged beside the kernel, used nowhere in the port)
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 is on: the f32 timings would not be f32")
-    mm_ms = timed(torch, lambda _: torch.mm(x, y.T))[0]
-    out["pairwise_sq_dists"]["mm_ms"] = mm_ms
-    log(f"[kernels] pairwise_sq_dists: torch.mm (TF32 off) of the same "
-        f"operands {mm_ms:.4f} ms, {2.0 * B * N * d / mm_ms / 1e9:.1f} "
-        f"TFLOP/s; the kernel "
-        f"{2.0 * B * N * d / out['pairwise_sq_dists']['ms'] / 1e9:.1f}")
+    mm = dict(flops=2.0 * B * N * d)
+    pending.append((mm, "ms", lambda _, x=x, y=y: torch.mm(x, y.T)))
     del x, y
 
     # rowwise at the mean_nbr_dist block shape (65536 rows x R = 32); the
@@ -764,9 +916,9 @@ def time_kernels(torch, ops, ref) -> dict:
         f"({B},{d})x({B},{K},{d})",
         check_rows(torch, ops.rowwise_sq_dists(x, c),
                    ref.rowwise_sq_dists(x, c), "rowwise main shape"),
-        lambda _: ops.rowwise_sq_dists(x, c),
-        lambda _: ref.rowwise_sq_dists(x, c),
-        lambda _: torch.cdist(x[:, None], c),
+        lambda _, x=x, c=c: ops.rowwise_sq_dists(x, c),
+        lambda _, x=x, c=c: ref.rowwise_sq_dists(x, c),
+        lambda _, x=x, c=c: torch.cdist(x[:, None], c),
         (B * K * d + B * d + B * K) * 4, 3.0 * B * K * d)
     del x, c
 
@@ -778,15 +930,38 @@ def time_kernels(torch, ops, ref) -> dict:
     v, x = rn(n_nodes, d), rn(B, d)
     idxs = [ids(B, K, n_nodes, 0.5) for _ in range(REPS)]
     n_valid = sum(int((i >= 0).sum()) for i in idxs) / REPS
+    rows = distinct_rows(torch, idxs)
     out["gather_sq_dists"] = entry(
         f"({n_nodes},{d}) rows, ({B},{K}) ids, {n_valid:.0f} valid",
         max(check_rows(torch, ops.gather_sq_dists(v, x, i),
                        ref.gather_sq_dists(v, x, i), "gather main shape")
             for i in idxs[:3]),
-        lambda r: ops.gather_sq_dists(v, x, idxs[r]),
-        lambda r: ref.gather_sq_dists(v, x, idxs[r]), None,
-        (n_valid * d + B * d + 2 * B * K) * 4, 3.0 * n_valid * d)
-    del v, x, idxs
+        lambda r, v=v, x=x, i=idxs: ops.gather_sq_dists(v, x, i[r]),
+        lambda r, v=v, x=x, i=idxs: ref.gather_sq_dists(v, x, i[r]), None,
+        (rows * d + B * d + 2 * B * K) * 4, 3.0 * n_valid * d)
+
+    # its pair-list entry at the NLJ's pair block: P = 4,194,304 pairs
+    # over a 512-query block and the 1M data rows, query-major with the
+    # data ids ascending in each query, as nonzero gives them; checked bit
+    # for bit against the (B, K) entry over a copy of the query rows
+    x512 = rn(NLJ_QBLOCK, d)
+    qi, yi = nlj_pair_block(torch, inp, MAIN_N_DATA)
+    P = qi.numel()
+    pairs = ops.gather_sq_dists_pairs(v, x512, qi, yi)
+    if not torch.equal(pairs, ops.gather_sq_dists(
+            v, x512[qi.long()], yi[:, None].contiguous())[:, 0]):
+        raise AssertionError("gather pair block: the pair-list entry "
+                             "differs from the (B, K) entry")
+    out["gather_sq_dists_pairs"] = entry(
+        f"{P} pairs, ({NLJ_QBLOCK},{d}) x ({n_nodes},{d}), ids < "
+        f"{MAIN_N_DATA}",
+        check_rows(torch, pairs, ref.gather_sq_dists_pairs(v, x512, qi, yi),
+                   "gather pair block"),
+        lambda _, a=(v, x512, qi, yi): ops.gather_sq_dists_pairs(*a),
+        lambda _, a=(v, x512, qi, yi): ref.gather_sq_dists_pairs(*a), None,
+        (distinct_rows(torch, [yi]) * d + NLJ_QBLOCK * d + 3 * P) * 4,
+        3.0 * P * d)
+    del v, x, idxs, x512, pairs
 
     # pair list at the sq8 build's re-rank: survivors of a 4096-row block
     # (~256 per row) over the 1.01M-row table, in row order
@@ -804,8 +979,9 @@ def time_kernels(torch, ops, ref) -> dict:
         check_rows(torch, ops.pairlist_sq_dists(x, v, qi, yi, xn=xn, yn=vn),
                    ref.pairlist_sq_dists(x, v, xn, vn, qi, yi),
                    "pairlist main shape"),
-        lambda _: ops.pairlist_sq_dists(x, v, qi, yi, xn=xn, yn=vn),
-        lambda _: ref.pairlist_sq_dists(x, v, xn, vn, qi, yi), None,
+        lambda _, a=(x, v, qi, yi), kw=dict(xn=xn, yn=vn):
+            ops.pairlist_sq_dists(*a, **kw),
+        lambda _, a=(x, v, xn, vn, qi, yi): ref.pairlist_sq_dists(*a), None,
         P * d * 4 + B * d * 4 + P * 8 + (B + P) * 4 + P * 4, 2.0 * P * d)
     del v, x, qi, yi
 
@@ -815,8 +991,8 @@ def time_kernels(torch, ops, ref) -> dict:
     check_topk(torch, ops, ref, bd, bi, cd, ci, "main shape")
     out["topk_merge"] = entry(
         f"({B},{L})+({B},{K})", 0.0,
-        lambda _: ops.topk_merge(bd, bi, cd, ci),
-        lambda _: ref.topk_merge(bd, bi, cd, ci), None,
+        lambda _, a=(bd, bi, cd, ci): ops.topk_merge(*a),
+        lambda _, a=(bd, bi, cd, ci): ref.topk_merge(*a), None,
         B * (L + K) * 8 + B * L * 8, float(B * (L + K) * (L + K)))
     del bd, bi, cd, ci
 
@@ -828,7 +1004,7 @@ def time_kernels(torch, ops, ref) -> dict:
     s2 = float(st.scales[0]) ** 2
     yt = st.q.t()
 
-    def int_mm(_):
+    def int_mm(_, qx=qx, yt=yt, xn=xn, st=st, s2=s2):
         acc = torch._int_mm(qx, yt)
         return (xn[:, None] + st.norms[None, :]
                 - 2.0 * (s2 * acc.float())).clamp_min(0.0)
@@ -841,14 +1017,12 @@ def time_kernels(torch, ops, ref) -> dict:
     e8 = entry(
         f"({B},{d})x({N},{d}) int8",
         check_int8_pairwise(torch, ops, ref, st, qx, xn),
-        lambda _: ops.pairwise_sq_dists_int8(qx, st.q, st.scales, xn=xn,
-                                             yn=st.norms),
-        lambda _: ref.pairwise_sq_dists_int8(qx, st.q, st.scales), lib,
-        B * d + N * d + (B + N) * 4 + 4 + B * N * 4, 2.0 * B * N * d)
-    # the int8 operations count against the int8 tensor-core peak
-    e8["bound_ms"], e8["bound_by"] = bound_ms(
+        lambda _, qx=qx, st=st, xn=xn: ops.pairwise_sq_dists_int8(
+            qx, st.q, st.scales, xn=xn, yn=st.norms),
+        lambda _, qx=qx, st=st: ref.pairwise_sq_dists_int8(qx, st.q,
+                                                           st.scales), lib,
         B * d + N * d + (B + N) * 4 + 4 + B * N * 4, 2.0 * B * N * d,
-        PEAK_INT8_OPS)
+        PEAK_INT8_OPS)    # int8 operations on the int8 tensor-core peak
     out["pairwise_sq_dists_int8"] = e8
 
     # the fused bounds entry (#6') at the same block: d̂ and both bounds in
@@ -862,14 +1036,15 @@ def time_kernels(torch, ops, ref) -> dict:
     e8b = entry(
         f"({B},{d})x({N},{d}) int8 -> (lb, ub)",
         check_int8_bounds(torch, ops, ref, st, qx, xn, xe),
-        lambda _: ops.pairwise_bounds_int8(qx, st.q, st.scales, **kw),
-        lambda _: ref.int8_bounds(ref.pairwise_sq_dists_int8(
-            qx, st.q, st.scales), xn, st.norms, xe, ye, MATMUL_GUARD),
-        None if lib is None else (lambda _: ref.int8_bounds(
-            int_mm(0), xn, st.norms, xe, ye, MATMUL_GUARD)),
-        nb, 2.0 * B * N * d)
-    e8b["bound_ms"], e8b["bound_by"] = bound_ms(nb, 2.0 * B * N * d,
-                                                PEAK_INT8_OPS)
+        lambda _, qx=qx, st=st, kw=kw: ops.pairwise_bounds_int8(
+            qx, st.q, st.scales, **kw),
+        lambda _, qx=qx, st=st, a=(xn, st.norms, xe, ye, MATMUL_GUARD):
+            ref.int8_bounds(ref.pairwise_sq_dists_int8(qx, st.q, st.scales),
+                            *a),
+        None if lib is None else (
+            lambda _, lib=lib, a=(xn, st.norms, xe, ye, MATMUL_GUARD):
+                ref.int8_bounds(lib(0), *a)),
+        nb, 2.0 * B * N * d, PEAK_INT8_OPS)
     out["pairwise_bounds_int8"] = e8b
     del st, qx, xn, yt, xe, ye
 
@@ -880,6 +1055,7 @@ def time_kernels(torch, ops, ref) -> dict:
     qx = quantize_queries(rn(B, d), st)[0]
     idxs = [ids(B, K, n_nodes, 0.5) for _ in range(REPS)]
     n_valid = sum(int((i >= 0).sum()) for i in idxs) / REPS
+    rows = distinct_rows(torch, idxs)
     out["rowwise_sq_dists_int8"] = entry(
         f"gather form: ({n_nodes},{d}) int8 rows, ({B},{K}) ids, "
         f"{n_valid:.0f} valid",
@@ -887,10 +1063,75 @@ def time_kernels(torch, ops, ref) -> dict:
             st.q, qx, i, st.scales), ref.gather_sq_dists_int8(
             st.q, qx, i, st.scales), "int8 gather main shape")
             for i in idxs[:3]),
-        lambda r: ops.gather_sq_dists_int8(st.q, qx, idxs[r], st.scales),
-        lambda r: ref.gather_sq_dists_int8(st.q, qx, idxs[r], st.scales),
-        None, n_valid * d + B * d + 2 * B * K * 4 + 4, 3.0 * n_valid * d)
-    del st, qx, idxs
+        lambda r, st=st, qx=qx, i=idxs: ops.gather_sq_dists_int8(
+            st.q, qx, i[r], st.scales),
+        lambda r, st=st, qx=qx, i=idxs: ref.gather_sq_dists_int8(
+            st.q, qx, i[r], st.scales),
+        None, rows * d + B * d + 2 * B * K * 4 + 4, 3.0 * n_valid * d)
+
+    # #7': the same gather with the int8 tier's certified bounds in its
+    # epilogue (Int8Tier.gather_bounds); plain: the torch composition over
+    # the plain (dequantizing) d̂. Bit for bit the composition over the
+    # kernel's d̂
+    qe = quantize_queries(rn(B, d), st)
+    qx, xe = qe[0], qe[2]
+    err7 = 0.0
+    for i in idxs[:3]:
+        check_int8_gathers(torch, ops, ref, st.q, qx, i, st.scales,
+                           st.group_size, st.err, xe, "main shape")
+        err7 = max(err7, check_int8_bound_rows(
+            torch, ops.gather_bounds_int8(st.q, qx, i, st.scales, err=st.err,
+                                          qerr=xe),
+            ref.gather_bounds_int8(st.q, qx, i, st.scales, st.err, xe),
+            "int8 gather bounds main shape"))
+    out["gather_bounds_int8"] = entry(
+        f"({n_nodes},{d}) int8 rows, ({B},{K}) ids, {n_valid:.0f} valid "
+        f"-> (lb, ub)", err7,
+        lambda r, st=st, qx=qx, xe=xe, i=idxs: ops.gather_bounds_int8(
+            st.q, qx, i[r], st.scales, err=st.err, qerr=xe),
+        lambda r, st=st, qx=qx, xe=xe, i=idxs: ref.gather_bounds_int8(
+            st.q, qx, i[r], st.scales, st.err, xe), None,
+        rows * (d + 4) + B * (d + 4) + 3 * B * K * 4 + 4, 3.0 * n_valid * d)
+
+    # #7' pair-list entry at the NLJ's pair block (the sketch8 escalation's
+    # Int8Tier.pair_refine), over the 1M data rows' codes: bit for bit the
+    # composition over the (B, K) entry's d̂ on a (P, 1) id column over a
+    # copy of the query rows (itself bit for bit its exact plain version),
+    # in slices; then against its plain version
+    q512, _, e512 = quantize_queries(rn(NLJ_QBLOCK, d), st)
+    qi, yi = nlj_pair_block(torch, inp, MAIN_N_DATA)
+    P = qi.numel()
+    lb, ub = ops.gather_bounds_int8_pairs(st.q, q512, qi, yi, st.scales,
+                                          err=st.err, qerr=e512)
+    for c0 in range(0, P, 1 << 20):
+        sl = slice(c0, c0 + (1 << 20))
+        q_c = q512[qi[sl].long()]
+        y_c = yi[sl][:, None].contiguous()
+        dh = ops.gather_sq_dists_int8(st.q, q_c, y_c, st.scales)[:, 0]
+        if not torch.equal(dh, ref.gather_sq_dists_int8_exact(
+                st.q, q_c, y_c, st.scales)[:, 0]):
+            raise AssertionError("int8 gather pair block: differs from its "
+                                 "exact plain version")
+        wlb, wub = ref.gather_bounds(dh, e512[qi[sl].long()]
+                                     + st.err[yi[sl].long()])
+        if not (torch.equal(lb[sl], wlb) and torch.equal(ub[sl], wub)):
+            raise AssertionError("int8 gather bounds pair block: differ from "
+                                 "the composition over the kernel's d̂")
+    err7 = check_int8_bound_rows(
+        torch, (lb, ub), ref.gather_bounds_int8_pairs(
+            st.q, q512, qi, yi, st.scales, st.err, e512),
+        "int8 gather bounds pair block")
+    rows = distinct_rows(torch, [yi])
+    a7 = (st.q, q512, qi, yi, st.scales)
+    out["gather_bounds_int8_pairs"] = entry(
+        f"{P} pairs, ({NLJ_QBLOCK},{d}) x ({n_nodes},{d}) int8, ids < "
+        f"{MAIN_N_DATA} -> (lb, ub)", err7,
+        lambda _, a=a7, kw=dict(err=st.err, qerr=e512):
+            ops.gather_bounds_int8_pairs(*a, **kw),
+        lambda _, a=a7 + (st.err, e512): ref.gather_bounds_int8_pairs(*a),
+        None,
+        rows * (d + 4) + NLJ_QBLOCK * (d + 4) + 4 * P * 4 + 4, 3.0 * P * d)
+    del st, qx, idxs, q512, dh, lb, ub, wlb, wub, a7
 
     # pairwise Hamming at the sketch NLJ's block: 512 queries x the 1M-row
     # codes, W = 4 (d = 128); XOR, popcount and add per word counted as
@@ -900,9 +1141,10 @@ def time_kernels(torch, ops, ref) -> dict:
     check_hamming_pairwise(torch, ops, ref, cx, cy)
     out["pairwise_hamming"] = entry(
         f"({B},{W})x({N},{W}) int32 words", 0.0,
-        lambda _: ops.pairwise_hamming(cx, cy),
-        lambda _: [ref.pairwise_hamming(cx[r:r + 32], cy)   # int64 words
-                   for r in range(0, B, 32)], None,
+        lambda _, cx=cx, cy=cy: ops.pairwise_hamming(cx, cy),
+        lambda _, cx=cx, cy=cy: [ref.pairwise_hamming(cx[r:r + 32], cy)
+                                 for r in range(0, len(cx), 32)],  # int64
+        None,
         (B + N) * W * 4 + B * N * 4, 3.0 * B * N * W)
     del cx, cy
 
@@ -916,8 +1158,9 @@ def time_kernels(torch, ops, ref) -> dict:
     out["rowwise_hamming"] = entry(
         f"gather form: ({n_nodes},{W}) words, ({B},{K}) ids, "
         f"{n_valid:.0f} valid", 0.0,
-        lambda r: ops.gather_hamming(codes, cx, idxs[r]),
-        lambda r: ref.gather_hamming(codes, cx, idxs[r]), None,
+        lambda r, c=codes, cx=cx, i=idxs: ops.gather_hamming(c, cx, i[r]),
+        lambda r, c=codes, cx=cx, i=idxs: ref.gather_hamming(c, cx, i[r]),
+        None,
         n_valid * W * 4 + B * W * 4 + 2 * B * K * 4, 3.0 * n_valid * W)
     del codes, cx, idxs
 
@@ -939,7 +1182,7 @@ def time_kernels(torch, ops, ref) -> dict:
     xs = [qc.q[:, k * slab:(k + 1) * slab].contiguous() for k in range(S)]
     ys = [st.q[:, k * slab:(k + 1) * slab].contiguous().t() for k in range(S)]
 
-    def int_mm_pdx(_):
+    def int_mm_pdx(_, B=B, N=N, S=S, st=st, qc=qc, xs=xs, ys=ys):
         acc = torch.zeros((B, N), device=inp.dev)
         for k in range(S):
             s2 = st.scales[k] * st.scales[k]
@@ -956,11 +1199,10 @@ def time_kernels(torch, ops, ref) -> dict:
     nbytes = (B + N) * (d + 4 * (2 * S + 2)) + 2 * B * N * 4
     e = entry(f"({B},{d})x({N},{d}) int8, S={S}, early exit on, "
               f"{scanned / (B * N * S):.4f} of slabs scanned", err,
-              lambda _: ops.pairwise_sq_dists_pdx(*args, **kw),
-              lambda _: ref.pairwise_sq_dists_pdx(*args, **kw), lib,
-              nbytes, 2.0 * scanned * slab)
-    e["bound_ms"], e["bound_by"] = bound_ms(nbytes, 2.0 * scanned * slab,
-                                            PEAK_INT8_OPS)
+              lambda _, a=args, kw=kw: ops.pairwise_sq_dists_pdx(*a, **kw),
+              lambda _, a=args, kw=kw: ref.pairwise_sq_dists_pdx(*a, **kw),
+              lib,
+              nbytes, 2.0 * scanned * slab, PEAK_INT8_OPS)
     out["pairwise_sq_dists_pdx"] = e
     del st, qc, args, xs, ys
 
@@ -982,12 +1224,12 @@ def time_kernels(torch, ops, ref) -> dict:
     out["pdx_gather_sq_dists"] = entry(
         f"({n_nodes},{d}) f32 PDX rows, ({B},{K}) ids, {n_valid:.0f} valid, "
         f"{scanned / max(n_valid * S, 1):.4f} of their slabs scanned", err,
-        lambda r: ops.pdx_gather_sq_dists(st.vp, st.ftail, vn, qc.vp,
-                                          qc.ftail, xn, idxs[r], th2, dim=d,
-                                          early_exit=True),
-        lambda r: ref.pdx_gather_sq_dists(st.vp, st.ftail, vn, qc.vp,
-                                          qc.ftail, xn, idxs[r], th2, dim=d,
-                                          early_exit=True), None,
+        lambda r, a=(st.vp, st.ftail, vn, qc.vp, qc.ftail, xn), i=idxs,
+        t2=th2, kw=dict(dim=d, early_exit=True):
+            ops.pdx_gather_sq_dists(*a, i[r], t2, **kw),
+        lambda r, a=(st.vp, st.ftail, vn, qc.vp, qc.ftail, xn), i=idxs,
+        t2=th2, kw=dict(dim=d, early_exit=True):
+            ref.pdx_gather_sq_dists(*a, i[r], t2, **kw), None,
         scanned * slab * 4 + n_valid * (S + 1) * 4 + B * (d + S + 1) * 4
         + 3 * B * K * 4, 3.0 * scanned * slab)
     del st, qc, idxs
@@ -1004,12 +1246,23 @@ def time_kernels(torch, ops, ref) -> dict:
     out["nlj_count"] = entry(
         f"({B},{d})x({N},{d}), {within:.4f} of pairs within θ",
         check_nlj_count(torch, ops, ref, x, y, theta),
-        lambda _: ops.nlj_count(x, y, theta=theta),
-        lambda _: ref.nlj_count(x, y, theta),
-        lambda _: ((xn[:, None] + yn[None, :] - 2.0 * torch.matmul(x, y.T))
-                   .clamp_min(0.0) < th2).sum(1, dtype=torch.int32),
+        lambda _, x=x, y=y, t=theta: ops.nlj_count(x, y, theta=t),
+        lambda _, x=x, y=y, t=theta: ref.nlj_count(x, y, t),
+        lambda _, x=x, y=y, xn=xn, yn=yn, t2=th2: (
+            (xn[:, None] + yn[None, :] - 2.0 * torch.matmul(x, y.T))
+            .clamp_min(0.0) < t2).sum(1, dtype=torch.int32),
         (B * d + N * d) * 4 + B * 4, 2.0 * B * N * d)
     del x, y, xn, yn
+
+    # every event median is taken; now the device times
+    for r, key, fn in pending:
+        ms = profiled_ms(torch, fn)
+        r[key] = ms if ms > 0 else event_ms(torch, fn)
+    mm_ms = mm["ms"]
+    out["pairwise_sq_dists"]["mm_ms"] = mm_ms
+    log(f"[kernels] pairwise_sq_dists: torch.mm (TF32 off) of the same "
+        f"operands {mm_ms:.4f} ms, {mm['flops'] / mm_ms / 1e9:.1f} TFLOP/s; "
+        f"the kernel {mm['flops'] / out['pairwise_sq_dists']['ms'] / 1e9:.1f}")
     for name, r in out.items():
         log(f"[kernels] {name} {r['shape']}: max_abs_err={r['max_abs_err']} "
             f"ms={r['ms']:.4f} (events {r['event_ms']:.4f}) "
@@ -1303,10 +1556,13 @@ def run_mode(torch, ops, run: dict, mode: str, *, floor: float, kernels,
     st = res.stats
     new_builds = {k: v - builds0[k] for k, v in eng.build_counts.items()
                   if v != builds0[k]}
+    names = TIERS_BY_MODE[mode]
+    # the share of candidates a sketch tier pruned, where the mode has one
+    pruned = (f"sketch_pruned_frac={1 - st.n_esc8 / max(st.n_dist, 1):.4f} "
+              if "sketch1" in names else "")
     log(f"[{tag}] stores_s={store_s:.2f} (new builds {new_builds}) "
         f"join_s={join_s:.2f} pairs={len(res.pairs)} n_dist={st.n_dist} "
-        f"n_iters={st.n_iters} n_esc8={st.n_esc8} "
-        f"sketch_pruned_frac={1 - st.n_esc8 / max(st.n_dist, 1):.4f} "
+        f"n_iters={st.n_iters} n_esc8={st.n_esc8} {pruned}"
         f"n_rerank={st.n_rerank} overflow_retries={st.overflow_retries} "
         f"dims_scanned_frac={st.dims_scanned_frac:.4f} "
         f"n_overflow={st.n_overflow} n_ood={st.n_ood} "
@@ -1327,7 +1583,6 @@ def run_mode(torch, ops, run: dict, mode: str, *, floor: float, kernels,
         f"recall_within_pool_cap={rec_cap:.6f} (floor {floor})")
     if rec < floor:
         raise AssertionError(f"{tag}: recall {rec} below the floor {floor}")
-    names = TIERS_BY_MODE[mode]
     if "sketch1" in names and st.n_esc8 <= 0:
         raise AssertionError(f"{tag}: no candidate escalated past the sketch")
     missing = [k for k in kernels if launches[k] == 0]
@@ -1423,11 +1678,11 @@ def check_nlj_count_main(torch, ops, run: dict) -> dict:
 # prune: pairwise, top-k merge; mean_nbr_dist: rowwise), the caching
 # methods' MST takes its star keys with rowwise and its edges with gather,
 # every traversal probes with gather; under sq8 the probes go through the
-# int8 gather and the band re-rank through the f32 gather
+# int8 gather bounds and the band re-rank through the f32 gather
 SEARCH_KERNELS = ("pairwise_sq_dists", "topk_merge", "gather_sq_dists",
                   "rowwise_sq_dists")
 CACHING_KERNELS = ("gather_sq_dists", "rowwise_sq_dists")
-SEARCH_SQ8_KERNELS = ("rowwise_sq_dists_int8", "gather_sq_dists",
+SEARCH_SQ8_KERNELS = ("gather_bounds_int8", "gather_sq_dists",
                       "rowwise_sq_dists")
 # (method, kernels its join must launch, queries it runs on)
 SEARCH_RUNS = (("es_sws", SEARCH_KERNELS, MAIN_N_QUERY),
@@ -1604,6 +1859,64 @@ def profile_join(torch, run: dict) -> None:
             f"x{e.count:<8d} {e.key[:100]}")
 
 
+def trace_pair_block(torch) -> None:
+    """One pair block of the NLJ's escalation (``join.escalate_block``:
+    the int8 tier's ``pair_refine``, the band split, the f32 re-rank of the
+    band) under torch.profiler: PAIR_BLOCK pairs over an NLJ_QBLOCK-query
+    block and MAIN_N_DATA random rows (d = 128), each passed by tier 0
+    with lower bound 0, θ² at the 1st percentile of the int8 lower bounds
+    (a sparse band, as at the main path's θ). Logs the unprofiled wall
+    time of a block, its device time, the share of the port's kernels
+    (``csrc/``, in anonymous namespaces; torch's are in ``at::native``)
+    and the costliest device ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.join import escalate_block
+    from repro_torch.quant.cascade import Int8Tier
+    from repro_torch.quant.store import build_store
+    inp = Inputs(torch)
+    Y, xb = inp.rn(MAIN_N_DATA, 128), inp.rn(NLJ_QBLOCK, 128)
+    tier = Int8Tier(build_store(Y))
+    qc = tier.encode(xb)
+    qi, yi = (t.long() for t in nlj_pair_block(torch, inp, MAIN_N_DATA))
+    lb0 = tier.pair_refine(qc, qi, yi)[0]
+    th2 = float(lb0.kthvalue(qi.numel() // 100).values)
+    plb = torch.zeros_like(lb0)
+    del lb0
+    counts = {"escalated": [0], "n_rerank": 0}
+
+    def block():
+        return escalate_block([tier], [qc], xb, Y, qi, yi, plb, 0, th2, None,
+                              counts)
+    n = 5
+    block()
+    torch.cuda.synchronize()
+    counts["n_rerank"] = 0
+    t0 = time.perf_counter()
+    for _ in range(n):
+        block()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            block()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = kernel_us(prof, DeviceType) / n / 1e3
+    ours = sum(e.self_device_time_total for e in rows
+               if "(anonymous namespace)::" in e.key
+               and "at::native" not in e.key) / n / 1e3
+    log(f"[trace] NLJ pair block ({qi.numel()} pairs, band "
+        f"{counts['n_rerank'] / n:.0f}): unprofiled wall {wall:.4f} ms a "
+        f"block; device {busy:.4f} ms ({busy / wall:.3f} of the wall), the "
+        f"port's kernels {ours:.4f} ms, torch's ops {busy - ours:.4f} ms; "
+        f"{sum(e.count for e in rows) / n:.1f} device ops a block")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[trace]   {e.self_device_time_total / n / 1e3:9.4f} ms "
+            f"x{e.count / n:5.1f} {e.key[:100]}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1695,6 +2008,7 @@ def main() -> int:
     del ood8["eng"]
 
     table = time_kernels(torch, ops, ref)
+    trace_pair_block(torch)
     profile_join(torch, ood_run)
 
     replaces = {
@@ -1702,10 +2016,13 @@ def main() -> int:
         "pairlist_sq_dists": "src/repro/kernels/distance.py:54",
         "rowwise_sq_dists": "src/repro/kernels/distance.py:106",
         "gather_sq_dists": "src/repro/kernels/gather_distance.py:47",
+        "gather_sq_dists_pairs": "src/repro/kernels/gather_distance.py:47",
         "topk_merge": "src/repro/kernels/topk_merge.py:70",
         "pairwise_sq_dists_int8": "src/repro/kernels/int8.py:64",
         "pairwise_bounds_int8": "src/repro/kernels/int8.py:64",
         "rowwise_sq_dists_int8": "src/repro/kernels/int8.py:119",
+        "gather_bounds_int8": "src/repro/kernels/int8.py:119",
+        "gather_bounds_int8_pairs": "src/repro/kernels/int8.py:119",
         "pairwise_hamming": "src/repro/kernels/bits.py:56",
         "rowwise_hamming": "src/repro/kernels/bits.py:93",
         "pairwise_sq_dists_pdx": "src/repro/kernels/pdx.py:116",
@@ -1714,14 +2031,12 @@ def main() -> int:
     }
     source = {k: "src/repro_torch/kernels/csrc/distance.cu" for k in
               ("pairwise_sq_dists", "pairlist_sq_dists", "rowwise_sq_dists",
-               "gather_sq_dists")}
-    source.update(topk_merge="src/repro_torch/kernels/csrc/topk_merge.cu",
-                  pairwise_sq_dists_int8="src/repro_torch/kernels/csrc/"
-                                         "int8.cu",
-                  pairwise_bounds_int8="src/repro_torch/kernels/csrc/"
-                                       "int8.cu",
-                  rowwise_sq_dists_int8="src/repro_torch/kernels/csrc/"
-                                        "int8.cu")
+               "gather_sq_dists", "gather_sq_dists_pairs")}
+    source.update({k: "src/repro_torch/kernels/csrc/int8.cu" for k in
+                   ("pairwise_sq_dists_int8", "pairwise_bounds_int8",
+                    "rowwise_sq_dists_int8", "gather_bounds_int8",
+                    "gather_bounds_int8_pairs")})
+    source["topk_merge"] = "src/repro_torch/kernels/csrc/topk_merge.cu"
     source.update({k: "src/repro_torch/kernels/csrc/bits.cu"
                    for k in ("pairwise_hamming", "rowwise_hamming")})
     source.update({k: "src/repro_torch/kernels/csrc/pdx.cu"

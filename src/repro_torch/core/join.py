@@ -11,7 +11,8 @@ as they are; otherwise the survivors ``lb < θ²`` escalate pair by pair
 through the later tiers (``pair_refine``: the running maximum of lower
 bounds, the last tier's upper bound), in device-resident pair blocks. The
 final ambiguous band is re-ranked exactly in difference form by the f32
-gather kernel, one (P, 1) id column. The emitted order is per block:
+gather kernel's pair-list entry, which reads each pair's query row in
+place. The emitted order is per block:
 certified pairs, then re-ranked ones (the reference's order differs; the
 set is the same).
 """
@@ -101,42 +102,56 @@ def cascade_join_pairs(X, Y, theta: float, cascade=None, *, block: int = 512,
             continue
         qcs = [t.encode(xb) for t in tiers[1:]]
         for p0 in range(0, qi.numel(), pair_block):
-            qp, yp = qi[p0:p0 + pair_block], yi[p0:p0 + pair_block]
-            plb = plb_all[p0:p0 + pair_block]
-            pub = None
-            keep = torch.ones_like(qp, dtype=torch.bool)
-            for t, tier in enumerate(tiers[1:]):
-                sel = torch.nonzero(keep, as_tuple=True)[0]
-                counts["escalated"][t] += int(sel.numel())
-                tlb, tub = tier.pair_refine(qcs[t], qp[sel], yp[sel])
-                plb = plb.clone()
-                plb[sel] = torch.maximum(plb[sel], tlb)
-                if tub is not None:
-                    pub = torch.full_like(plb, float("inf"))
-                    pub[sel] = tub
-                keep = keep & (plb < th2)
-            if pub is not None:
-                sure = keep & (pub < th2)
-                out.append(_pairs(qp[sure], yp[sure], q0))
-                amb = keep & ~sure
-            else:
-                amb = keep
-            counts["n_rerank"] += int(amb.sum())
-            out.append(_rerank_pairs(xb, Y, qp[amb], yp[amb], q0, th2, impl))
+            out.extend(escalate_block(
+                tiers[1:], qcs, xb, Y, qi[p0:p0 + pair_block],
+                yi[p0:p0 + pair_block], plb_all[p0:p0 + pair_block], q0,
+                th2, impl, counts))
     counts["escalated"] = tuple(counts["escalated"])
     if not out:
         return np.empty((0, 2), np.int64), counts
     return torch.cat(out).cpu().numpy().astype(np.int64), counts
 
 
+def escalate_block(tiers, qcs, xb: torch.Tensor, Y: torch.Tensor,
+                   qp: torch.Tensor, yp: torch.Tensor, plb: torch.Tensor,
+                   q0: int, th2: float, impl: str | None,
+                   counts: dict) -> list[torch.Tensor]:
+    """One device-resident pair block of the escalation: each of ``tiers``
+    (encoded queries ``qcs``) refines the pairs still kept, the running
+    maximum of lower bounds from ``plb`` on, the last tier's upper bound;
+    the certified-sure pairs are emitted and the ambiguous band re-ranked
+    in f32. Adds to ``counts``; returns the block's (P', 2) pair tensors."""
+    out = []
+    pub = None
+    keep = torch.ones_like(qp, dtype=torch.bool)
+    for t, tier in enumerate(tiers):
+        sel = torch.nonzero(keep, as_tuple=True)[0]
+        counts["escalated"][t] += int(sel.numel())
+        tlb, tub = tier.pair_refine(qcs[t], qp[sel], yp[sel])
+        plb = plb.clone()
+        plb[sel] = torch.maximum(plb[sel], tlb)
+        if tub is not None:
+            pub = torch.full_like(plb, float("inf"))
+            pub[sel] = tub
+        keep = keep & (plb < th2)
+    if pub is not None:
+        sure = keep & (pub < th2)
+        out.append(_pairs(qp[sure], yp[sure], q0))
+        amb = keep & ~sure
+    else:
+        amb = keep
+    counts["n_rerank"] += int(amb.sum())
+    out.append(_rerank_pairs(xb, Y, qp[amb], yp[amb], q0, th2, impl))
+    return out
+
+
 def _rerank_pairs(xb: torch.Tensor, Y: torch.Tensor, qi: torch.Tensor,
                   yi: torch.Tensor, q0: int, th2: float,
                   impl: str | None) -> torch.Tensor:
     """Exact f32 difference-form distances of explicit band pairs (the f32
-    gather kernel over a (P, 1) id column) → the (P', 2) pairs < θ²."""
-    d = ops.gather_sq_dists(Y, xb[qi].contiguous(),
-                            yi.to(torch.int32)[:, None].contiguous(),
-                            impl=impl)[:, 0]
+    gather kernel's pair-list entry) → the (P', 2) pairs < θ²."""
+    d = ops.gather_sq_dists_pairs(Y, xb, qi.to(torch.int32),
+                                  yi.to(torch.int32), impl=impl)
     m = d < th2
     return _pairs(qi[m], yi[m], q0)
 

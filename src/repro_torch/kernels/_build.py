@@ -40,14 +40,15 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "repro_pairwise_sq_dists": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "repro_rowwise_sq_dists": (_P, _P, _P, _LL, _I, _I, _I, _P),
-    "repro_gather_sq_dists": (_P, _P, _P, _P, _LL, _I, _I, _LL, _I, _P),
+    "repro_gather_sq_dists": (_P, _P, _P, _P, _P, _LL, _I, _I, _LL, _I, _I,
+                              _P),
     "repro_pairlist_sq_dists": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _LL,
                                 _LL, _P),
     "repro_pairwise_sq_dists_int8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _P),
     "repro_pairwise_bounds_int8": (_P,) * 9 + (_I, _I, _I, _I, _F, _P),
-    "repro_rowwise_sq_dists_int8": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _LL,
-                                    _I, _P),
+    "repro_rowwise_sq_dists_int8": (_P,) * 9 + (_LL, _I, _I, _I, _LL, _I,
+                                                 _I, _P),
     "repro_topk_merge": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "repro_pairwise_hamming": (_P, _P, _P, _I, _I, _I, _I, _P),
     "repro_rowwise_hamming": (_P, _P, _P, _P, _LL, _I, _I, _LL, _I, _P),
@@ -125,6 +126,8 @@ def build() -> Path:
 def load() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
+    if _lib is not None:            # every launch asks: no lock once loaded
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))

@@ -27,20 +27,31 @@
 // 2. repro_rowwise_sq_dists — replaces
 //    repro/kernels/distance.py::rowwise_sq_dists_pallas.
 //    out[b, k] = sum_i (c[b,k,i] - x[b,i])^2, (B,d) x (B,K,d) -> (B,K).
+//    Bound: each candidate row is used once, so the bytes moved. Design:
+//    one warp per (query, candidate) pair; lane l sums the float4 slots
+//    l, l+32, ... of the row (one coalesced 512-byte read at d = 128; a
+//    scalar loop when d % 4 != 0) as one fmaf chain, then an xor-tree of
+//    shuffles (offsets 16, 8, 4, 2, 1) adds the 32 partials.
 // 3. repro_gather_sq_dists — replaces
 //    repro/kernels/gather_distance.py::gather_sq_dists_pallas.
-//    out[b, k] = sum_i (vecs[idx[b,k], i] - x[b,i])^2, +inf where idx is
-//    outside [0, N) (NO_NODE).
-//    Bound: each candidate row is used once, so both are bound by the
-//    bytes moved (rows + queries + ids + outputs over HBM bandwidth).
-//    Design: one warp per (query, candidate) pair; lanes stride the row
-//    with 16-byte float4 loads (one coalesced 512-byte read at d = 128),
-//    a scalar loop when d % 4 != 0, fmaf accumulation and a shuffle
-//    reduction. The gather variant reads the id itself and loads the row
-//    straight from the vector table, so the (B, K, d) gathered tensor the
-//    JAX traversal materializes never exists in device memory; an invalid
-//    id reads no row at all.
-//
+//    out[p] = sum_i (vecs[idx[p], i] - x[q(p), i])^2 with q(p) = p / K for
+//    the (B, K) id matrix the traversal probes with, or q(p) = qi[p] for a
+//    pair list (the NLJ's band re-rank: no copy of the pairs' query rows);
+//    +inf where idx (or qi) is out of range (NO_NODE), with no row read.
+//    Bound: each candidate row is used once, so the bytes moved (rows +
+//    queries + ids + outputs over HBM bandwidth). At the traversal's shape
+//    (256 x 128 ids, half NO_NODE, ~8 MB of rows) that is ~2.5 us: the
+//    latency of the id -> row chain, not the bandwidth, sets the time.
+//    Design: a warp owns a run of 8 pairs. Lanes 0-7 read the run's ids
+//    (and query rows) with one coalesced load, a ballot drops the NO_NODE
+//    slots before any row read (a run with none valid reads no row), and
+//    every lane then issues its float4 slot of all 8 rows before summing
+//    any (4 KB of a warp in flight at d = 128), with the query row read
+//    once per run while the pairs share it. Each lane's slots and fmaf
+//    order, and the xor-tree of the reduction, are the rowwise kernel's
+//    (2), so the values are bit for bit the one-warp-a-pair kernel's; the
+//    tree runs on the 8 sums at once (a lane keeps half of its sums and
+//    trades the other half at the first levels: 5 shuffles, not 40).
 // 4. repro_pairlist_sq_dists — the pair-list entry of (1): out[p] =
 //    max(xn[qi[p]] + yn[yi[p]] - 2 * <x_qi, y_yi>, 0) for explicit
 //    (query, data) id pairs. It exists so that an exact re-rank of a
@@ -150,21 +161,116 @@ rowwise_kernel(const float* __restrict__ x, const float* __restrict__ cands,
   if (lane == 0) out[pair] = s;
 }
 
-__global__ void __launch_bounds__(kThreads)
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kGatherWarps = 4;      // warps a block
+constexpr int kRun = 8;              // pairs a warp owns
+
+// warp_sum's xor-tree run on kRun sums at once. At the first levels
+// (offsets 16, 8, 4) a lane keeps half of its sums and sends the other
+// half to its partner, then the one left goes on as in warp_sum: every
+// sum still adds each partial pair as own + partner's at the same level
+// as warp_sum does, so the totals are warp_sum's bit for bit (in 3 + 2
+// shuffles for 8 sums, not 40). Lane l ends with the total of sum l >> 2.
+__device__ __forceinline__ float warp_sum_run(float (&v)[kRun], int lane) {
+  int o = 16;
+#pragma unroll
+  for (int h = kRun / 2; h >= 1; h >>= 1, o >>= 1) {
+    const bool up = lane & o;
+#pragma unroll
+    for (int k = 0; k < h; ++k) {
+      const float send = up ? v[k] : v[k + h];
+      const float keep = up ? v[k + h] : v[k];
+      v[k] = __fadd_rn(keep, __shfl_xor_sync(kFull, send, o));
+    }
+  }
+  float s = v[0];
+#pragma unroll
+  for (; o >= 1; o >>= 1) s = __fadd_rn(s, __shfl_xor_sync(kFull, s, o));
+  return s;
+}
+
+// idx: the pairs' candidate ids; qi: their query rows (pair list), or
+// nullptr for the (B, K) form (query row p / K). VEC4: d % 4 == 0 and
+// 16-byte aligned bases (lane l takes float4 slots l, l+32, ...), else
+// lane l takes floats l, l+32, ... — warp_row_sq_dist's two mappings.
+template <bool VEC4>
+__global__ void __launch_bounds__(kGatherWarps * 32)
 gather_kernel(const float* __restrict__ vecs, const float* __restrict__ x,
-              const int* __restrict__ idx, float* __restrict__ out,
-              long long n_pairs, int K, int d, long long N, int vec4) {
-  const long long pair = (long long)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+              const int* __restrict__ idx, const int* __restrict__ qi,
+              float* __restrict__ out, long long n_pairs, int K, int d,
+              long long N, int B) {
   const int lane = threadIdx.x & 31;
-  if (pair >= n_pairs) return;  // uniform across the warp
-  const int id = __ldg(idx + pair);
-  if (id < 0 || (long long)id >= N) {
-    if (lane == 0) out[pair] = INFINITY;
+  const long long p0 =
+      ((long long)blockIdx.x * kGatherWarps + threadIdx.x / 32) * kRun;
+  if (p0 >= n_pairs) return;           // uniform across the warp
+  const long long p = p0 + (lane & (kRun - 1));
+  const bool in = lane < kRun && p < n_pairs;
+  int id = 0, q = 0;
+  bool ok = false;
+  if (in) {                            // n_pairs < 2^31: 32-bit division
+    id = __ldg(idx + p);
+    q = qi != nullptr ? __ldg(qi + p)
+                      : (int)(static_cast<unsigned>(p) /
+                              static_cast<unsigned>(K));
+    ok = id >= 0 && (long long)id < N && q >= 0 && q < B;
+  }
+  const unsigned valid = __ballot_sync(kFull, ok);
+  if (valid == 0u) {                   // NO_NODE only: no row is read
+    if (in) out[p] = INFINITY;
     return;
   }
-  const long long b = pair / K;
-  const float s = warp_row_sq_dist(vecs + (long long)id * d, x + b * d, d, vec4, lane);
-  if (lane == 0) out[pair] = s;
+  if (!ok) id = q = 0;                 // a slot that reads nothing
+  int idr[kRun], qr[kRun];
+#pragma unroll
+  for (int r = 0; r < kRun; ++r) {
+    idr[r] = __shfl_sync(kFull, id, r);
+    qr[r] = __shfl_sync(kFull, q, r);
+  }
+  float acc[kRun];
+#pragma unroll
+  for (int r = 0; r < kRun; ++r) acc[r] = 0.f;
+  if (VEC4) {
+    const int d4 = d >> 2;
+    const float4* v4 = reinterpret_cast<const float4*>(vecs);
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    for (int i = lane; i < d4; i += 32) {
+      float4 c[kRun];                  // every row's slot in flight first
+#pragma unroll
+      for (int r = 0; r < kRun; ++r)
+        c[r] = (valid >> r) & 1u ? __ldg(v4 + (long long)idr[r] * d4 + i)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 b = __ldg(x4 + (long long)qr[0] * d4 + i);
+#pragma unroll
+      for (int r = 0; r < kRun; ++r) {
+        if (r > 0 && qr[r] != qr[r - 1])
+          b = __ldg(x4 + (long long)qr[r] * d4 + i);
+        float t = c[r].x - b.x; acc[r] = fmaf(t, t, acc[r]);
+        t = c[r].y - b.y; acc[r] = fmaf(t, t, acc[r]);
+        t = c[r].z - b.z; acc[r] = fmaf(t, t, acc[r]);
+        t = c[r].w - b.w; acc[r] = fmaf(t, t, acc[r]);
+      }
+    }
+  } else {
+    for (int i = lane; i < d; i += 32) {
+      float c[kRun];
+#pragma unroll
+      for (int r = 0; r < kRun; ++r)
+        c[r] = (valid >> r) & 1u ? __ldg(vecs + (long long)idr[r] * d + i)
+                                 : 0.f;
+      float b = __ldg(x + (long long)qr[0] * d + i);
+#pragma unroll
+      for (int r = 0; r < kRun; ++r) {
+        if (r > 0 && qr[r] != qr[r - 1])
+          b = __ldg(x + (long long)qr[r] * d + i);
+        const float t = c[r] - b;
+        acc[r] = fmaf(t, t, acc[r]);
+      }
+    }
+  }
+  const float s = warp_sum_run(acc, lane);
+  const int m = lane >> 2;             // the pair whose total this lane holds
+  if ((lane & 3) == 0 && p0 + m < n_pairs)
+    out[p0 + m] = (valid >> m) & 1u ? s : INFINITY;
 }
 
 constexpr int kPairWarps = 4;
@@ -228,13 +334,20 @@ extern "C" int repro_rowwise_sq_dists(const float* x, const float* cands,
 }
 
 extern "C" int repro_gather_sq_dists(const float* vecs, const float* x,
-                                     const int* idx, float* out,
+                                     const int* idx, const int* qi, float* out,
                                      long long n_pairs, int K, int d,
-                                     long long N, int vec4, void* stream) {
-  const long long blocks = (n_pairs + kThreads / 32 - 1) / (kThreads / 32);
-  gather_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(vecs, x, idx, out,
-                                                       n_pairs, K, d, N, vec4);
+                                     long long N, int B, int vec4,
+                                     void* stream) {
+  const long long per_block = kGatherWarps * kRun;
+  const unsigned blocks =
+      static_cast<unsigned>((n_pairs + per_block - 1) / per_block);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec4)
+    gather_kernel<true><<<blocks, kGatherWarps * 32, 0, st>>>(
+        vecs, x, idx, qi, out, n_pairs, K, d, N, B);
+  else
+    gather_kernel<false><<<blocks, kGatherWarps * 32, 0, st>>>(
+        vecs, x, idx, qi, out, n_pairs, K, d, N, B);
   return static_cast<int>(cudaGetLastError());
 }
 

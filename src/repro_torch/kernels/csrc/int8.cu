@@ -47,17 +47,39 @@
 //
 // 2. repro_rowwise_sq_dists_int8 — replaces
 //    repro/kernels/int8.py::rowwise_sq_dists_int8_pallas.
-//    out[b, k] = sum_g s_g^2 * sum_{i in g} (c[b,k,i] - qx[b,i])^2, the
-//    difference form, exact in int32 per group (<= 254^2 * 128 ~ 8.3e6).
-//    Two entries share one kernel: the (B, K, d) candidate tensor the TPU
-//    kernel takes (ids == nullptr), and a gather form that reads candidate
-//    row ids[b, k] of the code table itself, so the (B, K, d) tensor the
-//    JAX traversal gathers is never built; an id outside [0, N) (NO_NODE)
-//    reads no row and gives +inf.
-//    Bound: each candidate row is read once, so bytes (d x 1 per row).
-//    Design: one warp per (query, candidate) pair; lanes stride each group
-//    with 4-byte words (one coalesced 128-byte read per group at d = 128),
-//    an int32 shuffle reduction per group, then the scaled f32 add.
+//    out[p] = sum_g s_g^2 * sum_{i in g} (c[p,i] - qx[q(p),i])^2, the
+//    difference form, exact in int32 per group (<= 255^2 * gs), the f32
+//    sum taken group by group in order. One kernel, three entries: the
+//    (B, K, d) candidate tensor the TPU kernel takes (ids == nullptr), the
+//    gather form that reads row ids[p] of the (N, d) code table (query row
+//    q(p) = p / K), and its pair list (q(p) = qi[p], called with the
+//    bounds of 2' only: the NLJ's escalation reads the pairs' query rows in
+//    place, no copy). An id or query row out of range (NO_NODE) reads no
+//    row and gives +inf.
+// 2'. With err/qerr (bounds): the int8 tier's certified bounds fused into
+//    the epilogue (quant/cascade.py Int8Tier.gather_bounds, PdxTier.
+//    gather_bounds, pair_refine): slack = qerr[q] + err[id], lb =
+//    max(√d̂ − slack, 0)², ub = (√d̂ + slack)², each step rounded on its
+//    own (__fsqrt_rn, __f*_rn) as torch's quant_lower_bound and
+//    quant_upper_bound take them, so (lb, ub) equal the composition over
+//    d̂ bit for bit; +inf for both at NO_NODE, without reading err. The
+//    bounds so cost the caller no pass of its own over the pairs.
+//    Bound: bytes (d per candidate row, plus ids, errors and outputs). At
+//    the traversal's shape (256 x 128 ids, half NO_NODE) that is ~0.7 us:
+//    the id -> row latency sets the time, so the design puts many rows in
+//    flight. A warp owns a run of 32 pairs: each lane reads one id (one
+//    coalesced load, with its query row and, for the bounds, both errors),
+//    a ballot drops NO_NODE before any row read, and each 8-lane quarter
+//    takes 8 of the rows, a lane loading its W-byte chunk (16 bytes at
+//    d = 128: a row is 8 lanes) of all 8 before summing any; the query
+//    chunk is read once while the rows share the query. A chunk's
+//    squared differences are __vabsdiffs4 + __dp4a per word (exact).
+//    Per dimension group the quarter's 8 lanes add their 8 rows' sums in
+//    one butterfly that leaves lane j with row j's total (7 shuffles for
+//    8 rows), and that lane adds s_g^2 * sum into its row's f32 sum, so
+//    lane j of the warp owns pair j from id load to store (coalesced).
+//    Groups not aligned to the chunk passes (PDX slabs) are summed with
+//    the lanes of other groups masked out, in group order.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -452,67 +474,190 @@ int pairwise_int8(PairArgs a, int d, int gs, bool bounds, void* stream) {
 // 2. rowwise / gather (difference form)
 // ---------------------------------------------------------------------------
 
-// Squared difference of the 4 signed codes packed in a and b, summed.
-__device__ __forceinline__ int sq_diff4(int a, int b) {
-  int s = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = (int)(int8_t)(a >> (8 * i)) - (int)(int8_t)(b >> (8 * i));
-    s += t * t;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kGatherWarps = 4;      // warps a block
+constexpr int kRows = 8;             // rows an 8-lane quarter holds
+constexpr int kRun8 = 32;            // pairs a warp owns
+
+struct GatherArgs {
+  const int8_t* qx;        // (B, d) query codes
+  const int8_t* cands;     // (B, K, d) codes (ids == nullptr), else (N, d)
+  const int* ids;          // the pairs' row ids, or nullptr
+  const int* qi;           // the pairs' query rows (pair list), or nullptr
+  const float* scales;     // (G,)
+  const float* err;        // bounds: (N,) per-row L2 quantization errors
+  const float* qerr;       // bounds: (B,) the queries'
+  float* out0;             // d̂, or lb
+  float* out1;             // ub (bounds only)
+  long long n_pairs, N;
+  int K, d, gs, B;
+};
+
+// W bytes of codes (W = 16, 8, 4 or 1) as words; the bytes past W are 0
+template <int W>
+__device__ __forceinline__ uint4 load_chunk(const int8_t* p) {
+  if constexpr (W == 16) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  } else if constexpr (W == 8) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    return make_uint4(v.x, v.y, 0u, 0u);
+  } else if constexpr (W == 4) {
+    return make_uint4(__ldg(reinterpret_cast<const unsigned*>(p)), 0u, 0u, 0u);
+  } else {
+    return make_uint4(static_cast<uint8_t>(__ldg(p)), 0u, 0u, 0u);
+  }
+}
+
+// Sum of the squared differences of the signed codes in a and b: per word
+// |a_i - b_i| (<= 255) by __vabsdiffs4, squared and added by __dp4a; exact
+template <int W>
+__device__ __forceinline__ unsigned sq_diff(uint4 a, uint4 b) {
+  unsigned t = __vabsdiffs4(a.x, b.x);
+  unsigned s = __dp4a(t, t, 0u);
+  if constexpr (W == 16 || W == 8) {
+    t = __vabsdiffs4(a.y, b.y);
+    s = __dp4a(t, t, s);
+  }
+  if constexpr (W == 16) {
+    t = __vabsdiffs4(a.z, b.z);
+    s = __dp4a(t, t, s);
+    t = __vabsdiffs4(a.w, b.w);
+    s = __dp4a(t, t, s);
   }
   return s;
 }
 
-__device__ __forceinline__ int warp_isum(int v) {
+// The 8 lanes of a quarter add their 8 sums: at the offsets 4, 2, 1 a lane
+// keeps half of its sums and trades the other half; lane j ends with sum
+// j's total (7 shuffles). Integer sums: exact in any order.
+__device__ __forceinline__ unsigned quarter_sum8(unsigned (&v)[kRows],
+                                                 int lane) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  for (int h = kRows / 2; h >= 1; h >>= 1) {
+    const bool up = lane & h;
+#pragma unroll
+    for (int k = 0; k < h; ++k) {
+      const unsigned send = up ? v[k] : v[k + h];
+      const unsigned keep = up ? v[k + h] : v[k];
+      v[k] = keep + __shfl_xor_sync(kFull, send, h);
+    }
+  }
+  return v[0];
 }
 
-// cands: the (B, K, d) code tensor when ids == nullptr, else the (N, d)
-// code table read at ids[pair]. vec4: d % 4 == 0, gs % 4 == 0 and 4-byte
-// aligned bases, so words never straddle a group.
-__global__ void __launch_bounds__(kThreads)
-rowwise_int8_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ cands,
-                    const int* __restrict__ ids, const float* __restrict__ scales,
-                    float* __restrict__ out, long long n_pairs, int K, int d,
-                    int gs, long long N, int vec4) {
-  const long long pair = (long long)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+// (at least 4 blocks an SM: a register budget of 128, so ptxas does not
+// trade spills for occupancy)
+template <int W, bool BOUNDS>
+__global__ void __launch_bounds__(kGatherWarps * 32, 4)
+gather_int8_kernel(const GatherArgs a) {
   const int lane = threadIdx.x & 31;
-  if (pair >= n_pairs) return;  // uniform across the warp
-  const int8_t* c;
-  if (ids != nullptr) {
-    const int id = __ldg(ids + pair);
-    if (id < 0 || (long long)id >= N) {
-      if (lane == 0) out[pair] = INFINITY;
-      return;
-    }
-    c = cands + (long long)id * d;
-  } else {
-    c = cands + pair * (long long)d;
+  const int j = lane & 7;
+  const int quarter = lane & ~7;       // first lane of the quarter
+  const long long p0 =
+      ((long long)blockIdx.x * kGatherWarps + threadIdx.x / 32) * kRun8;
+  if (p0 >= a.n_pairs) return;         // uniform across the warp
+  const long long p = p0 + lane;       // this lane's pair, id to store
+  const bool in = p < a.n_pairs;
+  int id = 0, q = 0;
+  bool ok = false;
+  if (in) {                            // n_pairs < 2^31: 32-bit division
+    if (a.ids != nullptr) id = __ldg(a.ids + p);
+    q = a.qi != nullptr ? __ldg(a.qi + p)
+                        : (int)(static_cast<unsigned>(p) /
+                                static_cast<unsigned>(a.K));
+    ok = q >= 0 && q < a.B &&
+         (a.ids == nullptr || (id >= 0 && (long long)id < a.N));
   }
-  const int8_t* q = qx + (pair / K) * (long long)d;
-  float sum = 0.f;
-  const int G = (d + gs - 1) / gs;
-  for (int g = 0; g < G; ++g) {
-    const int g0 = g * gs;
-    const int ge = min(g0 + gs, d);
-    int acc = 0;
-    if (vec4) {
-      for (int k = g0 + 4 * lane; k < ge; k += 128)
-        acc += sq_diff4(__ldg(reinterpret_cast<const int*>(c + k)),
-                        __ldg(reinterpret_cast<const int*>(q + k)));
-    } else {
-      for (int k = g0 + lane; k < ge; k += 32) {
-        const int t = (int)__ldg(c + k) - (int)__ldg(q + k);
-        acc += t * t;
+  float eq = 0.f, ey = 0.f;            // the slack terms, in flight early
+  if (BOUNDS && ok) {
+    eq = __ldg(a.qerr + q);
+    ey = __ldg(a.err + id);
+  }
+  const unsigned valid = __ballot_sync(kFull, ok);
+  if (valid == 0u) {                   // NO_NODE only: no row is read
+    if (in) {
+      a.out0[p] = INFINITY;
+      if (BOUNDS) a.out1[p] = INFINITY;
+    }
+    return;
+  }
+  if (!ok) id = q = 0;                 // a slot that reads nothing
+  const int d = a.d, gs = a.gs;
+  const int8_t* rowp[kRows];
+  int qr[kRows];
+  bool okr[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int src = quarter + r;
+    const int idr = __shfl_sync(kFull, id, src);
+    qr[r] = __shfl_sync(kFull, q, src);
+    okr[r] = (valid >> src) & 1u;
+    rowp[r] = a.cands + (a.ids != nullptr ? (long long)idr : p0 + src) *
+                            (long long)d;
+  }
+  float fsum = 0.f;                    // lane j: row j's f32 sum
+  unsigned carry = 0u;                 // lane j: row j's open group's sum
+  for (int b0 = 0; b0 < d; b0 += 8 * W) {   // a pass: 8 chunks of W bytes
+    const int k = b0 + j * W;
+    const bool has = k < d;
+    uint4 c[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      c[r] = has && okr[r] ? load_chunk<W>(rowp[r] + k)
+                           : make_uint4(0u, 0u, 0u, 0u);
+    unsigned s[kRows];
+    uint4 b = has ? load_chunk<W>(a.qx + (long long)qr[0] * d + k)
+                  : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (r > 0 && qr[r] != qr[r - 1] && has)
+        b = load_chunk<W>(a.qx + (long long)qr[r] * d + k);
+      s[r] = sq_diff<W>(c[r], b);
+    }
+    // the groups this pass touches, in order (uniform across the warp)
+    const int pe = min(b0 + 8 * W, d);
+    const int gk = k / gs;
+    for (int g = b0 / gs; g <= (pe - 1) / gs; ++g) {
+      const float sc = __ldg(a.scales + g);  // in flight during the sum
+      unsigned m[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) m[r] = has && gk == g ? s[r] : 0u;
+      carry += quarter_sum8(m, lane);
+      if (min((g + 1) * gs, d) <= pe) {     // group g ends in this pass
+        fsum = __fadd_rn(fsum, __fmul_rn(__fmul_rn(sc, sc),
+                                         (float)(int)carry));
+        carry = 0u;
       }
     }
-    acc = warp_isum(acc);
-    const float s = __ldg(scales + g);
-    sum = __fadd_rn(sum, __fmul_rn(s * s, (float)acc));
   }
-  if (lane == 0) out[pair] = sum;
+  if (!in) return;
+  if (!ok) {
+    a.out0[p] = INFINITY;
+    if (BOUNDS) a.out1[p] = INFINITY;
+    return;
+  }
+  if (BOUNDS) {
+    const float slack = __fadd_rn(eq, ey);
+    const float rt = __fsqrt_rn(clamp0(fsum));
+    const float l = clamp0(__fsub_rn(rt, slack));
+    a.out0[p] = isfinite(fsum) ? __fmul_rn(l, l) : fsum;
+    const float u = __fadd_rn(rt, slack);
+    a.out1[p] = isfinite(fsum) ? __fmul_rn(u, u) : fsum;
+  } else {
+    a.out0[p] = fsum;
+  }
+}
+
+template <int W>
+int launch_gather(const GatherArgs& a, cudaStream_t st) {
+  const long long per_block = kGatherWarps * kRun8;
+  const unsigned blocks =
+      static_cast<unsigned>((a.n_pairs + per_block - 1) / per_block);
+  if (a.out1 != nullptr)
+    gather_int8_kernel<W, true><<<blocks, kGatherWarps * 32, 0, st>>>(a);
+  else
+    gather_int8_kernel<W, false><<<blocks, kGatherWarps * 32, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -541,14 +686,20 @@ extern "C" int repro_pairwise_bounds_int8(const int8_t* qx, const int8_t* qy,
   return pairwise_int8(a, d, gs, true, stream);
 }
 
-extern "C" int repro_rowwise_sq_dists_int8(const int8_t* qx, const int8_t* cands,
-                                           const int* ids, const float* scales,
-                                           float* out, long long n_pairs, int K,
-                                           int d, int gs, long long N, int vec4,
-                                           void* stream) {
-  const long long blocks = (n_pairs + kThreads / 32 - 1) / (kThreads / 32);
-  rowwise_int8_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      qx, cands, ids, scales, out, n_pairs, K, d, gs, N, vec4);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int repro_rowwise_sq_dists_int8(
+    const int8_t* qx, const int8_t* cands, const int* ids, const int* qi,
+    const float* scales, const float* err, const float* qerr, float* out0,
+    float* out1, long long n_pairs, int K, int d, int gs, long long N, int B,
+    int w, void* stream) {
+  GatherArgs a{};
+  a.qx = qx; a.cands = cands; a.ids = ids; a.qi = qi; a.scales = scales;
+  a.err = err; a.qerr = qerr; a.out0 = out0; a.out1 = out1;
+  a.n_pairs = n_pairs; a.N = N; a.K = K; a.d = d; a.gs = gs; a.B = B;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (w) {
+    case 16: return launch_gather<16>(a, st);
+    case 8: return launch_gather<8>(a, st);
+    case 4: return launch_gather<4>(a, st);
+    default: return launch_gather<1>(a, st);
+  }
 }

@@ -30,7 +30,8 @@ LAUNCHES: dict[str, int] = {
     "gather_sq_dists": 0, "topk_merge": 0, "pairwise_sq_dists_int8": 0,
     "rowwise_sq_dists_int8": 0, "pairwise_hamming": 0, "rowwise_hamming": 0,
     "pairwise_sq_dists_pdx": 0, "pdx_gather_sq_dists": 0, "nlj_count": 0,
-    "pairwise_bounds_int8": 0}
+    "pairwise_bounds_int8": 0, "gather_sq_dists_pairs": 0,
+    "gather_bounds_int8": 0, "gather_bounds_int8_pairs": 0}
 _GRID_Y_MAX = 65535
 _MAX_BLOCKS = 2**31 - 1
 
@@ -81,8 +82,24 @@ def _aligned(width: int, *ts: torch.Tensor) -> int:
     return int(all(t.data_ptr() % width == 0 for t in ts))
 
 
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+def _ptr(t: torch.Tensor | None) -> int | None:
+    """A tensor's device address, or NULL for an absent optional input."""
+    return None if t is None else t.data_ptr()
+
+
+def _launch(name: str, dev: torch.device, fn, *args) -> None:
+    """One kernel launch: ``fn(*args, stream)`` on the current stream of
+    ``dev``, counted in ``LAUNCHES[name]``; raises on a CUDA error code.
+    The current device is switched only when it is not ``dev`` already;
+    the stream is read as a raw handle (the public ``current_stream``
+    builds a Python object a call)."""
+    if dev.index == torch.cuda.current_device():
+        code = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            code = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    LAUNCHES[name] += 1
+    _build.check(code, name)
 
 
 # ---------------------------------------------------------------------------
@@ -111,13 +128,9 @@ def pairwise_sq_dists_cuda(x: torch.Tensor, y: torch.Tensor,
         raise ValueError(f"norms {tuple(xn.shape)}, {tuple(yn.shape)} do not "
                          f"match B={B}, N={N}")
     out = torch.empty((B, N), dtype=torch.float32, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        code = lib.repro_pairwise_sq_dists(
+    _launch("pairwise_sq_dists", dev, _build.load().repro_pairwise_sq_dists,
             x.data_ptr(), y.data_ptr(), xn.data_ptr(), yn.data_ptr(),
-            out.data_ptr(), B, N, d, _vec4(d, x, y), _stream(dev))
-    LAUNCHES["pairwise_sq_dists"] += 1
-    _build.check(code, "pairwise_sq_dists")
+            out.data_ptr(), B, N, d, _vec4(d, x, y))
     return out
 
 
@@ -162,14 +175,9 @@ def pairlist_sq_dists_cuda(x, y, xn, yn, qi, yi) -> torch.Tensor:
     if -(-P // 128) > _MAX_BLOCKS or d >= 2**31:
         raise ValueError(f"too many pairs for one launch: {P}")
     out = torch.empty((P,), dtype=torch.float32, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        code = lib.repro_pairlist_sq_dists(
+    _launch("pairlist_sq_dists", dev, _build.load().repro_pairlist_sq_dists,
             x.data_ptr(), y.data_ptr(), xn.data_ptr(), yn.data_ptr(),
-            qi.data_ptr(), yi.data_ptr(), out.data_ptr(), P, d, B, N,
-            _stream(dev))
-    LAUNCHES["pairlist_sq_dists"] += 1
-    _build.check(code, "pairlist_sq_dists")
+            qi.data_ptr(), yi.data_ptr(), out.data_ptr(), P, d, B, N)
     return out
 
 
@@ -211,13 +219,9 @@ def nlj_count_cuda(x: torch.Tensor, y: torch.Tensor, th2: float
     # pairwise kernel's value for the pair
     xn, yn = _ref.sq_norms(x), _ref.sq_norms(y)
     out = torch.zeros((B,), dtype=torch.int32, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        code = lib.repro_nlj_count(
+    _launch("nlj_count", dev, _build.load().repro_nlj_count,
             x.data_ptr(), y.data_ptr(), xn.data_ptr(), yn.data_ptr(),
-            out.data_ptr(), B, N, d, _vec4(d, x, y), th2, _stream(dev))
-    LAUNCHES["nlj_count"] += 1
-    _build.check(code, "nlj_count")
+            out.data_ptr(), B, N, d, _vec4(d, x, y), th2)
     return out
 
 
@@ -266,13 +270,9 @@ def rowwise_sq_dists_cuda(x: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
     if -(-n_pairs // 8) > _MAX_BLOCKS or max(K, d) >= 2**31:
         raise ValueError(f"shape too large for one launch: {tuple(cands.shape)}")
     out = torch.empty((B, K), dtype=torch.float32, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        code = lib.repro_rowwise_sq_dists(
+    _launch("rowwise_sq_dists", dev, _build.load().repro_rowwise_sq_dists,
             x.data_ptr(), cands.data_ptr(), out.data_ptr(), n_pairs, K, d,
-            _vec4(d, x, cands), _stream(dev))
-    LAUNCHES["rowwise_sq_dists"] += 1
-    _build.check(code, "rowwise_sq_dists")
+            _vec4(d, x, cands))
     return out
 
 
@@ -290,32 +290,35 @@ def rowwise_sq_dists(x: torch.Tensor, cands: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
-# gather: (N, d) vecs, (B, d) x, (B, K) ids -> (B, K)
+# gather: (N, d) vecs, (B, d) x, (B, K) ids -> (B, K); its pair list
 # ---------------------------------------------------------------------------
 
-def gather_sq_dists_cuda(vecs: torch.Tensor, x: torch.Tensor,
-                         idx: torch.Tensor) -> torch.Tensor:
+def _gather_cuda(vecs: torch.Tensor, x: torch.Tensor, ids: torch.Tensor,
+                 qi: torch.Tensor | None) -> torch.Tensor:
+    """The f32 gather kernel: (B, K) ``ids`` with query row b (``qi``
+    None), or a pair list of (P,) ``ids`` with query rows ``qi``."""
     dev = x.device
     _check("vecs", vecs, torch.float32, 2, dev)
     _check("x", x, torch.float32, 2, dev)
-    _check("idx", idx, torch.int32, 2, dev)
+    _check("idx", ids, torch.int32, 2 if qi is None else 1, dev)
     B, d = x.shape
     N = vecs.shape[0]
-    K = idx.shape[1]
-    if vecs.shape[1] != d or idx.shape[0] != B:
-        raise ValueError(f"shapes differ: vecs {tuple(vecs.shape)}, "
-                         f"x {tuple(x.shape)}, idx {tuple(idx.shape)}")
-    n_pairs = B * K
-    if -(-n_pairs // 8) > _MAX_BLOCKS or max(K, d) >= 2**31:
-        raise ValueError(f"shape too large for one launch: {tuple(idx.shape)}")
-    out = torch.empty((B, K), dtype=torch.float32, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        code = lib.repro_gather_sq_dists(
-            vecs.data_ptr(), x.data_ptr(), idx.data_ptr(), out.data_ptr(),
-            n_pairs, K, d, N, _vec4(d, vecs, x), _stream(dev))
-    LAUNCHES["gather_sq_dists"] += 1
-    _build.check(code, "gather_sq_dists")
+    if qi is not None:
+        _check("qi", qi, torch.int32, 1, dev)
+    if (vecs.shape[1] != d or (qi is None and ids.shape[0] != B)
+            or (qi is not None and qi.shape != ids.shape)):
+        raise ValueError(f"shapes differ: vecs {tuple(vecs.shape)}, x "
+                         f"{tuple(x.shape)}, idx {tuple(ids.shape)}"
+                         + ("" if qi is None else f", qi {tuple(qi.shape)}"))
+    n = ids.numel()
+    if n >= 2**31 or max(B, d) >= 2**31:
+        raise ValueError(f"shape too large for one launch: {tuple(ids.shape)}")
+    out = torch.empty(ids.shape, dtype=torch.float32, device=dev)
+    _launch("gather_sq_dists" if qi is None else "gather_sq_dists_pairs", dev,
+            _build.load().repro_gather_sq_dists, vecs.data_ptr(),
+            x.data_ptr(), ids.data_ptr(), _ptr(qi), out.data_ptr(), n,
+            1 if qi is not None else ids.shape[1], d, N, B,
+            _vec4(d, vecs, x))
     return out
 
 
@@ -330,7 +333,23 @@ def gather_sq_dists(vecs: torch.Tensor, x: torch.Tensor, idx: torch.Tensor,
         return torch.zeros((B, K), dtype=torch.float32, device=x.device)
     if impl == "ref":
         return _ref.gather_sq_dists(vecs, x, idx)
-    return gather_sq_dists_cuda(vecs, x, idx)
+    return _gather_cuda(vecs, x, idx, None)
+
+
+def gather_sq_dists_pairs(vecs: torch.Tensor, x: torch.Tensor,
+                          qi: torch.Tensor, yi: torch.Tensor, *,
+                          impl: str | None = None) -> torch.Tensor:
+    """(P,) f32 difference-form squared distances of explicit pairs
+    ``(x[qi[p]], vecs[yi[p]])``, int32 ids: the values of
+    ``gather_sq_dists(vecs, x[qi], yi[:, None])[:, 0]`` (bit for bit on
+    the card: one kernel), without building ``x[qi]``. An id or a query
+    row out of range gives +inf and reads no row."""
+    impl = _impl(impl, x)
+    if qi.shape[0] == 0:
+        return torch.zeros((0,), dtype=torch.float32, device=x.device)
+    if impl == "ref":
+        return _ref.gather_sq_dists_pairs(vecs, x, qi, yi)
+    return _gather_cuda(vecs, x, yi, qi)
 
 
 # ---------------------------------------------------------------------------
@@ -356,13 +375,9 @@ def topk_merge_cuda(bd, bi, cd, ci) -> tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"row too wide for one block: L={L} K={K}")
     od = torch.empty((B, L), dtype=torch.float32, device=dev)
     oi = torch.empty((B, L), dtype=torch.int32, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        code = lib.repro_topk_merge(
+    _launch("topk_merge", dev, _build.load().repro_topk_merge,
             bd.data_ptr(), bi.data_ptr(), cd.data_ptr(), ci.data_ptr(),
-            od.data_ptr(), oi.data_ptr(), B, L, K, _stream(dev))
-    LAUNCHES["topk_merge"] += 1
-    _build.check(code, "topk_merge")
+            od.data_ptr(), oi.data_ptr(), B, L, K)
     return od, oi
 
 
@@ -424,13 +439,10 @@ def pairwise_sq_dists_int8_cuda(qx, qy, scales, xn, yn, group_size: int
     dev = qx.device
     B, N, d = _int8_pair_checks(qx, qy, scales, xn, yn, group_size)
     out = torch.empty((B, N), dtype=torch.float32, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        code = lib.repro_pairwise_sq_dists_int8(
+    _launch("pairwise_sq_dists_int8", dev,
+            _build.load().repro_pairwise_sq_dists_int8,
             qx.data_ptr(), qy.data_ptr(), scales.data_ptr(), xn.data_ptr(),
-            yn.data_ptr(), out.data_ptr(), B, N, d, group_size, _stream(dev))
-    LAUNCHES["pairwise_sq_dists_int8"] += 1
-    _build.check(code, "pairwise_sq_dists_int8")
+            yn.data_ptr(), out.data_ptr(), B, N, d, group_size)
     return out
 
 
@@ -443,15 +455,11 @@ def pairwise_bounds_int8_cuda(qx, qy, scales, xn, yn, xe, ye, guard: float,
                                 ("ye", ye, qy.shape[0]))
     lb = torch.empty((B, N), dtype=torch.float32, device=dev)
     ub = torch.empty((B, N), dtype=torch.float32, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        code = lib.repro_pairwise_bounds_int8(
+    _launch("pairwise_bounds_int8", dev,
+            _build.load().repro_pairwise_bounds_int8,
             qx.data_ptr(), qy.data_ptr(), scales.data_ptr(), xn.data_ptr(),
             yn.data_ptr(), xe.data_ptr(), ye.data_ptr(), lb.data_ptr(),
-            ub.data_ptr(), B, N, d, group_size, _ref.f32(guard),
-            _stream(dev))
-    LAUNCHES["pairwise_bounds_int8"] += 1
-    _build.check(code, "pairwise_bounds_int8")
+            ub.data_ptr(), B, N, d, group_size, _ref.f32(guard))
     return lb, ub
 
 
@@ -510,10 +518,12 @@ def pairwise_bounds_int8(qx: torch.Tensor, qy: torch.Tensor,
                                      group_size)
 
 
-def _rowwise_int8_cuda(qx, cands, ids, scales, group_size: int, K: int
-                       ) -> torch.Tensor:
-    """The one int8 rowwise kernel: (B, K, d) candidates (``ids`` None)
-    or rows ``ids`` of the (N, d) code table."""
+def _int8_diff_cuda(name: str, qx, cands, ids, qi, scales, group_size: int,
+                    err=None, qerr=None):
+    """The one int8 difference-form kernel: (B, K, d) candidates (``ids``
+    None), or rows ``ids`` of the (N, d) code table — (B, K) with query
+    row b, or (P,) with query rows ``qi``. With the errors ``err`` (N,)
+    and ``qerr`` (B,) it writes the certified (lb, ub), else d̂."""
     dev = qx.device
     _check("qx", qx, torch.int8, 2, dev)
     B, d = qx.shape
@@ -522,28 +532,38 @@ def _rowwise_int8_cuda(qx, cands, ids, scales, group_size: int, K: int
         if cands.shape[0] != B or cands.shape[2] != d:
             raise ValueError(f"shapes differ: qx {tuple(qx.shape)}, qcands "
                              f"{tuple(cands.shape)}")
-        N, ids_ptr = 0, None
+        shape, N = tuple(cands.shape[:2]), 0
     else:
         _check("codes", cands, torch.int8, 2, dev)
-        _check("idx", ids, torch.int32, 2, dev)
-        if cands.shape[1] != d or ids.shape[0] != B:
-            raise ValueError(f"shapes differ: codes {tuple(cands.shape)}, "
-                             f"qx {tuple(qx.shape)}, idx {tuple(ids.shape)}")
-        N, ids_ptr = cands.shape[0], ids.data_ptr()
+        _check("idx", ids, torch.int32, 2 if qi is None else 1, dev)
+        if qi is not None:
+            _check("qi", qi, torch.int32, 1, dev)
+        if (cands.shape[1] != d or (qi is None and ids.shape[0] != B)
+                or (qi is not None and qi.shape != ids.shape)):
+            raise ValueError(f"shapes differ: codes {tuple(cands.shape)}, qx "
+                             f"{tuple(qx.shape)}, idx {tuple(ids.shape)}")
+        shape, N = tuple(ids.shape), cands.shape[0]
     _check_scales(scales, d, group_size, dev)
-    n_pairs = B * K
-    if -(-n_pairs // 8) > _MAX_BLOCKS or max(K, d) >= 2**31:
-        raise ValueError(f"shape too large for one launch: B={B} K={K}")
-    vec4 = int(d % 4 == 0 and group_size % 4 == 0 and _aligned(4, qx, cands))
-    out = torch.empty((B, K), dtype=torch.float32, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        code = lib.repro_rowwise_sq_dists_int8(
-            qx.data_ptr(), cands.data_ptr(), ids_ptr, scales.data_ptr(),
-            out.data_ptr(), n_pairs, K, d, group_size, N, vec4, _stream(dev))
-    LAUNCHES["rowwise_sq_dists_int8"] += 1
-    _build.check(code, "rowwise_sq_dists_int8")
-    return out
+    if err is not None:
+        for nm, t, n in (("err", err, N), ("qerr", qerr, B)):
+            _check(nm, t, torch.float32, 1, dev)
+            if t.shape[0] != n:
+                raise ValueError(f"{nm} {tuple(t.shape)} does not match {n} "
+                                 f"rows")
+    n_pairs = shape[0] * (shape[1] if len(shape) == 2 else 1)
+    if n_pairs >= 2**31 or max(B, d) >= 2**31:
+        raise ValueError(f"shape too large for one launch: {shape}")
+    # widest chunk that never straddles a group or a row, on aligned bases
+    w = next((w for w in (16, 8, 4) if d % w == 0 and group_size % w == 0
+              and _aligned(w, qx, cands)), 1)
+    out0 = torch.empty(shape, dtype=torch.float32, device=dev)
+    out1 = None if err is None else torch.empty_like(out0)
+    _launch(name, dev, _build.load().repro_rowwise_sq_dists_int8,
+            qx.data_ptr(), cands.data_ptr(), _ptr(ids), _ptr(qi),
+            scales.data_ptr(), _ptr(err), _ptr(qerr), out0.data_ptr(),
+            _ptr(out1), n_pairs, shape[1] if qi is None else 1, d,
+            group_size, N, B, w)
+    return out0 if out1 is None else (out0, out1)
 
 
 def rowwise_sq_dists_int8(qx: torch.Tensor, qcands: torch.Tensor,
@@ -559,7 +579,8 @@ def rowwise_sq_dists_int8(qx: torch.Tensor, qcands: torch.Tensor,
     if impl == "ref":
         return _ref.rowwise_sq_dists_int8(qx, qcands, scales,
                                           group_size=group_size)
-    return _rowwise_int8_cuda(qx, qcands, None, scales, group_size, K)
+    return _int8_diff_cuda("rowwise_sq_dists_int8", qx, qcands, None, None,
+                           scales, group_size)
 
 
 def gather_sq_dists_int8(codes: torch.Tensor, qx: torch.Tensor,
@@ -577,7 +598,51 @@ def gather_sq_dists_int8(codes: torch.Tensor, qx: torch.Tensor,
     if impl == "ref":
         return _ref.gather_sq_dists_int8(codes, qx, idx, scales,
                                          group_size=group_size)
-    return _rowwise_int8_cuda(qx, codes, idx, scales, group_size, K)
+    return _int8_diff_cuda("rowwise_sq_dists_int8", qx, codes, idx, None,
+                           scales, group_size)
+
+
+def gather_bounds_int8(codes: torch.Tensor, qx: torch.Tensor,
+                       idx: torch.Tensor, scales: torch.Tensor, *,
+                       err: torch.Tensor, qerr: torch.Tensor,
+                       group_size: int = 128, impl: str | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, K) int32 candidate ids → the int8 tier's certified (lb, ub) on
+    their true squared distances: the difference-form d̂ of
+    ``gather_sq_dists_int8`` widened by the L2 slack ``qerr[b] +
+    err[id]`` (``ref.gather_bounds``). On the card one kernel writes both,
+    bit for bit the composition over the int8 gather kernel's d̂; +inf at
+    NO_NODE. On the CPU the composition itself."""
+    impl = _impl(impl, qx)
+    B, K = idx.shape
+    if B == 0 or K == 0:
+        z = torch.zeros((B, K), dtype=torch.float32, device=qx.device)
+        return z, z.clone()
+    if impl == "ref":
+        return _ref.gather_bounds_int8(codes, qx, idx, scales, err, qerr,
+                                       group_size=group_size)
+    return _int8_diff_cuda("gather_bounds_int8", qx, codes, idx, None,
+                           scales, group_size, err, qerr)
+
+
+def gather_bounds_int8_pairs(codes: torch.Tensor, qx: torch.Tensor,
+                             qi: torch.Tensor, yi: torch.Tensor,
+                             scales: torch.Tensor, *, err: torch.Tensor,
+                             qerr: torch.Tensor, group_size: int = 128,
+                             impl: str | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``gather_bounds_int8`` over explicit (query, data) pairs, int32
+    ids: (P,) lb and ub of ``(qx[qi[p]], codes[yi[p]])`` with the slack
+    ``qerr[qi[p]] + err[yi[p]]``, without building ``qx[qi]``."""
+    impl = _impl(impl, qx)
+    if qi.shape[0] == 0:
+        z = torch.zeros((0,), dtype=torch.float32, device=qx.device)
+        return z, z.clone()
+    if impl == "ref":
+        return _ref.gather_bounds_int8_pairs(codes, qx, qi, yi, scales, err,
+                                             qerr, group_size=group_size)
+    return _int8_diff_cuda("gather_bounds_int8_pairs", qx, codes, yi, qi,
+                           scales, group_size, err, qerr)
 
 
 # ---------------------------------------------------------------------------
@@ -596,13 +661,9 @@ def pairwise_hamming_cuda(cx: torch.Tensor, cy: torch.Tensor) -> torch.Tensor:
     if -(-B // 64) > _GRID_Y_MAX or max(B, N, W) >= 2**31:
         raise ValueError(f"shape too large for one launch: B={B} N={N} W={W}")
     out = torch.empty((B, N), dtype=torch.int32, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        code = lib.repro_pairwise_hamming(
+    _launch("pairwise_hamming", dev, _build.load().repro_pairwise_hamming,
             cx.data_ptr(), cy.data_ptr(), out.data_ptr(), B, N, W,
-            int(N % 4 == 0 and out.data_ptr() % 16 == 0), _stream(dev))
-    LAUNCHES["pairwise_hamming"] += 1
-    _build.check(code, "pairwise_hamming")
+            int(N % 4 == 0 and out.data_ptr() % 16 == 0))
     return out
 
 
@@ -644,13 +705,9 @@ def _rowwise_hamming_cuda(cx, cands, ids, K: int) -> torch.Tensor:
         raise ValueError(f"shape too large for one launch: B={B} K={K}")
     vec4 = int(W % 4 == 0 and _aligned(16, cx, cands))
     out = torch.empty((B, K), dtype=torch.int32, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        code = lib.repro_rowwise_hamming(
-            cx.data_ptr(), cands.data_ptr(), ids_ptr, out.data_ptr(),
-            n_pairs, K, W, N, vec4, _stream(dev))
-    LAUNCHES["rowwise_hamming"] += 1
-    _build.check(code, "rowwise_hamming")
+    _launch("rowwise_hamming", dev, _build.load().repro_rowwise_hamming,
+            cx.data_ptr(), cands.data_ptr(), ids_ptr, out.data_ptr(), n_pairs,
+            K, W, N, vec4)
     return out
 
 
@@ -723,17 +780,13 @@ def pairwise_sq_dists_pdx_cuda(qx, qy, scales, xslab, yslab, xtail, ytail,
     vec16 = int(dp % 16 == 0 and slab % 16 == 0 and _aligned(16, qx, qy))
     out = torch.empty((B, N), dtype=torch.float32, device=dev)
     nscan = torch.empty((B, N), dtype=torch.int32, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        code = lib.repro_pairwise_sq_dists_pdx(
+    _launch("pairwise_sq_dists_pdx", dev,
+            _build.load().repro_pairwise_sq_dists_pdx,
             qx.data_ptr(), qy.data_ptr(), scales.data_ptr(), xslab.data_ptr(),
             yslab.data_ptr(), xtail.data_ptr(), ytail.data_ptr(),
             xn.data_ptr(), yn.data_ptr(), xe.data_ptr(), ye.data_ptr(),
             out.data_ptr(), nscan.data_ptr(), B, N, S, slab, float(theta),
-            guard, guard_abs, MATMUL_GUARD, int(early_exit), vec16,
-            _stream(dev))
-    LAUNCHES["pairwise_sq_dists_pdx"] += 1
-    _build.check(code, "pairwise_sq_dists_pdx")
+            guard, guard_abs, MATMUL_GUARD, int(early_exit), vec16)
     return out, nscan
 
 
@@ -788,15 +841,12 @@ def pdx_gather_sq_dists_cuda(vp, vtail, vnorm, xp, xtail, xn, idx,
     vec4 = int(slab % 4 == 0 and _aligned(16, vp, xp))
     out = torch.empty((B, K), dtype=torch.float32, device=dev)
     nscan = torch.empty((B, K), dtype=torch.int32, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        code = lib.repro_pdx_gather_sq_dists(
+    _launch("pdx_gather_sq_dists", dev,
+            _build.load().repro_pdx_gather_sq_dists,
             vp.data_ptr(), vtail.data_ptr(), vnorm.data_ptr(), xp.data_ptr(),
             xtail.data_ptr(), xn.data_ptr(), idx.data_ptr(), out.data_ptr(),
             nscan.data_ptr(), n_pairs, K, S, slab, N, float(th2), guard,
-            guard_abs, int(early_exit), vec4, _stream(dev))
-    LAUNCHES["pdx_gather_sq_dists"] += 1
-    _build.check(code, "pdx_gather_sq_dists")
+            guard_abs, int(early_exit), vec4)
     return out, nscan
 
 

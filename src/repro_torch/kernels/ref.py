@@ -97,6 +97,18 @@ def gather_sq_dists(vecs: torch.Tensor, x: torch.Tensor,
     return torch.where(valid, d, torch.inf)
 
 
+def gather_sq_dists_pairs(vecs: torch.Tensor, x: torch.Tensor,
+                          qi: torch.Tensor, yi: torch.Tensor) -> torch.Tensor:
+    """(P,) f32 ``gather_sq_dists(vecs, x[qi], yi[:, None])[:, 0]``: the
+    difference-form distances of explicit pairs; an id or a query row out
+    of range gives +inf."""
+    if x.shape[0] == 0 or vecs.shape[0] == 0:
+        return torch.full(qi.shape, torch.inf, device=x.device)
+    ok = (qi >= 0) & (qi < x.shape[0])
+    d = gather_sq_dists(vecs, x[torch.where(ok, qi, 0).long()], yi[:, None])
+    return torch.where(ok, d[:, 0], torch.inf)
+
+
 def topk_merge(beam_dist: torch.Tensor, beam_idx: torch.Tensor,
                cand_dist: torch.Tensor, cand_idx: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -200,6 +212,87 @@ def gather_sq_dists_int8(codes: torch.Tensor, qx: torch.Tensor,
     safe = torch.where(valid, idx, 0).long()
     d = rowwise_sq_dists_int8(qx, codes[safe], scales, group_size=group_size)
     return torch.where(valid, d, torch.inf)
+
+
+def gather_sq_dists_int8_exact(codes: torch.Tensor, qx: torch.Tensor,
+                               idx: torch.Tensor, scales: torch.Tensor, *,
+                               group_size: int = 128) -> torch.Tensor:
+    """The int8 gather kernel's own arithmetic, for bit-exact checks: each
+    group's sum of squared code differences exact in int64, then ``sum +=
+    s_g²·sum_g`` in f32 group by group from 0; ids outside [0, N)
+    (NO_NODE) give +inf."""
+    if codes.shape[0] == 0:
+        return torch.full(idx.shape, torch.inf, device=qx.device)
+    valid = (idx >= 0) & (idx < codes.shape[0])
+    diff = (codes[torch.where(valid, idx, 0).long()].long()
+            - qx.long()[:, None, :])
+    sq = diff * diff
+    d = qx.shape[1]
+    total = torch.zeros(idx.shape, dtype=torch.float32, device=qx.device)
+    for g in range(-(-d // group_size)):
+        s = scales[g]
+        acc = sq[..., g * group_size:min((g + 1) * group_size, d)].sum(-1)
+        total = total + (s * s) * acc.float()
+    return torch.where(valid, total, torch.inf)
+
+
+def gather_sq_dists_int8_pairs(codes: torch.Tensor, qx: torch.Tensor,
+                               qi: torch.Tensor, yi: torch.Tensor,
+                               scales: torch.Tensor, *,
+                               group_size: int = 128) -> torch.Tensor:
+    """(P,) ``gather_sq_dists_int8(codes, qx[qi], yi[:, None])[:, 0]``; an
+    id or a query row out of range gives +inf (the d̂ of
+    ``gather_bounds_int8_pairs``)."""
+    if qx.shape[0] == 0 or codes.shape[0] == 0:
+        return torch.full(qi.shape, torch.inf, device=qx.device)
+    ok = (qi >= 0) & (qi < qx.shape[0])
+    d = gather_sq_dists_int8(codes, qx[torch.where(ok, qi, 0).long()],
+                             yi[:, None], scales, group_size=group_size)
+    return torch.where(ok, d[:, 0], torch.inf)
+
+
+def gather_bounds(d_hat: torch.Tensor, slack: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Certified (lb, ub) on the true squared distance from a
+    difference-form ``d_hat`` (no cancellation guard) and the per-pair L2
+    slack: the int8 tier's gather bounds, and the epilogue of the fused
+    int8 gather bounds kernel."""
+    return quant_lower_bound(d_hat, slack), quant_upper_bound(d_hat, slack)
+
+
+def gather_bounds_int8(codes: torch.Tensor, qx: torch.Tensor,
+                       idx: torch.Tensor, scales: torch.Tensor,
+                       err: torch.Tensor, qerr: torch.Tensor, *,
+                       group_size: int = 128
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the fused int8 gather bounds: (B, K) d̂ of
+    ``gather_sq_dists_int8``, slack ``qerr[b] + err[id]``; NO_NODE gives
+    +inf for both."""
+    if codes.shape[0] == 0:
+        inf = torch.full(idx.shape, torch.inf, device=qx.device)
+        return inf, inf.clone()
+    valid = (idx >= 0) & (idx < codes.shape[0])
+    dhat = gather_sq_dists_int8(codes, qx, idx, scales, group_size=group_size)
+    slack = qerr[:, None] + err[torch.where(valid, idx, 0).long()]
+    return gather_bounds(dhat, slack)
+
+
+def gather_bounds_int8_pairs(codes: torch.Tensor, qx: torch.Tensor,
+                             qi: torch.Tensor, yi: torch.Tensor,
+                             scales: torch.Tensor, err: torch.Tensor,
+                             qerr: torch.Tensor, *, group_size: int = 128
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``gather_bounds_int8`` over explicit pairs: (P,) bounds of
+    ``(qx[qi], codes[yi])`` with the slack ``qerr[qi] + err[yi]``."""
+    if qx.shape[0] == 0 or codes.shape[0] == 0:
+        inf = torch.full(qi.shape, torch.inf, device=qx.device)
+        return inf, inf.clone()
+    ok = (qi >= 0) & (qi < qx.shape[0]) & (yi >= 0) & (yi < codes.shape[0])
+    q = torch.where(ok, qi, 0).long()
+    y = torch.where(ok, yi, 0).long()
+    dhat = gather_sq_dists_int8_pairs(codes, qx, qi, yi, scales,
+                                      group_size=group_size)
+    return gather_bounds(dhat, qerr[q] + err[y])
 
 
 # ---------------------------------------------------------------------------
@@ -338,10 +431,14 @@ def pdx_gather_sq_dists(vp, vtail, vnorm, xp, xtail, xn, idx, th2: float,
 
 
 __all__ = ["sq_norms", "pairwise_sq_dists", "pairlist_sq_dists",
-           "rowwise_sq_dists", "gather_sq_dists", "topk_merge",
+           "rowwise_sq_dists", "gather_sq_dists", "gather_sq_dists_pairs",
+           "topk_merge",
            "pairwise_sq_dists_int8", "pairwise_sq_dists_int8_exact",
            "quant_lower_bound", "quant_upper_bound", "int8_bounds",
            "rowwise_sq_dists_int8",
-           "gather_sq_dists_int8", "pairwise_hamming", "rowwise_hamming",
+           "gather_sq_dists_int8", "gather_sq_dists_int8_exact",
+           "gather_sq_dists_int8_pairs",
+           "gather_bounds", "gather_bounds_int8", "gather_bounds_int8_pairs",
+           "pairwise_hamming", "rowwise_hamming",
            "gather_hamming", "pairwise_sq_dists_pdx",
            "pdx_gather_sq_dists"]

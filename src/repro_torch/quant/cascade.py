@@ -11,11 +11,13 @@ module for the full design; the port keeps its interface:
   * ``encode(x)``       — queries on the tier's grid;
   * ``gather_bounds``   — (lb, ub, estimate) for the traversal's (B, K)
     candidate ids (the tier's gather kernel reads each code row by id;
-    NO_NODE slots read no row and give +inf);
+    NO_NODE slots read no row and give +inf; the int8 tiers' kernel
+    writes the certified bounds itself);
   * ``pairwise_bounds`` — (lb, ub) against the whole store (NLJ shape);
   * ``pair_refine``     — (lb, ub) for explicit (query, data) id pairs
-    (the NLJ's escalation shape, through the same gather kernels with a
-    (P, 1) id column);
+    (the NLJ's escalation shape: the int8 tiers' pair-list entry reads
+    each pair's query row in place; the sketch tier's gather kernel takes
+    a (P, 1) id column);
   * ``pool_band``       — certified-sure vs ambiguous pool entries.
 
 Three tiers: ``Int8Tier`` (int8 codes, lower and upper bounds),
@@ -68,13 +70,12 @@ def _ids32(i: torch.Tensor) -> torch.Tensor:
 
 def _refine_int8(codes, scales, group_size: int, err, qq, qerr, qi, yi):
     """Certified (lb, ub) of explicit (query, data) id pairs on one int8
-    grid: the difference form by the int8 gather kernel over a (P, 1) id
-    column (exact in int32 per group), with the pairs' L2 slack."""
-    dhat = ops.gather_sq_dists_int8(codes, qq[qi].contiguous(), _ids32(yi),
-                                    scales, group_size=group_size)[:, 0]
-    slack = qerr[qi] + err[yi]
-    return (ops.quant_lower_bound(dhat, slack),
-            ops.quant_upper_bound(dhat, slack))
+    grid: the difference form (exact in int32 per group) with the pairs'
+    L2 slack, by the int8 gather kernel's pair-list bounds entry, which
+    reads each pair's query row in place."""
+    return ops.gather_bounds_int8_pairs(
+        codes, qq, qi.to(torch.int32), yi.to(torch.int32), scales, err=err,
+        qerr=qerr, group_size=group_size)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,13 +106,14 @@ class Int8Tier:
     def gather_bounds(self, qc: Int8Queries, cand: torch.Tensor, *,
                       impl: str | None):
         """(B, K) candidate ids → certified (lb, ub, None); ids outside
-        the table (NO_NODE) give +inf bounds and read no row."""
+        the table (NO_NODE) give +inf bounds and read no row. On the card
+        one kernel computes d̂ and both bounds
+        (``ops.gather_bounds_int8``)."""
         st = self.store
-        dhat = ops.gather_sq_dists_int8(st.q, qc.q, cand, st.scales,
+        lb, ub = ops.gather_bounds_int8(st.q, qc.q, cand, st.scales,
+                                        err=st.err, qerr=qc.err,
                                         group_size=st.group_size, impl=impl)
-        slack = qc.err[:, None] + st.err[cand.clamp_min(0).long()]
-        return (ops.quant_lower_bound(dhat, slack),
-                ops.quant_upper_bound(dhat, slack), None)
+        return lb, ub, None
 
     def pairwise_bounds(self, qc: Int8Queries, *, impl: str | None,
                         y0: int = 0, y1: int | None = None):
@@ -134,7 +136,7 @@ class Int8Tier:
         NLJ escalation shape."""
         st = self.store
         return _refine_int8(st.q, st.scales, st.group_size, st.err, qc.q,
-                            qc.err, qi.long(), yi.long())
+                            qc.err, qi, yi)
 
     def pool_band(self, qc: Int8Queries, pool_lb: torch.Tensor,
                   pool_idx: torch.Tensor, th2: float):
@@ -238,14 +240,13 @@ class PdxTier:
     def gather_bounds(self, qc: PdxQueries, cand: torch.Tensor, *,
                       impl: str | None):
         """(B, K) candidate ids → certified (lb, ub, None): the full-scan
-        difference form on the per-slab grid by the int8 gather kernel,
-        a slab as its dimension group."""
+        difference form on the per-slab grid by the int8 gather bounds
+        kernel, a slab as its dimension group."""
         st = self.store
-        dhat = ops.gather_sq_dists_int8(st.q, qc.q, cand, st.scales,
+        lb, ub = ops.gather_bounds_int8(st.q, qc.q, cand, st.scales,
+                                        err=st.err, qerr=qc.err,
                                         group_size=st.slab, impl=impl)
-        slack = qc.err[:, None] + st.err[cand.clamp_min(0).long()]
-        return (ops.quant_lower_bound(dhat, slack),
-                ops.quant_upper_bound(dhat, slack), None)
+        return lb, ub, None
 
     def _pairwise(self, qc: PdxQueries, theta: float, early_exit: bool,
                   impl: str | None, y0: int = 0, y1: int | None = None):
@@ -282,7 +283,7 @@ class PdxTier:
         per-slab grid (padded dims are code 0 on both sides)."""
         st = self.store
         return _refine_int8(st.q, st.scales, st.slab, st.err, qc.q, qc.err,
-                            qi.long(), yi.long())
+                            qi, yi)
 
     def pool_band(self, qc: PdxQueries, pool_lb: torch.Tensor,
                   pool_idx: torch.Tensor, th2: float):

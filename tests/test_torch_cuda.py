@@ -17,7 +17,13 @@ torch composition over the pairwise kernel's d̂; the top-k merge exactly,
 ids and tie order included; the pair list bit-equal to the pairwise
 kernel, also at shapes that cross the f32 tile's and its pipeline's
 edges and from an unaligned base),
-the Hamming kernels exactly; the PDX kernels with early exit off within
+the f32 gather bit for bit against the rowwise kernel over the gathered
+rows (the two share each lane's slots, fmaf chain and xor-tree) and its
+pair-list entry against it, from aligned and unaligned bases; the int8
+gather bit for bit against ``ref.gather_sq_dists_int8_exact`` (its own
+arithmetic), its pair list against it and the fused int8 gather bounds
+(both entries, through ``Int8Tier``/``PdxTier``) against the torch
+composition over its d̂; the Hamming kernels exactly; the PDX kernels with early exit off within
 ``|Δ| ≤ 1e-6·value + 1e-6·(xn+yn)`` (pairwise; the plain version repeats
 its operation order) and ``rtol = 1e-6``, ``atol = 1e-6·max d`` (gather),
 survivors bit-identical with early exit on and off, the pairwise slab
@@ -373,6 +379,135 @@ def test_int8_bounds_kernel_is_the_composition(dev, B, N, d, gs):
     assert torch.equal(tlb, lb) and torch.equal(tub, ub)
 
 
+def _pair_list(idx):
+    B, K = idx.shape
+    qi = torch.arange(B, device=idx.device, dtype=torch.int32)
+    return qi.repeat_interleave(K), idx.reshape(-1).contiguous()
+
+
+@pytest.mark.parametrize("d", [1, 7, 33, 128, 130, 256])
+@pytest.mark.parametrize("B,K", [(1, 1), (9, 1), (33, 65), (256, 128),
+                                 (5, 17)])
+def test_gather_kernel_is_the_rowwise_kernels_arithmetic(dev, B, K, d):
+    """The f32 gather (#3) bit for bit against the rowwise kernel (#2) over
+    the gathered rows, its pair-list entry bit for bit against it (also
+    from unaligned bases), both within tolerance of the plain version, and
+    NO_NODE +inf."""
+    rng = _rng("g3", B, K, d)
+    vecs = torch.from_numpy(rng.normal(size=(70, d)).astype(np.float32)
+                            ).to(dev)
+    x = torch.from_numpy(rng.normal(size=(B, d)).astype(np.float32)).to(dev)
+    idx = _rng("g3ids", B, K).integers(-1, 70, (B, K)).astype(np.int32)
+    idx = torch.from_numpy(idx).to(dev)
+    valid = idx >= 0
+    n0 = ops.launch_counts()
+    got = ops.gather_sq_dists(vecs, x, idx)
+    rw = ops.rowwise_sq_dists(x, vecs[idx.clamp_min(0).long()])
+    assert torch.equal(got, torch.where(valid, rw, torch.inf))
+    qi, yi = _pair_list(idx)
+    assert torch.equal(ops.gather_sq_dists_pairs(vecs, x, qi, yi),
+                       got.reshape(-1))
+    n1 = ops.launch_counts()
+    assert n1["gather_sq_dists"] == n0["gather_sq_dists"] + 1
+    assert n1["gather_sq_dists_pairs"] == n0["gather_sq_dists_pairs"] + 1
+    _close_rows(got, ref.gather_sq_dists(vecs.cpu(), x.cpu(), idx.cpu()))
+    uv, ux = _unaligned(vecs), _unaligned(x)
+    ug = ops.gather_sq_dists(uv, ux, idx)
+    assert torch.equal(ops.gather_sq_dists_pairs(uv, ux, qi, yi),
+                       ug.reshape(-1))
+    _close_rows(ug, ref.gather_sq_dists(vecs.cpu(), x.cpu(), idx.cpu()))
+
+
+@pytest.mark.parametrize("gs", [128, 64, 32, 12, 7])
+@pytest.mark.parametrize("d", [1, 7, 33] + INT8_DIMS)
+@pytest.mark.parametrize("B,K", [(1, 1), (9, 1), (33, 65), (256, 128)])
+def test_int8_gather_kernels_are_exact(dev, B, K, d, gs):
+    """The int8 gather (#7) bit for bit against its own arithmetic
+    (``ref.gather_sq_dists_int8_exact``) with 16-, 8-, 4-byte and byte
+    chunks (aligned and unaligned code rows, groups that are and are not
+    multiples of 4 or of a pass), and the fused gather bounds (#7', both
+    entries, the pair list reading the kernel's d̂ through them) against
+    the torch composition over its d̂; NO_NODE +inf in every output."""
+    rng = _rng("g7", B, K, d, gs)
+    st = build_store(torch.from_numpy(
+        rng.normal(size=(80, d)).astype(np.float32)).to(dev), group_size=gs)
+    qx, _, qe = quantize_queries(torch.from_numpy(
+        rng.normal(size=(B, d)).astype(np.float32)).to(dev), st)
+    idx = torch.from_numpy(rng.integers(-1, 80, (B, K)).astype(np.int32)
+                           ).to(dev)
+    valid = idx >= 0
+    qi, yi = _pair_list(idx)
+    kw = dict(group_size=gs)
+    for codes in (st.q, _unaligned(st.q)):
+        got = ops.gather_sq_dists_int8(codes, qx, idx, st.scales, **kw)
+        assert torch.equal(got, ref.gather_sq_dists_int8_exact(
+            codes, qx, idx, st.scales, **kw))
+        assert bool(torch.isinf(got[~valid]).all())
+        wlb, wub = ref.gather_bounds(
+            got, qe[:, None] + st.err[idx.clamp_min(0).long()])
+        n0 = ops.launch_counts()
+        lb, ub = ops.gather_bounds_int8(codes, qx, idx, st.scales,
+                                        err=st.err, qerr=qe, **kw)
+        plb, pub = ops.gather_bounds_int8_pairs(codes, qx, qi, yi,
+                                                st.scales, err=st.err,
+                                                qerr=qe, **kw)
+        n1 = ops.launch_counts()
+        for k in ("gather_bounds_int8", "gather_bounds_int8_pairs"):
+            assert n1[k] == n0[k] + 1, k
+        assert torch.equal(lb, wlb) and torch.equal(ub, wub)
+        assert torch.equal(plb, lb.reshape(-1))
+        assert torch.equal(pub, ub.reshape(-1))
+
+
+def test_int8_tiers_gather_bounds_and_refine_on_the_card(dev):
+    """``Int8Tier``/``PdxTier`` ``gather_bounds`` and ``pair_refine`` on
+    the card go through the fused kernel and equal, bit for bit, the
+    composition the tiers ran before (the int8 gather's d̂, the slack,
+    ``quant_lower_bound``/``quant_upper_bound``), query rows read in place
+    for the pair list; out-of-range ids and query rows give +inf."""
+    from repro_torch.quant.cascade import PdxTier
+    from repro_torch.quant.pdx import build_pdx, pdx_queries
+    rng = _rng("tiers")
+    v = torch.from_numpy(rng.normal(size=(300, 128)).astype(np.float32)
+                         ).to(dev)
+    x = torch.from_numpy(rng.normal(size=(16, 128)).astype(np.float32)
+                         ).to(dev)
+    cand = torch.from_numpy(rng.integers(-1, 300, (16, 40)).astype(np.int32)
+                            ).to(dev)
+    qi = torch.from_numpy(np.sort(rng.integers(0, 16, 500))).to(dev)
+    yi = torch.from_numpy(rng.integers(0, 300, 500)).to(dev)
+    st8 = build_store(v)
+    stp = build_pdx(v)
+    for tier, qc, gs in ((Int8Tier(st8), Int8Tier(st8).encode(x), 128),
+                         (PdxTier(stp), pdx_queries(x, stp), stp.slab)):
+        st = tier.store
+        ops.reset_launch_counts()
+        lb, ub, _ = tier.gather_bounds(qc, cand, impl=None)
+        plb, pub = tier.pair_refine(qc, qi, yi)
+        counts = ops.launch_counts()
+        assert counts["gather_bounds_int8"] == 1
+        assert counts["gather_bounds_int8_pairs"] == 1
+        dhat = ops.gather_sq_dists_int8(st.q, qc.q, cand, st.scales,
+                                        group_size=gs)
+        slack = qc.err[:, None] + st.err[cand.clamp_min(0).long()]
+        assert torch.equal(lb, ops.quant_lower_bound(dhat, slack))
+        assert torch.equal(ub, ops.quant_upper_bound(dhat, slack))
+        pd = ops.gather_sq_dists_int8(
+            st.q, qc.q[qi], yi.to(torch.int32)[:, None].contiguous(),
+            st.scales, group_size=gs)[:, 0]
+        ps = qc.err[qi] + st.err[yi]
+        assert torch.equal(plb, ops.quant_lower_bound(pd, ps))
+        assert torch.equal(pub, ops.quant_upper_bound(pd, ps))
+    bad = torch.tensor([0, 16, -1], dtype=torch.int32, device=dev)
+    ids = torch.tensor([5, 5, 5], dtype=torch.int32, device=dev)
+    qc = Int8Tier(st8).encode(x)
+    for d8 in ops.gather_bounds_int8_pairs(st8.q, qc.q, bad, ids, st8.scales,
+                                           err=st8.err, qerr=qc.err):
+        assert bool(torch.isfinite(d8[0])) and bool(torch.isinf(d8[1:]).all())
+    f = ops.gather_sq_dists_pairs(v, x, bad, ids)
+    assert bool(torch.isfinite(f[0])) and bool(torch.isinf(f[1:]).all())
+
+
 @pytest.mark.parametrize("regime", ["manifold", "ood"])
 def test_sq8_join_on_the_card_matches_the_cpu(dev, regime):
     ds = make_dataset(regime, n_data=1500, n_query=96, dim=32, seed=3)
@@ -391,7 +526,7 @@ def test_sq8_join_on_the_card_matches_the_cpu(dev, regime):
     got = JoinEngine(ds.Y, default=cfg, device=dev).join(
         ds.X, index_merged=_to(merged, dev))
     counts = ops.launch_counts()
-    assert counts["rowwise_sq_dists_int8"] > 0 and counts["gather_sq_dists"] > 0
+    assert counts["gather_bounds_int8"] > 0 and counts["gather_sq_dists"] > 0
     np.testing.assert_array_equal(pair_keys(got.pairs, 1500),
                                   pair_keys(want.pairs, 1500))
     for f in ("n_dist", "n_iters", "n_ood", "n_rerank"):
@@ -409,7 +544,7 @@ def test_sq8_build_and_nlj_on_the_card(dev):
                      device=dev)
     res = eng.join(ds.X)
     counts = ops.launch_counts()
-    for k in ("pairwise_bounds_int8", "rowwise_sq_dists_int8",
+    for k in ("pairwise_bounds_int8", "gather_bounds_int8",
               "topk_merge", "pairlist_sq_dists", "gather_sq_dists"):
         assert counts[k] > 0, k
     # every bound block of the build's kNN sweep is one #6' launch
