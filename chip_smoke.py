@@ -17,7 +17,12 @@ Phases (each raises on failure, so the script exits non-zero):
      unaligned codes) and its pair list, the int8 tier's fused gather
      bounds bit-equal to the torch composition over its d̂, at the
      traversal's shape with half the ids NO_NODE, the top-k merge with
-     forced ties, the pair-list entry's bit equality with the pairwise
+     forced ties on both of its routes (a warp a row up to L = K = 64, a
+     block a row past it), the Hamming kernels, the PDX pairwise kernel
+     (#10; bit for bit its plain version, exit on and off) and its fused
+     certified-bounds entry (#10′; bit for bit ``ref.int8_bounds`` over
+     #10's d̂) up to the pdx8 NLJ's block (512,128)x(1M,128), the PDX
+     gather, the pair-list entry's bit equality with the pairwise
      kernel, the int8 pairwise kernel's bit equality with its exact plain
      version and its error against float64 below the cascade's
      MATMUL_GUARD, the fused int8 bounds kernel's bit equality with the
@@ -49,7 +54,8 @@ Phases (each raises on failure, so the script exits non-zero):
      where the hybrid BBFS must run (n_ood > 0), with the same checks, in
      f32 and under sq8;
   6. time each kernel at the main paths' shapes, the gathers also at the
-     NLJ's pair block (4,194,304 pairs over a 512-query block), every
+     NLJ's pair block (4,194,304 pairs over a 512-query block), #10 and
+     #10′ with early exit on and off, every
      CUDA-event median first and the profiler's device times after them
      (phase 2's tolerances again; torch.mm with TF32 off logged beside the
      f32 pairwise kernel as the CUDA cores' ceiling), trace one pair
@@ -119,7 +125,7 @@ SKETCH8_KERNELS = ("rowwise_hamming", "gather_bounds_int8",
 SKETCH8_NLJ_KERNELS = ("pairwise_hamming", "gather_bounds_int8_pairs",
                        "gather_sq_dists_pairs")
 PDX8_KERNELS = ("gather_bounds_int8", "pdx_gather_sq_dists")
-PDX8_NLJ_KERNELS = ("pairwise_sq_dists_pdx", "gather_sq_dists_pairs")
+PDX8_NLJ_KERNELS = ("pairwise_bounds_pdx", "gather_sq_dists_pairs")
 SKETCHPDX8_KERNELS = ("rowwise_hamming", "gather_bounds_int8",
                       "pdx_gather_sq_dists")
 SKETCHPDX8_NLJ_KERNELS = SKETCH8_NLJ_KERNELS
@@ -561,9 +567,11 @@ def check_kernels_sq8(torch, ops, ref) -> None:
                            ids(256, 128, n_nodes, 0.5), st.scales, gs,
                            st.err, qe, f"main shape gs {gs}")
     del st, y
-    # top-k merge: ragged/empty and the kNN block (4096,48)+(4096,48)
+    # top-k merge: ragged/empty, both routes (the warp kernel up to L = K
+    # = 64, the block kernel past it) and the kNN block (4096,48)+(4096,48)
     for B, L, K in [(0, 4, 4), (3, 0, 5), (5, 4, 0), (1, 1, 1), (7, 5, 13),
-                    (33, 48, 48), (4096, 48, 48)]:
+                    (33, 48, 48), (9, 64, 64), (9, 65, 48), (9, 48, 65),
+                    (9, 200, 300), (4096, 48, 48)]:
         check_topk(torch, ops, ref, *topk_inputs(inp, B, L, K),
                    f"{(B, L, K)}")
     # pair list: bit equality with the pairwise kernel
@@ -637,34 +645,41 @@ def pdx_thetas(torch, st, qc) -> list[float]:
 
 
 def check_pdx_pairwise(torch, ops, ref, st, qc, theta: float,
-                       chunk: int = 1 << 18) -> float:
-    """#10: early exit off against the plain version (|Δ| ≤ 1e-6·value +
-    1e-6·(xn+yn)); on and off: survivors bit-identical, retired lanes
-    +inf; every retired lane's plain full-scan certified lower bound
-    exceeds θ². Returns the max |kernel − plain| (exit off)."""
+                       chunk: int = 1 << 18) -> tuple[float, float]:
+    """#10: bit for bit its plain version, d̂ (early exit off) and slab
+    counts (on); on and off: survivors bit-identical, retired lanes +inf;
+    every retired lane's plain full-scan certified lower bound exceeds θ².
+    #10′: (lb, ub, nscan) with exit on and off bit for bit the composition
+    ``ref.int8_bounds`` over #10's d̂, nscan #10's. Returns the max
+    |kernel − plain| of #10 (exit off) and of #10′ (both bounds, exit off,
+    against ``ref.pairwise_bounds_pdx``)."""
     from repro_torch.quant.cascade import MATMUL_GUARD
     args = (qc.q, st.q, st.scales, qc.qslab, st.qslab, qc.qtail, st.qtail,
             qc.norms, st.norms, qc.err, st.err, theta)
     kw = dict(slab=st.slab, dim=st.dim)
     d_off, n_off = ops.pairwise_sq_dists_pdx(*args, early_exit=False, **kw)
     d_on, n_on = ops.pairwise_sq_dists_pdx(*args, early_exit=True, **kw)
+    b_off = ops.pairwise_bounds_pdx(*args, early_exit=False, **kw)
+    b_on = ops.pairwise_bounds_pdx(*args, early_exit=True, **kw)
     torch.cuda.synchronize()
     B, N, S = qc.q.shape[0], st.q.shape[0], st.n_slabs
     what = f"pdx pairwise ({B},{st.dim})x({N},{st.dim}) S={S} θ={theta:.4f}"
-    if d_off.shape != (B, N) or n_on.shape != (B, N):
+    if d_off.shape != (B, N) or n_on.shape != (B, N) or any(
+            t.shape != (B, N) for t in b_off + b_on):
         raise AssertionError(f"{what}: shapes {d_off.shape}/{n_on.shape}")
     if B * N == 0:
-        return 0.0
-    if not bool((n_off == S).all()):
-        raise AssertionError(f"{what}: exit off scanned fewer slabs")
+        return 0.0, 0.0
+    if not (bool((n_off == S).all()) and torch.equal(b_off[2], n_off)
+            and torch.equal(b_on[2], n_on)):
+        raise AssertionError(f"{what}: exit off scanned fewer slabs, or the "
+                             f"bounds entry's slab counts differ")
     surv = n_on == S
     if not torch.equal(d_on[surv], d_off[surv]):
         raise AssertionError(f"{what}: survivors differ with exit on/off")
     if not bool(torch.isinf(d_on[~surv]).all()):
         raise AssertionError(f"{what}: a retired lane is not +inf")
     th2 = float(np.float32(theta)) ** 2
-    err = 0.0
-    n_same = 0
+    err = err_b = 0.0
     for c0 in range(0, N, chunk):
         c1 = min(c0 + chunk, N)
         sl = slice(c0, c1)
@@ -673,23 +688,34 @@ def check_pdx_pairwise(torch, ops, ref, st, qc, theta: float,
                  theta)
         want, _ = ref.pairwise_sq_dists_pdx(*pargs, early_exit=False, **kw)
         _, wn = ref.pairwise_sq_dists_pdx(*pargs, early_exit=True, **kw)
-        n_same += int((wn == n_on[:, sl]).sum())
-        energy = qc.norms[:, None] + st.norms[None, sl]
-        e = (d_off[:, sl] - want).abs()
-        if not bool((e <= 1e-6 * want.abs() + 1e-6 * energy).all()):
-            raise AssertionError(f"{what}: max err {float(e.max())} beyond "
-                                 f"tolerance")
-        err = max(err, float(e.max()))
-        lb, _ = ref.int8_bounds(want, qc.norms, st.norms[sl], qc.err,
-                                st.err[sl], MATMUL_GUARD)
+        if not (torch.equal(d_off[:, sl], want)
+                and torch.equal(n_on[:, sl], wn)):
+            raise AssertionError(
+                f"{what}: differs from the plain version (max err "
+                f"{float((d_off[:, sl] - want).abs().max())}, "
+                f"{int((n_on[:, sl] != wn).sum())} slab counts)")
+        bnd = (qc.norms, st.norms[sl], qc.err, st.err[sl], MATMUL_GUARD)
+        for (lb, ub, _), dk in ((b_off, d_off), (b_on, d_on)):
+            wlb, wub = ref.int8_bounds(dk[:, sl], *bnd)
+            if not (torch.equal(lb[:, sl], wlb)
+                    and torch.equal(ub[:, sl], wub)):
+                raise AssertionError(f"{what}: the bounds entry differs "
+                                     f"from the composition over d̂")
+        plb, pub, _ = ref.pairwise_bounds_pdx(*pargs, early_exit=False, **kw)
+        for got, w in ((b_off[0][:, sl], plb), (b_off[1][:, sl], pub)):
+            fin = torch.isfinite(w)
+            if fin.any():
+                err_b = max(err_b, float((got[fin] - w[fin]).abs().max()))
+        err = max(err, float((d_off[:, sl] - want).abs().max()))
+        lb, _ = ref.int8_bounds(want, *bnd)
         if not bool((lb[~surv[:, sl]] > th2).all()):
             raise AssertionError(f"{what}: a retired lane's certified lower "
                                  f"bound is within θ²")
-        del want, wn, e, lb, energy
-    log(f"[kernels] {what}: retired {float((~surv).float().mean()):.4f}, "
-        f"slab counts equal to the plain version's on {n_same} of {B * N} "
-        f"lanes")
-    return err
+        del want, wn, lb, plb, pub, wlb, wub
+    log(f"[kernels] {what}: retired {float((~surv).float().mean()):.4f}; "
+        f"d̂ and slab counts equal to the plain version's on all {B * N} "
+        f"lanes; (lb, ub, nscan) the composition's, exit on and off")
+    return err, err_b
 
 
 def check_pdx_gather(torch, ops, ref, st, qc, idx, th2: float,
@@ -1166,15 +1192,18 @@ def time_kernels(torch, ops, ref) -> dict:
 
     # PDX pairwise at the pdx8 NLJ's block: 512 queries x 1M rows, d = 128
     # (two slabs), early exit on at a θ where about half the lanes retire
-    # after the first slab; the bytes and MACs counted are what this run's
-    # lanes scanned. The library call: torch._int_mm per slab + epilogue
+    # after the first slab, and off (the NLJ runs both); the MACs counted
+    # are what this run's lanes scanned, the bytes each input once and the
+    # outputs. The library call: torch._int_mm per slab + epilogue (no exit)
+    from repro_torch.quant.cascade import MATMUL_GUARD
     B, N, d = 512, MAIN_N_DATA, 128
     st, qc = pdx_inputs(torch, inp, N, B, d)
     theta = pdx_thetas(torch, st, qc)[0]
     args = (qc.q, st.q, st.scales, qc.qslab, st.qslab, qc.qtail, st.qtail,
             qc.norms, st.norms, qc.err, st.err, theta)
     kw = dict(slab=st.slab, dim=st.dim, early_exit=True)
-    err = check_pdx_pairwise(torch, ops, ref, st, qc, theta)
+    kw_off = dict(kw, early_exit=False)
+    err, err_b = check_pdx_pairwise(torch, ops, ref, st, qc, theta)
     _, nscan = ops.pairwise_sq_dists_pdx(*args, **kw)
     scanned = float(nscan.double().sum())      # slabs scanned over lanes
     del nscan
@@ -1196,14 +1225,30 @@ def time_kernels(torch, ops, ref) -> dict:
     except RuntimeError as e:            # the library refuses the layout
         log(f"[kernels] torch._int_mm (PDX) not timed: {e}")
         lib = None
-    nbytes = (B + N) * (d + 4 * (2 * S + 2)) + 2 * B * N * 4
-    e = entry(f"({B},{d})x({N},{d}) int8, S={S}, early exit on, "
-              f"{scanned / (B * N * S):.4f} of slabs scanned", err,
-              lambda _, a=args, kw=kw: ops.pairwise_sq_dists_pdx(*a, **kw),
-              lambda _, a=args, kw=kw: ref.pairwise_sq_dists_pdx(*a, **kw),
-              lib,
-              nbytes, 2.0 * scanned * slab, PEAK_INT8_OPS)
-    out["pairwise_sq_dists_pdx"] = e
+    n_in = (B + N) * (d + 4 * (2 * S + 2))
+    frac = scanned / (B * N * S)
+    for name, fn, plain, library, n_out, e_ in (
+            ("pairwise_sq_dists_pdx", ops.pairwise_sq_dists_pdx,
+             ref.pairwise_sq_dists_pdx, lib, 2, err),
+            # #10′: (lb, ub, nscan); library: the same + ref.int8_bounds
+            ("pairwise_bounds_pdx", ops.pairwise_bounds_pdx,
+             ref.pairwise_bounds_pdx,
+             None if lib is None else (
+                 lambda _, lib=lib, a=(qc.norms, st.norms, qc.err, st.err,
+                                       MATMUL_GUARD):
+                     ref.int8_bounds(lib(0), *a)), 3, err_b)):
+        e = entry(f"({B},{d})x({N},{d}) int8, S={S}, early exit on, "
+                  f"{frac:.4f} of slabs scanned"
+                  + (" -> (lb, ub, nscan)" if n_out == 3 else ""), e_,
+                  lambda _, f=fn, a=args, kw=kw: f(*a, **kw),
+                  lambda _, f=plain, a=args, kw=kw: f(*a, **kw), library,
+                  n_in + n_out * B * N * 4, 2.0 * scanned * slab,
+                  PEAK_INT8_OPS)
+        # early exit off: every slab scanned, the same bytes
+        off = (lambda _, f=fn, a=args, kw=kw_off: f(*a, **kw))
+        e["event_ms_exit_off"] = event_ms(torch, off)
+        pending.append((e, "ms_exit_off", off))
+        out[name] = e
     del st, qc, args, xs, ys
 
     # PDX gather at the band re-rank's shape: 256 x 128 ids over the
@@ -1264,8 +1309,10 @@ def time_kernels(torch, ops, ref) -> dict:
         f"operands {mm_ms:.4f} ms, {mm['flops'] / mm_ms / 1e9:.1f} TFLOP/s; "
         f"the kernel {mm['flops'] / out['pairwise_sq_dists']['ms'] / 1e9:.1f}")
     for name, r in out.items():
+        off = (f" early exit off ms={r['ms_exit_off']:.4f} (events "
+               f"{r['event_ms_exit_off']:.4f})" if "ms_exit_off" in r else "")
         log(f"[kernels] {name} {r['shape']}: max_abs_err={r['max_abs_err']} "
-            f"ms={r['ms']:.4f} (events {r['event_ms']:.4f}) "
+            f"ms={r['ms']:.4f} (events {r['event_ms']:.4f}){off} "
             f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
             f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']}")
     return out
@@ -1480,8 +1527,10 @@ def check_nlj(torch, ops, run: dict, kernels, *, mode: str | None = None,
     the f32 NLJ's pairs, except pairs whose float64 distance lies within
     16 f32 ulps of θ (counted): the f32 NLJ decides by the matmul form,
     whose rounding near θ is of that order at these norms, the cascade
-    NLJ by certified bounds and the difference form. Returns the pairs,
-    the stats and the launches."""
+    NLJ by certified bounds and the difference form. The NLJ's seconds
+    exclude any tier store the call built over Y alone (the first NLJ of
+    each tier builds one), which are logged apart. Returns the pairs, the
+    stats, the launches and the seconds."""
     eng, ds = run["eng"], run["ds"]
     cfg = eng.default
     if mode is not None:
@@ -1490,12 +1539,17 @@ def check_nlj(torch, ops, run: dict, kernels, *, mode: str | None = None,
         cfg.traversal, early_exit=early_exit))
     tag = f"{run['name'].split('/')[0]}/{cfg.quant}"
     n = ds.Y.shape[0]
+    builds0, bs0 = dict(eng.build_counts), eng.build_seconds
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     res = eng.join(ds.X, cfg)
     torch.cuda.synchronize()
-    nlj_s = time.perf_counter() - t0
+    wall = time.perf_counter() - t0
     launches = ops.launch_counts()
+    store_s = eng.build_seconds - bs0
+    nlj_s = wall - store_s
+    new_builds = {k: v - builds0[k] for k, v in eng.build_counts.items()
+                  if v != builds0[k]}
     t1 = time.perf_counter()
     got, want = card_keys(torch, res.pairs, n), run["truth_keys"]
     only_got = got[~torch.isin(got, want)]
@@ -1519,7 +1573,8 @@ def check_nlj(torch, ops, run: dict, kernels, *, mode: str | None = None,
     extra = only_got.numel()
     st = res.stats
     log(f"[{tag}] nlj (early exit {'on' if early_exit else 'off'}): "
-        f"{len(res.pairs)} pairs in {nlj_s:.2f}s, n_rerank={st.n_rerank}, "
+        f"{len(res.pairs)} pairs in {nlj_s:.2f}s (stores_s={store_s:.2f}, "
+        f"new builds {new_builds}, outside it), n_rerank={st.n_rerank}, "
         f"n_esc8={st.n_esc8}, dims_scanned_frac={st.dims_scanned_frac:.4f}, "
         f"equal to the f32 NLJ but for {diff.numel()} pairs within 16 ulps "
         f"of θ ({extra} only in {cfg.quant}, {diff.numel() - extra} only in "
@@ -2026,6 +2081,7 @@ def main() -> int:
         "pairwise_hamming": "src/repro/kernels/bits.py:56",
         "rowwise_hamming": "src/repro/kernels/bits.py:93",
         "pairwise_sq_dists_pdx": "src/repro/kernels/pdx.py:116",
+        "pairwise_bounds_pdx": "src/repro/kernels/pdx.py:116",
         "pdx_gather_sq_dists": "src/repro/kernels/pdx.py:222",
         "nlj_count": "src/repro/kernels/nlj.py:50",
     }
@@ -2040,7 +2096,8 @@ def main() -> int:
     source.update({k: "src/repro_torch/kernels/csrc/bits.cu"
                    for k in ("pairwise_hamming", "rowwise_hamming")})
     source.update({k: "src/repro_torch/kernels/csrc/pdx.cu"
-                   for k in ("pairwise_sq_dists_pdx", "pdx_gather_sq_dists")})
+                   for k in ("pairwise_sq_dists_pdx", "pairwise_bounds_pdx",
+                             "pdx_gather_sq_dists")})
     source["nlj_count"] = "src/repro_torch/kernels/csrc/nlj.cu"
     paths = {"f32": main_run["launches"], "sq8": sq8_run["launches"],
              "sq8/nlj": sq8_nlj["launches"]}
@@ -2056,7 +2113,9 @@ def main() -> int:
                     launches_by_path={n: p[k] for n, p in paths.items()},
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by=r["bound_by"], library_ms=r["library_ms"])
+                    bound_by=r["bound_by"], library_ms=r["library_ms"],
+                    **({"ms_exit_off": r["ms_exit_off"]}
+                       if "ms_exit_off" in r else {}))
                for k, r in table.items()]
     log(f"[done] total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))

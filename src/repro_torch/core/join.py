@@ -74,11 +74,15 @@ def cascade_join_pairs(X, Y, theta: float, cascade=None, *, block: int = 512,
         if getattr(t0, "early_exitable", False):
             lb, ub, nscan = t0.pairwise_bounds_ee(
                 qc0, theta=theta, early_exit=early_exit, impl=impl)
+            # a lane scanned nscan·slab dims, clamped to dim: only a full
+            # scan (nscan == S) reaches past dim, by S·slab − dim
             st0 = t0.store
-            dims = torch.clamp_max(nscan.long() * st0.slab, st0.dim)
-            counts["dims_scanned"] += int(dims.sum())
-            counts["dims_total"] += dims.numel() * st0.dim
-            del nscan, dims
+            full = int((nscan == st0.n_slabs).sum())
+            counts["dims_scanned"] += (
+                st0.slab * int(nscan.sum())
+                - (st0.n_slabs * st0.slab - st0.dim) * full)
+            counts["dims_total"] += nscan.numel() * st0.dim
+            del nscan
         else:
             lb, ub = t0.pairwise_bounds(qc0, impl=impl)
         if ub is not None and len(tiers) == 1:

@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "distance.cu", CSRC / "int8.cu", CSRC / "topk_merge.cu",
            CSRC / "bits.cu", CSRC / "pdx.cu", CSRC / "nlj.cu")
 # headers the sources include; they key the build too
-HEADERS = (CSRC / "tile.cuh",)
+HEADERS = (CSRC / "tile.cuh", CSRC / "int8_tile.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -50,10 +50,13 @@ _SIGNATURES = {
     "repro_rowwise_sq_dists_int8": (_P,) * 9 + (_LL, _I, _I, _I, _LL, _I,
                                                  _I, _P),
     "repro_topk_merge": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "repro_topk_merge_warp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "repro_pairwise_hamming": (_P, _P, _P, _I, _I, _I, _I, _P),
     "repro_rowwise_hamming": (_P, _P, _P, _P, _LL, _I, _I, _LL, _I, _P),
     "repro_pairwise_sq_dists_pdx": (_P,) * 13 + (_I, _I, _I, _I, _F, _F, _F,
-                                                  _F, _I, _I, _P),
+                                                  _F, _I, _P),
+    "repro_pairwise_bounds_pdx": (_P,) * 14 + (_I, _I, _I, _I, _F, _F, _F, _F,
+                                                _I, _P),
     "repro_pdx_gather_sq_dists": (_P,) * 9 + (_LL, _I, _I, _I, _LL, _F, _F,
                                               _F, _I, _I, _P),
     "repro_nlj_count": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),

@@ -4,7 +4,7 @@ Implementation selection (``impl``) follows the tensors' device:
   * ``cuda`` — the hand-written kernels of ``csrc/*.cu`` (f32 distances,
     the fused NLJ count, int8 distances and the int8 tier's certified
     bounds, the top-k merge, sketch Hamming counts, PDX early-exit
-    distances), for CUDA tensors;
+    distances and their certified bounds), for CUDA tensors;
   * ``ref``  — the plain PyTorch versions in ``kernels/ref.py``, for CPU
     tensors (what the CPU tests run).
 An explicit ``impl`` must name the one its tensors' device takes.
@@ -29,7 +29,8 @@ LAUNCHES: dict[str, int] = {
     "pairwise_sq_dists": 0, "pairlist_sq_dists": 0, "rowwise_sq_dists": 0,
     "gather_sq_dists": 0, "topk_merge": 0, "pairwise_sq_dists_int8": 0,
     "rowwise_sq_dists_int8": 0, "pairwise_hamming": 0, "rowwise_hamming": 0,
-    "pairwise_sq_dists_pdx": 0, "pdx_gather_sq_dists": 0, "nlj_count": 0,
+    "pairwise_sq_dists_pdx": 0, "pairwise_bounds_pdx": 0,
+    "pdx_gather_sq_dists": 0, "nlj_count": 0,
     "pairwise_bounds_int8": 0, "gather_sq_dists_pairs": 0,
     "gather_bounds_int8": 0, "gather_bounds_int8_pairs": 0}
 _GRID_Y_MAX = 65535
@@ -357,9 +358,13 @@ def gather_sq_dists_pairs(vecs: torch.Tensor, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 _TOPK_MAX = 12288          # L + K floats of one row in 48 KiB shared memory
+_TOPK_WARP_MAX = 64        # L and K that the warp-per-row kernel holds
 
 
 def topk_merge_cuda(bd, bi, cd, ci) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rows with L and K up to 64 (the kNN builds' 48) go to the kernel
+    that merges a row in one warp, wider rows to the block-per-row kernel:
+    chosen by shape, both exact."""
     dev = bd.device
     _check("beam_dist", bd, torch.float32, 2, dev)
     _check("beam_idx", bi, torch.int32, 2, dev)
@@ -375,9 +380,13 @@ def topk_merge_cuda(bd, bi, cd, ci) -> tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"row too wide for one block: L={L} K={K}")
     od = torch.empty((B, L), dtype=torch.float32, device=dev)
     oi = torch.empty((B, L), dtype=torch.int32, device=dev)
-    _launch("topk_merge", dev, _build.load().repro_topk_merge,
-            bd.data_ptr(), bi.data_ptr(), cd.data_ptr(), ci.data_ptr(),
-            od.data_ptr(), oi.data_ptr(), B, L, K)
+    lib = _build.load()
+    fn = (lib.repro_topk_merge_warp
+          if L <= _TOPK_WARP_MAX and K <= _TOPK_WARP_MAX
+          else lib.repro_topk_merge)
+    _launch("topk_merge", dev, fn, bd.data_ptr(), bi.data_ptr(),
+            cd.data_ptr(), ci.data_ptr(), od.data_ptr(), oi.data_ptr(), B, L,
+            K)
     return od, oi
 
 
@@ -750,9 +759,11 @@ def _pdx_guards(dim: int) -> tuple[float, float]:
     return tail_guard(dim), TAIL_GUARD
 
 
-def pairwise_sq_dists_pdx_cuda(qx, qy, scales, xslab, yslab, xtail, ytail,
-                               xn, yn, xe, ye, theta: float, *, slab: int,
-                               dim: int, early_exit: bool):
+def _pdx_pair_launch(counter: str, fn, qx, qy, scales, xslab, yslab, xtail,
+                     ytail, xn, yn, xe, ye, theta: float, *, slab: int,
+                     dim: int, early_exit: bool, bounds: bool):
+    """The PDX pairwise kernel: (d̂, nscan), or with ``bounds`` the int8
+    tier's certified (lb, ub, nscan)."""
     from repro_torch.quant.cascade import MATMUL_GUARD
     dev = qx.device
     _check("qx", qx, torch.int8, 2, dev)
@@ -765,29 +776,46 @@ def pairwise_sq_dists_pdx_cuda(qx, qy, scales, xslab, yslab, xtail, ytail,
         raise ValueError(f"shapes differ: qx {tuple(qx.shape)}, qy "
                          f"{tuple(qy.shape)}, {S} slabs of {slab}")
     for name, t, n in (("xslab", xslab, B), ("yslab", yslab, N),
-                       ("xtail", xtail, B), ("ytail", ytail, N)):
+                        ("xtail", xtail, B), ("ytail", ytail, N)):
         _check(name, t, torch.float32, 2, dev)
         if tuple(t.shape) != (n, S):
             raise ValueError(f"{name} {tuple(t.shape)} is not ({n}, {S})")
     for name, t, n in (("xn", xn, B), ("yn", yn, N), ("xe", xe, B),
-                       ("ye", ye, N)):
+                        ("ye", ye, N)):
         _check(name, t, torch.float32, 1, dev)
         if t.shape[0] != n:
             raise ValueError(f"{name} {tuple(t.shape)} is not ({n},)")
     if -(-B // 128) > _GRID_Y_MAX or max(B, N, dp) >= 2**31:
         raise ValueError(f"shape too large for one launch: B={B} N={N}")
     guard, guard_abs = _pdx_guards(dim)
-    vec16 = int(dp % 16 == 0 and slab % 16 == 0 and _aligned(16, qx, qy))
-    out = torch.empty((B, N), dtype=torch.float32, device=dev)
+    outs = [torch.empty((B, N), dtype=torch.float32, device=dev)
+            for _ in range(2 if bounds else 1)]
     nscan = torch.empty((B, N), dtype=torch.int32, device=dev)
-    _launch("pairwise_sq_dists_pdx", dev,
-            _build.load().repro_pairwise_sq_dists_pdx,
-            qx.data_ptr(), qy.data_ptr(), scales.data_ptr(), xslab.data_ptr(),
-            yslab.data_ptr(), xtail.data_ptr(), ytail.data_ptr(),
-            xn.data_ptr(), yn.data_ptr(), xe.data_ptr(), ye.data_ptr(),
-            out.data_ptr(), nscan.data_ptr(), B, N, S, slab, float(theta),
-            guard, guard_abs, MATMUL_GUARD, int(early_exit), vec16)
-    return out, nscan
+    _launch(counter, dev, fn, qx.data_ptr(), qy.data_ptr(), scales.data_ptr(),
+            xslab.data_ptr(), yslab.data_ptr(), xtail.data_ptr(),
+            ytail.data_ptr(), xn.data_ptr(), yn.data_ptr(), xe.data_ptr(),
+            ye.data_ptr(), *(o.data_ptr() for o in outs), nscan.data_ptr(),
+            B, N, S, slab, float(theta), guard, guard_abs, MATMUL_GUARD,
+            int(early_exit))
+    return (*outs, nscan)
+
+
+def pairwise_sq_dists_pdx_cuda(qx, qy, scales, xslab, yslab, xtail, ytail,
+                               xn, yn, xe, ye, theta: float, *, slab: int,
+                               dim: int, early_exit: bool):
+    return _pdx_pair_launch(
+        "pairwise_sq_dists_pdx", _build.load().repro_pairwise_sq_dists_pdx,
+        qx, qy, scales, xslab, yslab, xtail, ytail, xn, yn, xe, ye, theta,
+        slab=slab, dim=dim, early_exit=early_exit, bounds=False)
+
+
+def pairwise_bounds_pdx_cuda(qx, qy, scales, xslab, yslab, xtail, ytail, xn,
+                             yn, xe, ye, theta: float, *, slab: int, dim: int,
+                             early_exit: bool):
+    return _pdx_pair_launch(
+        "pairwise_bounds_pdx", _build.load().repro_pairwise_bounds_pdx,
+        qx, qy, scales, xslab, yslab, xtail, ytail, xn, yn, xe, ye, theta,
+        slab=slab, dim=dim, early_exit=early_exit, bounds=True)
 
 
 def pairwise_sq_dists_pdx(qx, qy, scales, xslab, yslab, xtail, ytail, xn,
@@ -810,6 +838,29 @@ def pairwise_sq_dists_pdx(qx, qy, scales, xslab, yslab, xtail, ytail, xn,
             qx, qy, scales, xslab, yslab, xtail, ytail, xn, yn, xe, ye,
             theta, slab=slab, dim=dim, early_exit=early_exit)
     return pairwise_sq_dists_pdx_cuda(
+        qx, qy, scales, xslab, yslab, xtail, ytail, xn, yn, xe, ye, theta,
+        slab=slab, dim=dim, early_exit=early_exit)
+
+
+def pairwise_bounds_pdx(qx, qy, scales, xslab, yslab, xtail, ytail, xn, yn,
+                        xe, ye, theta: float, *, slab: int, dim: int,
+                        early_exit: bool = False, impl: str | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``pairwise_sq_dists_pdx`` with the int8 tier's certified bounds of
+    its ``dhat`` (``ref.int8_bounds``: the matmul guard
+    ``MATMUL_GUARD·(xn + yn)`` and the slack ``xe + ye``) →
+    ``(lb, ub, nscan)``, +inf in both bounds where a lane retired. On the
+    card one kernel writes all three, bit for bit the composition over
+    ``pairwise_sq_dists_pdx``'s ``dhat``; on the CPU the composition
+    itself (``ref.pairwise_bounds_pdx``)."""
+    impl = _impl(impl, qx)
+    B = qx.shape[0]
+    N = qy.shape[0]
+    if impl == "ref" or B == 0 or N == 0:
+        return _ref.pairwise_bounds_pdx(
+            qx, qy, scales, xslab, yslab, xtail, ytail, xn, yn, xe, ye,
+            theta, slab=slab, dim=dim, early_exit=early_exit)
+    return pairwise_bounds_pdx_cuda(
         qx, qy, scales, xslab, yslab, xtail, ytail, xn, yn, xe, ye, theta,
         slab=slab, dim=dim, early_exit=early_exit)
 

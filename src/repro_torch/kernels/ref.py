@@ -401,6 +401,21 @@ def pairwise_sq_dists_pdx(qx, qy, scales, xslab, yslab, xtail, ytail, xn,
     return _pdx_live_loop(contribs, tails, th, nk, early_exit)
 
 
+def pairwise_bounds_pdx(qx, qy, scales, xslab, yslab, xtail, ytail, xn, yn,
+                        xe, ye, theta: float, *, slab: int, dim: int,
+                        early_exit: bool
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The PDX tier's certified ``(lb, ub, nscan)``: ``int8_bounds`` over
+    ``pairwise_sq_dists_pdx``'s ``dhat`` (the plain version of the fused
+    PDX bounds kernel); a retired lane's +inf passes through both."""
+    from repro_torch.quant.cascade import MATMUL_GUARD
+    dhat, nscan = pairwise_sq_dists_pdx(
+        qx, qy, scales, xslab, yslab, xtail, ytail, xn, yn, xe, ye, theta,
+        slab=slab, dim=dim, early_exit=early_exit)
+    lb, ub = int8_bounds(dhat, xn, yn, xe, ye, MATMUL_GUARD)
+    return lb, ub, nscan
+
+
 def pdx_gather_sq_dists(vp, vtail, vnorm, xp, xtail, xn, idx, th2: float,
                         *, dim: int, early_exit: bool
                         ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -440,5 +455,5 @@ __all__ = ["sq_norms", "pairwise_sq_dists", "pairlist_sq_dists",
            "gather_sq_dists_int8_pairs",
            "gather_bounds", "gather_bounds_int8", "gather_bounds_int8_pairs",
            "pairwise_hamming", "rowwise_hamming",
-           "gather_hamming", "pairwise_sq_dists_pdx",
+           "gather_hamming", "pairwise_sq_dists_pdx", "pairwise_bounds_pdx",
            "pdx_gather_sq_dists"]

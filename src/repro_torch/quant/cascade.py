@@ -34,7 +34,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops
 from repro_torch.quant.pdx import PdxQueries, PdxStore, pdx_queries
 from repro_torch.quant.sketch import (SketchStore, sketch_lower_bound_gather,
                                       sketch_lower_bound_pairwise,
@@ -254,14 +254,13 @@ class PdxTier:
         y1 = st.n_vectors if y1 is None else y1
         yn = st.norms[y0:y1]
         ye = st.err[y0:y1]
-        dhat, nscan = ops.pairwise_sq_dists_pdx(
+        # one kernel on the card: d̂ and its certified bounds (+inf d̂, a
+        # retired lane, stays +inf through both: its certified lower bound
+        # already exceeds the threshold)
+        return ops.pairwise_bounds_pdx(
             qc.q, st.q[y0:y1], st.scales, qc.qslab, st.qslab[y0:y1],
             qc.qtail, st.qtail[y0:y1], qc.norms, yn, qc.err, ye, theta,
             slab=st.slab, dim=st.dim, early_exit=early_exit, impl=impl)
-        # +inf d̂ (a retired lane) stays +inf through both bounds: its
-        # certified lower bound already exceeds the threshold
-        lb, ub = ref.int8_bounds(dhat, qc.norms, yn, qc.err, ye, MATMUL_GUARD)
-        return lb, ub, nscan
 
     def pairwise_bounds(self, qc: PdxQueries, *, impl: str | None,
                         y0: int = 0, y1: int | None = None):

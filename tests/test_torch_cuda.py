@@ -27,7 +27,12 @@ composition over its d̂; the Hamming kernels exactly; the PDX kernels with earl
 ``|Δ| ≤ 1e-6·value + 1e-6·(xn+yn)`` (pairwise; the plain version repeats
 its operation order) and ``rtol = 1e-6``, ``atol = 1e-6·max d`` (gather),
 survivors bit-identical with early exit on and off, the pairwise slab
-counts equal to the plain version's), the NLJ count exactly (against the
+counts equal to the plain version's; and, run on the card, the PDX
+pairwise kernel bit for bit its plain version and its fused bounds entry
+bit for bit ``ref.int8_bounds`` over its d̂, at slabs that are not a
+multiple of 32, ragged tiles, unaligned code bases, a query tile too deep
+for shared memory and thresholds where all, some or no lanes retire; the
+top-k merge on both of its routes), the NLJ count exactly (against the
 plain version at a θ clear of boundary pairs, and against the pairwise
 kernel's distances at any θ), and the joins on the card against the same
 joins on the CPU over the same indexes (and, under the sketch and PDX
@@ -235,6 +240,32 @@ def test_topk_merge_kernel_matches_plain_with_ties(dev, B, L, K):
     args = [torch.from_numpy(a) for a in (bd, bi, cd, ci)]
     gd, gi = ops.topk_merge(*(a.to(dev) for a in args))
     wd, wi = ref.topk_merge(*args)
+    assert torch.equal(gd.cpu(), wd) and torch.equal(gi.cpu(), wi)
+
+
+@pytest.mark.parametrize("L", [1, 48, 64, 65, 200])
+@pytest.mark.parametrize("K", [0, 1, 48, 64, 65, 300])
+def test_topk_merge_both_routes_match_plain(dev, L, K):
+    """L and K up to 64 take the warp-per-row kernel, wider rows the
+    block-per-row kernel (chosen by shape): both equal the plain version,
+    with rows all tied, rows of +inf, NO_NODE ids and unaligned rows."""
+    rng = _rng("topk2", L, K)
+    B = 37
+    bd = np.sort(rng.integers(0, 4, (B, L)).astype(np.float32), axis=1)
+    cd = rng.integers(0, 4, (B, K)).astype(np.float32)
+    bd[0], cd[0] = 2.0, 2.0                     # a row all tied
+    bd[1], cd[1] = np.inf, np.inf               # a row of +inf
+    bd[2, L // 2:] = np.inf
+    cd[3, ::3] = np.inf
+    bi = rng.integers(0, 1 << 30, (B, L)).astype(np.int32)
+    ci = rng.integers(0, 1 << 30, (B, K)).astype(np.int32)
+    ci[rng.random((B, K)) < 0.2] = -1           # NO_NODE candidates
+    args = [torch.from_numpy(a) for a in (bd, bi, cd, ci)]
+    wd, wi = ref.topk_merge(*args)
+    gd, gi = ops.topk_merge(*(a.to(dev) for a in args))
+    assert torch.equal(gd.cpu(), wd) and torch.equal(gi.cpu(), wi)
+    # from bases 4 bytes past a 16-byte boundary: the scalar loads
+    gd, gi = ops.topk_merge(*(_unaligned(a.to(dev)) for a in args))
     assert torch.equal(gd.cpu(), wd) and torch.equal(gi.cpu(), wi)
 
 
@@ -639,6 +670,106 @@ def test_pdx_pairwise_kernel_matches_plain(dev, B, N, d):
         assert bool((n_off == st.n_slabs).all())
 
 
+# (B, N, d, slab): the existing shapes, slabs that are not a multiple of 32,
+# B and N off the 128 x 64 tile, and a depth whose query tile streams
+# through the ring (d = 2048 does not fit in shared memory with its tables)
+PDX_EXACT = [(1, 1, 8, 64), (5, 9, 64, 64), (129, 257, 128, 64),
+             (200, 1000, 150, 64), (0, 5, 64, 64), (5, 0, 64, 64),
+             (130, 300, 100, 48), (67, 129, 120, 20), (3, 65, 40, 8),
+             (257, 511, 128, 64), (40, 90, 2048, 64)]
+
+
+@pytest.mark.parametrize("B,N,d,slab", PDX_EXACT)
+@pytest.mark.parametrize("theta", ["retire-some", "retire-all",
+                                   "retire-none"])
+def test_pdx_pairwise_and_bounds_kernels_are_exact(dev, B, N, d, slab, theta):
+    """#10 bit for bit its plain version run on the card (d̂ with early exit
+    off, slab counts with it on), survivors bit-identical on and off; #10′
+    (lb, ub, nscan) bit for bit ``ref.int8_bounds`` over #10's d̂ and
+    #10's counts, and ``ref.pairwise_bounds_pdx``; also from unaligned
+    code bases."""
+    from repro_torch.quant.pdx import build_pdx, pdx_queries
+    rng = _rng("pdx-exact", B, N, d, slab)
+    scale = rng.uniform(0.2, 3.0, d)
+    st = build_pdx(torch.from_numpy((rng.normal(size=(max(N, 1), d)) * scale)
+                                    .astype(np.float32)).to(dev), slab=slab)
+    st = dataclasses.replace(st, **{f: getattr(st, f)[:N] for f in (
+        "vp", "ftail", "q", "qslab", "qtail", "norms", "err")})
+    qc = pdx_queries(torch.from_numpy((rng.normal(size=(B, d)) * scale)
+                                      .astype(np.float32)).to(dev), st)
+    med = float(torch.cdist(qc.vp[:32], st.vp[:512]).pow(2).median()) \
+        if B * N else 1.0
+    th = {"retire-some": (0.45 * med) ** 0.5, "retire-all": 1e-3,
+          "retire-none": 1e6}[theta]
+    tabs = (qc.qslab, st.qslab, qc.qtail, st.qtail, qc.norms, st.norms,
+            qc.err, st.err, th)
+    kw = dict(slab=st.slab, dim=st.dim)
+    bnd = (qc.norms, st.norms, qc.err, st.err, MATMUL_GUARD)
+    S = st.n_slabs
+    for qx, qy in ((qc.q, st.q), (_unaligned(qc.q), _unaligned(st.q))):
+        args = (qx, qy, st.scales) + tabs
+        off, n_off = ops.pairwise_sq_dists_pdx(*args, early_exit=False, **kw)
+        on, n_on = ops.pairwise_sq_dists_pdx(*args, early_exit=True, **kw)
+        want, _ = ref.pairwise_sq_dists_pdx(*args, early_exit=False, **kw)
+        _, wn = ref.pairwise_sq_dists_pdx(*args, early_exit=True, **kw)
+        assert off.shape == on.shape == (B, N)
+        assert torch.equal(off, want) and torch.equal(n_on, wn)
+        assert bool((n_off == S).all())
+        surv = n_on == S
+        assert torch.equal(on[surv], off[surv])
+        assert bool(torch.isinf(on[~surv]).all())
+        if theta == "retire-none":
+            assert bool(surv.all())
+        for ee, d_k, n_k in ((False, off, n_off), (True, on, n_on)):
+            lb, ub, nb = ops.pairwise_bounds_pdx(*args, early_exit=ee, **kw)
+            wlb, wub = ref.int8_bounds(d_k, *bnd)
+            assert torch.equal(lb, wlb) and torch.equal(ub, wub)
+            assert torch.equal(nb, n_k)
+            plb, pub, pn = ref.pairwise_bounds_pdx(*args, early_exit=ee,
+                                                   **kw)
+            assert torch.equal(lb, plb) and torch.equal(ub, pub)
+            assert torch.equal(nb, pn)
+
+
+def test_pdx_tier_sweeps_through_the_bounds_kernel(dev):
+    """``PdxTier.pairwise_bounds_ee`` on the card launches #10′ (not #10)
+    and is bit for bit its plain version run on the card; against the
+    tier on the CPU over the same store and queries, slab counts equal and
+    bounds within 1e-6 relative (the CPU's and the card's torch ops may
+    round the plain version's f32 steps apart)."""
+    from repro_torch.quant.cascade import PdxTier
+    from repro_torch.quant.pdx import build_pdx
+    rng = _rng("pdx-tier")
+    y = torch.from_numpy(rng.normal(size=(700, 96)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(70, 96)).astype(np.float32))
+    cpu = PdxTier(build_pdx(y))
+    card = PdxTier(_store_to(cpu.store, dev))
+    theta = float(torch.cdist(x, y).median()) * 0.8
+    qc = cpu.encode(x)
+    qd, st = _store_to(qc, dev), card.store
+    for ee in (False, True):
+        ops.reset_launch_counts()
+        got = card.pairwise_bounds_ee(qd, theta=theta, early_exit=ee,
+                                      impl=None)
+        counts = ops.launch_counts()
+        assert counts["pairwise_bounds_pdx"] == 1
+        assert counts["pairwise_sq_dists_pdx"] == 0
+        plain = ref.pairwise_bounds_pdx(
+            qd.q, st.q, st.scales, qd.qslab, st.qslab, qd.qtail, st.qtail,
+            qd.norms, st.norms, qd.err, st.err, theta, slab=st.slab,
+            dim=st.dim, early_exit=ee)
+        for g, w in zip(got, plain):
+            assert torch.equal(g, w)
+        lb, ub, nscan = cpu.pairwise_bounds_ee(qc, theta=theta,
+                                               early_exit=ee, impl=None)
+        assert torch.equal(got[2].cpu(), nscan)
+        for g, w in ((got[0], lb), (got[1], ub)):
+            g = g.cpu()
+            assert torch.equal(g.isinf(), w.isinf())
+            fin = w.isfinite()
+            assert bool(((g[fin] - w[fin]).abs() <= 1e-6 * w[fin]).all())
+
+
 @pytest.mark.parametrize("B,K,d", [(1, 1, 8), (3, 5, 64), (33, 65, 128),
                                    (256, 128, 128), (9, 20, 150), (0, 4, 64),
                                    (3, 0, 64)])
@@ -705,7 +836,7 @@ def test_sketch_and_pdx_joins_on_the_card_match_the_cpu(dev, quant):
     nlj = eng.join(ds.X, method="nlj")
     np.testing.assert_array_equal(pair_keys(nlj.pairs, 1500), truth)
     assert ops.launch_counts()["pairwise_hamming" if "sketch" in quant
-                               else "pairwise_sq_dists_pdx"] > 0
+                               else "pairwise_bounds_pdx"] > 0
 
 
 def _store_to(store, dev):

@@ -15,6 +15,11 @@ across, against the JAX engine with overlap off: identical pairs,
 ``n_dims_scanned``) and their NLJs (pairs equal to JAX's and to the f32
 truth, counts equal, early exit on and off); one pair set across all five
 quant modes; the launcher; and the engine's store sharing across modes.
+The PDX tier's certified bounds — ``ref.pairwise_bounds_pdx``, the plain
+version of the fused PDX bounds kernel — against the reference's
+``PdxTier.pairwise_bounds_ee`` on carried stores (``nscan`` exact, bounds
+within ``2e-5·(xn+yn) + 1e-6·|value|``), the port's tier on the CPU bit
+for bit that plain version, and the NLJ's count of scanned dimensions.
 """
 import dataclasses
 import re
@@ -42,7 +47,7 @@ from repro_torch.core.join import cascade_join_pairs
 from repro_torch.core.types import (QUANT_MODES, graph_index_from_numpy,
                                     pair_keys)
 from repro_torch.engine import JoinEngine
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.launch import join as launch
 from repro_torch.quant import cascade, pdx, sketch
 from repro_torch.quant.store import QuantStore
@@ -242,6 +247,120 @@ def test_pdx_retirement_is_certified(seed):
     keep = ~retired
     assert torch.equal(lb[keep], lb0[keep]) and torch.equal(ub[keep],
                                                             ub0[keep])
+
+
+# -- the PDX tier's certified bounds (the fused kernel's plain version) --------
+
+_ROW_FIELDS = ("vp", "ftail", "q", "qslab", "qtail", "norms", "err")
+# (B, N, d, slab): one slab of 8, one short slab, slabs of 32, three slabs
+# with padding, empty
+BOUND_SHAPES = [(1, 1, 8, 8), (5, 9, 40, 64), (9, 130, 96, 32),
+                (12, 40, 130, 64), (0, 4, 16, 8), (4, 0, 16, 8)]
+
+
+def _bounds_case(B, N, d, slab):
+    """The reference's store over N rows and its queries, and both carried
+    into the port."""
+    jst, jq = _pdx_case(B, N, d, slab, "pb")
+    jst = dataclasses.replace(jst, **{f: getattr(jst, f)[:N]
+                                      for f in _ROW_FIELDS})
+    return _carry_pdx(jst), _carry_queries(jq), jst, jq
+
+
+def _plain_bounds(st, qc, theta, early_exit):
+    return ref.pairwise_bounds_pdx(
+        qc.q, st.q, st.scales, qc.qslab, st.qslab, qc.qtail, st.qtail,
+        qc.norms, st.norms, qc.err, st.err, theta, slab=st.slab, dim=st.dim,
+        early_exit=early_exit)
+
+
+@pytest.mark.parametrize("impl", JAX_IMPLS)
+@pytest.mark.parametrize("B,N,d,slab", BOUND_SHAPES)
+def test_plain_bounds_match_the_reference_tier(B, N, d, slab, impl):
+    """``ref.pairwise_bounds_pdx`` against the reference's
+    ``PdxTier.pairwise_bounds_ee`` on the same carried store: ``nscan``
+    exact, +inf where the reference's is, finite bounds within
+    ``2e-5·(xn+yn) + 1e-6·|value|`` (the two d̂ differ by the matmul
+    form's rounding; the chain is about 1-Lipschitz in d̂ where d̂ dwarfs
+    the slack)."""
+    st, qc, jst, jq = _bounds_case(B, N, d, slab)
+    jtier = jcascade.PdxTier(jst)
+    nsum = (qc.norms[:, None] + st.norms[None, :]).double().numpy()
+    for theta in _thetas(jst, jq):
+        for ee in (False, True):
+            lb, ub, nscan = _plain_bounds(st, qc, theta, ee)
+            jlb, jub, jn = jtier.pairwise_bounds_ee(
+                jq, theta=theta, early_exit=ee, impl=impl)
+            assert lb.shape == ub.shape == nscan.shape == (B, N)
+            assert nscan.dtype == torch.int32
+            np.testing.assert_array_equal(nscan.numpy(), np.asarray(jn))
+            for got, want in ((lb, jlb), (ub, jub)):
+                got = got.double().numpy()
+                want = np.asarray(want, np.float64)
+                fin = np.isfinite(want)
+                np.testing.assert_array_equal(np.isfinite(got), fin)
+                assert np.all(np.abs(got[fin] - want[fin])
+                              <= 2e-5 * nsum[fin] + 1e-6 * np.abs(want[fin]))
+            if ee:                       # a retired lane: +inf in both
+                ret = (nscan < st.n_slabs).numpy()
+                assert np.all(np.isinf(lb.numpy()[ret]))
+                assert np.all(np.isinf(ub.numpy()[ret]))
+
+
+@pytest.mark.parametrize("B,N,d,slab", BOUND_SHAPES)
+def test_tier_sweep_on_the_cpu_is_the_plain_bounds(B, N, d, slab):
+    """``PdxTier.pairwise_bounds_ee`` (and ``pairwise_bounds``) on CPU
+    tensors run ``ref.pairwise_bounds_pdx`` bit for bit, launching
+    nothing; on rows [y0, N) too."""
+    st, qc, jst, jq = _bounds_case(B, N, d, slab)
+    tier = cascade.PdxTier(st)
+    thetas = _thetas(jst, jq)
+    n0 = ops.launch_counts()
+    for theta in thetas:
+        for ee in (False, True):
+            got = tier.pairwise_bounds_ee(qc, theta=theta, early_exit=ee,
+                                          impl=None)
+            for g, w in zip(got, _plain_bounds(st, qc, theta, ee)):
+                assert torch.equal(g, w)
+    lb, ub = tier.pairwise_bounds(qc, impl=None)
+    wlb, wub, _ = _plain_bounds(st, qc, 0.0, False)
+    assert torch.equal(lb, wlb) and torch.equal(ub, wub)
+    y0 = min(N, 3)
+    got = tier.pairwise_bounds_ee(qc, theta=thetas[0], early_exit=True,
+                                  impl=None, y0=y0)
+    sub = dataclasses.replace(st, **{f: getattr(st, f)[y0:]
+                                     for f in _ROW_FIELDS})
+    for g, w in zip(got, _plain_bounds(sub, qc, thetas[0], True)):
+        assert torch.equal(g, w)
+    assert ops.launch_counts() == n0
+    with pytest.raises(ValueError):
+        ops.pairwise_bounds_pdx(
+            qc.q, st.q, st.scales, qc.qslab, st.qslab, qc.qtail, st.qtail,
+            qc.norms, st.norms, qc.err, st.err, 1.0, slab=st.slab,
+            dim=st.dim, impl="cuda")
+
+
+@pytest.mark.parametrize("d,slab", [(100, 64), (130, 64), (96, 32)])
+def test_nlj_dims_scanned_is_the_clamped_sum(d, slab):
+    """The NLJ counts a lane's dims as nscan·slab clamped to d (only a full
+    scan is clamped), summed without a (B, N) int64 tensor; its total
+    equals that sum over the sweep's own slab counts."""
+    v, x = _table(("nlj", d), 300, d), _table(("nljx", d), 40, d)
+    st = pdx.build_pdx(torch.from_numpy(v), slab=slab)
+    tier = cascade.PdxTier(st)
+    med = float(np.median(((x.astype(np.float64)[:, None] - v[None]) ** 2)
+                          .sum(-1)))
+    theta = float(np.sqrt(0.45 * med))
+    _, counts = cascade_join_pairs(x, v, theta, cascade.FilterCascade(
+        (tier,)), block=16, device=CPU)
+    want = 0
+    for q0 in range(0, 40, 16):
+        qc = tier.encode(torch.from_numpy(x[q0:q0 + 16]))
+        _, _, nscan = tier.pairwise_bounds_ee(qc, theta=theta,
+                                              early_exit=True, impl=None)
+        want += int(torch.clamp_max(nscan.long() * slab, d).sum())
+    assert 0 < counts["dims_scanned"] == want < counts["dims_total"]
+    assert counts["dims_total"] == 40 * 300 * d
 
 
 # -- the pdx8 / sketchpdx8 joins --------------------------------------------------------
