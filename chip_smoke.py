@@ -22,7 +22,14 @@ Phases (each raises on failure, so the script exits non-zero):
      (#10; bit for bit its plain version, exit on and off) and its fused
      certified-bounds entry (#10′; bit for bit ``ref.int8_bounds`` over
      #10's d̂) up to the pdx8 NLJ's block (512,128)x(1M,128), the PDX
-     gather, the pair-list entry's bit equality with the pairwise
+     gather, the sketch tier's fused gather bounds (#9′; lb and est bit
+     for bit the composition they replaced, on the card, at exact
+     checkpoint counts, iso ≠ 1, NO_NODE and ids past the table, and the
+     traversal's 256 x 128 ids over the merged codes) and the fused PDX
+     band re-rank (#11′; its five outputs bit for bit band_compact → the
+     PDX gather → band_scatter, exit on and off, at the (256, 1024) pool
+     with cap 128 and 1024 and at ragged pools and slabs), the
+     pair-list entry's bit equality with the pairwise
      kernel, the int8 pairwise kernel's bit equality with its exact plain
      version and its error against float64 below the cascade's
      MATMUL_GUARD, the fused int8 bounds kernel's bit equality with the
@@ -55,7 +62,9 @@ Phases (each raises on failure, so the script exits non-zero):
      f32 and under sq8;
   6. time each kernel at the main paths' shapes, the gathers also at the
      NLJ's pair block (4,194,304 pairs over a 512-query block), #10 and
-     #10′ with early exit on and off, every
+     #10′ with early exit on and off, #9′ and #11′ beside the eager
+     compositions they replaced (#11′ at the pdx8 join's band occupancy),
+     every
      CUDA-event median first and the profiler's device times after them
      (phase 2's tolerances again; torch.mm with TF32 off logged beside the
      f32 pairwise kernel as the CUDA cores' ceiling), trace one pair
@@ -66,7 +75,9 @@ Phases (each raises on failure, so the script exits non-zero):
      because an attached profiler slows every later launch.
 
 Every path is driven with the launch counts set to 0 just before it and
-read just after; a path that did not launch one of its kernels fails.
+read just after; a path that did not launch one of its kernels fails, and
+so does a sketch or PDX join that launched a bare entry (#9, #11) its
+fused one (#9′, #11′) replaced.
 It prints the kernel table as one JSON object, then the card's name and
 power limit, then ``{"ok": true, "device": {...}}`` as the last line. It
 needs the repository's ``src/`` beside it and a CUDA device; without
@@ -120,14 +131,16 @@ SQ8_KERNELS = ("pairwise_bounds_int8", "gather_bounds_int8",
                "topk_merge", "gather_sq_dists", "pairlist_sq_dists")
 SQ8_NLJ_KERNELS = ("pairwise_bounds_int8", "gather_sq_dists_pairs")
 # the sketch and PDX modes: the merged-index join's kernels, the NLJ's
-SKETCH8_KERNELS = ("rowwise_hamming", "gather_bounds_int8",
+SKETCH8_KERNELS = ("gather_sketch_bounds", "gather_bounds_int8",
                    "gather_sq_dists")
 SKETCH8_NLJ_KERNELS = ("pairwise_hamming", "gather_bounds_int8_pairs",
                        "gather_sq_dists_pairs")
-PDX8_KERNELS = ("gather_bounds_int8", "pdx_gather_sq_dists")
+PDX8_KERNELS = ("gather_bounds_int8", "pdx_compact_gather")
 PDX8_NLJ_KERNELS = ("pairwise_bounds_pdx", "gather_sq_dists_pairs")
-SKETCHPDX8_KERNELS = ("rowwise_hamming", "gather_bounds_int8",
-                      "pdx_gather_sq_dists")
+SKETCHPDX8_KERNELS = ("gather_sketch_bounds", "gather_bounds_int8",
+                      "pdx_compact_gather")
+# the bare entries the fused ones replaced: no launch on those joins
+FUSED_AWAY = ("rowwise_hamming", "pdx_gather_sq_dists")
 SKETCHPDX8_NLJ_KERNELS = SKETCH8_NLJ_KERNELS
 # recall floors of the sketch/PDX joins: measured on an H100 (PERF.md)
 # minus 0.05
@@ -746,6 +759,114 @@ def check_pdx_gather(torch, ops, ref, st, qc, idx, th2: float,
     return err
 
 
+def flip_bits(words: np.ndarray, m: int) -> np.ndarray:
+    """A uint32 code row with its first ``m`` bits flipped: Hamming count
+    ``m`` from the original."""
+    out = words.copy()
+    for i in range(m):
+        out[i // 32] ^= np.uint32(1 << (i % 32))
+    return out
+
+
+def sketch_inputs(torch, inp, n: int, b: int, d: int, iso=None):
+    """A sketch store over n random rows and b encoded queries ``(st,
+    codes, cum)``; with ``iso`` the store's isometry factor replaced. With
+    b > 0, store rows 0 … len(hs) − 1 lie exactly hs[k] bits from query 0
+    (0 and d among them)."""
+    from repro_torch.quant.sketch import build_sketch, sketch_queries
+    st = build_sketch(inp.rn(n, d))
+    qc, qcum = sketch_queries(inp.rn(b, d), st)
+    hs = st.hs.cpu().numpy()
+    codes = st.codes
+    if b and n >= len(hs):
+        q0 = qc[0].cpu().numpy().view(np.uint32)
+        rows = np.stack([flip_bits(q0, int(m)) for m in hs])
+        codes = codes.clone()
+        codes[:len(hs)] = torch.from_numpy(rows.view(np.int32)).to(inp.dev)
+    st = dataclasses.replace(st, codes=codes, iso=st.iso if iso is None else
+                             torch.tensor(float(iso), device=inp.dev))
+    return st, qc, qcum
+
+
+def ulp_gap(torch, a, b) -> int:
+    """The largest distance in f32 ulps between finite entries of a and b
+    (on the ordered integer line of their bit patterns)."""
+    fin = a.isfinite() & b.isfinite()
+    if not bool(fin.any()):
+        return 0
+
+    def line(t):
+        i = t[fin].contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((line(a) - line(b)).abs().max())
+
+
+def check_sketch_bounds(torch, ops, ref, st, qc, qcum, idx,
+                        what: str) -> float:
+    """#9′ bit for bit the composition it replaced on the card (#9's
+    Hamming counts, ``sketch_lower_bound_gather``, the estimate) and its
+    plain version run there (the same with the plain Hamming counts),
+    ``lb`` and ``est``; +inf for both outside the table. Returns the max
+    |kernel − plain|: 0, bit for bit."""
+    tabs = (qcum, st.cum, st.hs, st.iso)
+    lb, est = ops.gather_sketch_bounds(st.codes, qc, idx, *tabs, dim=st.dim)
+    for label, ham in (("plain version", ref.gather_hamming),
+                       ("composition", ops.gather_hamming)):
+        wlb, west = ref.gather_sketch_bounds(st.codes, qc, idx, *tabs,
+                                             dim=st.dim, hamming=ham)
+        torch.cuda.synchronize()
+        if lb.shape != tuple(idx.shape) or est.shape != lb.shape:
+            raise AssertionError(f"sketch bounds {what}: shapes "
+                                 f"{tuple(lb.shape)}/{tuple(est.shape)}")
+        for name, got, want in (("lb", lb, wlb), ("est", est, west)):
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"sketch bounds {what}: {name} differs from the "
+                    f"{label} on the card (+inf slots equal: "
+                    f"{torch.equal(got.isinf(), want.isinf())}, largest gap "
+                    f"{ulp_gap(torch, got, want)} ulps)")
+    ok = (idx >= 0) & (idx < st.n_vectors)
+    if not (torch.equal(lb.isfinite(), ok) and torch.equal(est.isfinite(),
+                                                           ok)):
+        raise AssertionError(f"sketch bounds {what}: +inf slots are not the "
+                             f"ids outside the table")
+    return 0.0
+
+
+def check_pdx_compact(torch, ops, ref, st, qc, ids, mask, cap: int,
+                      th2: float, what: str) -> float:
+    """#11′ bit for bit the composition it replaced on the card
+    (``band_compact`` → #11 → ``band_scatter`` and the scan counters):
+    ``exact``, ``within``, ``n_masked``, ``n_scanned``, ``n_total``, early
+    exit on and off; then with exit off against its plain version (the same
+    over the plain PDX gather): ``exact`` as #11's tolerance, the rest
+    equal. Returns the max |kernel − plain| of ``exact``."""
+    args = (st.vp, st.ftail, st.ftail[:, 0].contiguous(), qc.vp, qc.ftail,
+            qc.ftail[:, 0].contiguous(), ids, mask, cap, th2)
+    kw = dict(dim=st.dim)
+    names = ("exact", "within", "n_masked", "n_scanned", "n_total")
+    for ee in (False, True):
+        got = ops.pdx_compact_gather_sq_dists(*args, early_exit=ee, **kw)
+        want = ref.pdx_compact_gather_sq_dists(
+            *args, early_exit=ee, gather=ops.pdx_gather_sq_dists, **kw)
+        torch.cuda.synchronize()
+        bad = [n for n, g, w in zip(names, got, want)
+               if g.dtype != w.dtype or not torch.equal(g, w)]
+        if bad:
+            raise AssertionError(f"pdx compact {what} exit {ee}: {bad} differ "
+                                 f"from the composition on the card")
+        if not ee:
+            off = got
+    plain = ref.pdx_compact_gather_sq_dists(*args, early_exit=False, **kw)
+    err = check_rows(torch, off[0], plain[0], f"pdx compact {what}")
+    bad = [n for n, g, w in zip(names[1:], off[1:], plain[1:])
+           if not torch.equal(g, w)]
+    if bad:
+        raise AssertionError(f"pdx compact {what}: {bad} differ from the "
+                             f"plain version")
+    return err
+
+
 def check_kernels_sketch_pdx(torch, ops, ref) -> None:
     """The Hamming (#8, #9) and PDX (#10, #11) kernels against their plain
     versions: ragged, sub-tile, empty and NO_NODE shapes at W = 2 and 4 /
@@ -771,6 +892,21 @@ def check_kernels_sketch_pdx(torch, ops, ref) -> None:
                          rand_words(inp, 256, 4), inp.ids(256, 128, n_nodes,
                                                           0.5), "main shape")
     log("[kernels] hamming pairwise / gather: equal to the plain versions")
+    # #9′: checkpoint counts hit exactly, iso 0.75, W = 2, 4, 5, NO_NODE and
+    # ids past the table, sub-block and empty shapes
+    for (B, K, d) in [(1, 1, 40), (1, 20, 128), (7, 40, 150), (33, 300, 40),
+                      (0, 4, 128), (3, 0, 128)]:
+        st, qc, qcum = sketch_inputs(torch, inp, 300, B, d, iso=0.75)
+        for frac in (0.0, 0.5):
+            check_sketch_bounds(torch, ops, ref, st, qc, qcum,
+                                inp.ids(B, K, 310, frac),
+                                f"{(B, K, d)} frac {frac}")
+    st, qc, qcum = sketch_inputs(torch, inp, n_nodes, 256, 128)
+    check_sketch_bounds(torch, ops, ref, st, qc, qcum,
+                        inp.ids(256, 128, n_nodes, 0.5), "main shape")
+    del st, qc, qcum
+    log("[kernels] sketch gather bounds (#9′): lb and est bit for bit the "
+        "composition on the card")
     # PDX: S = 1 (d = 64, the OOD path) and S = 2 (d = 128), ragged and
     # empty, then the NLJ block (512 queries) against the paths' tables
     for (N, B, d) in [(5, 3, 64), (257, 129, 128), (1000, 200, 100),
@@ -795,6 +931,37 @@ def check_kernels_sketch_pdx(torch, ops, ref) -> None:
                          inp.ids(256, 128, n_nodes, 0.5), th2, "main shape")
     log("[kernels] pdx pairwise / gather: plain versions agree, exit on/off "
         "survivors bit-identical, every retired lane certified beyond θ²")
+    # #11′: the band re-rank's (256, 1024) pool at cap 128 and 1024, a
+    # band too wide for one round of its staged list, ragged pools, slabs
+    # of 64 (S = 2), 30 (words) and 8; NO_NODE and ids past the table
+    # inside the band; empty band rows
+    for theta in pdx_thetas(torch, st, qc):
+        th2 = float(np.float32(theta)) ** 2
+        for cap, frac in ((128, 0.25), (1024, 0.25), (1024, 0.9)):
+            ids = inp.ids(256, 1024, n_nodes + 5, 0.1)
+            mask = inp.torch.rand((256, 1024), device=inp.dev,
+                                  generator=inp.gen) < frac
+            mask[::9] = False
+            check_pdx_compact(torch, ops, ref, st, qc, ids, mask, cap, th2,
+                              f"(256, 1024) cap {cap} band {frac}")
+    del st, qc
+    for (N, B, C, cap, d, slab) in [(500, 37, 300, 17, 70, 30),
+                                    (500, 9, 700, 64, 40, 8),
+                                    (500, 5, 2000, 1500, 128, 64),
+                                    (5, 1, 1, 1, 64, 64)]:
+        from repro_torch.quant.pdx import build_pdx, pdx_queries
+        st = build_pdx(inp.rn(N, d), slab=slab)
+        qc = pdx_queries(inp.rn(B, d), st)
+        for theta in pdx_thetas(torch, st, qc):
+            ids = inp.ids(B, C, N + 5, 0.1)
+            mask = inp.torch.rand((B, C), device=inp.dev,
+                                  generator=inp.gen) < 0.6
+            mask[1::3] = False
+            check_pdx_compact(torch, ops, ref, st, qc, ids, mask, cap,
+                              float(np.float32(theta)) ** 2,
+                              f"{(N, B, C, cap, d, slab)}")
+    log("[kernels] pdx band re-rank (#11′): bit for bit the composition on "
+        "the card, exit on and off")
 
 
 # ---------------------------------------------------------------------------
@@ -890,10 +1057,12 @@ def nlj_pair_block(torch, inp, n_rows: int):
             torch.sort(yi, dim=1)[0].reshape(-1).contiguous())
 
 
-def time_kernels(torch, ops, ref) -> dict:
+def time_kernels(torch, ops, ref, band_frac: float) -> dict:
     """Each kernel at the main path's shapes: agreement with its plain
     version, device time beside its bound, the plain version's time and a
-    library call's. Every entry's CUDA-event median is taken first, in one
+    library call's (and for the fused entries the eager composition's they
+    replaced). ``band_frac`` is the pdx8 join's band occupancy, the share
+    of its pool slots that were re-ranked. Every entry's CUDA-event median is taken first, in one
     pass before any profiler session (it is the per-call cost the joins
     see); the device times under torch.profiler come after. Runs after the
     join phases: an attached profiler slows every later launch."""
@@ -1190,6 +1359,35 @@ def time_kernels(torch, ops, ref) -> dict:
         n_valid * W * 4 + B * W * 4 + 2 * B * K * 4, 3.0 * n_valid * W)
     del codes, cx, idxs
 
+    # #9′ at the same shape over a sketch store of the merged table's size
+    # (d = 128: W = 4, 17 checkpoints); plain: the composition over the
+    # plain Hamming counts; composition: the one it replaced (#9, then the
+    # bound and the estimate in eager torch). Bytes: each valid id's code
+    # row and two slack entries, the queries' rows, the ids and two outputs
+    st, qc, qcum = sketch_inputs(torch, inp, n_nodes, B, 128)
+    W, Kc = st.n_words, st.n_checkpoints
+    idxs = [ids(B, K, n_nodes, 0.5) for _ in range(REPS)]
+    n_valid = sum(int((i >= 0).sum()) for i in idxs) / REPS
+    for i in idxs[:3]:
+        check_sketch_bounds(torch, ops, ref, st, qc, qcum, i, "main shape")
+    a9 = (st.codes, qc)
+    t9 = (qcum, st.cum, st.hs, st.iso)
+    e9 = entry(
+        f"({n_nodes},{W}) words + ({n_nodes},{Kc}) slack, ({B},{K}) ids, "
+        f"{n_valid:.0f} valid -> (lb, est)", 0.0,
+        lambda r, a=a9, t=t9, i=idxs: ops.gather_sketch_bounds(
+            *a, i[r], *t, dim=128),
+        lambda r, a=a9, t=t9, i=idxs: ref.gather_sketch_bounds(
+            *a, i[r], *t, dim=128), None,
+        n_valid * (W + 2) * 4 + B * (W + Kc) * 4 + Kc * 4 + 3 * B * K * 4,
+        (3 * W + 40) * n_valid)
+    comp = (lambda r, a=a9, t=t9, i=idxs: ref.gather_sketch_bounds(
+        *a, i[r], *t, dim=128, hamming=ops.gather_hamming))
+    e9["composition_event_ms"] = event_ms(torch, comp)
+    pending.append((e9, "composition_ms", comp))
+    out["gather_sketch_bounds"] = e9
+    del st, qc, qcum, idxs, a9, t9
+
     # PDX pairwise at the pdx8 NLJ's block: 512 queries x 1M rows, d = 128
     # (two slabs), early exit on at a θ where about half the lanes retire
     # after the first slab, and off (the NLJ runs both); the MACs counted
@@ -1277,7 +1475,43 @@ def time_kernels(torch, ops, ref) -> dict:
             ref.pdx_gather_sq_dists(*a, i[r], t2, **kw), None,
         scanned * slab * 4 + n_valid * (S + 1) * 4 + B * (d + S + 1) * 4
         + 3 * B * K * 4, 3.0 * scanned * slab)
-    del st, qc, idxs
+
+    # #11′ at the band re-rank's pool: (256, 1024) ids over the same rows,
+    # a band of band_frac of the slots (the pdx8 join's occupancy), cap
+    # 1024, early exit on at the same θ; plain: the same over the plain
+    # PDX gather; composition: band_compact → #11 → band_scatter. Bytes:
+    # the pool's ids and mask, the outputs, the query rows, and the slabs
+    # (with their tails) this run's compacted lanes scanned
+    C = 1024
+    pool = ids(B, C, n_nodes, 0.0)
+    masks = [torch.rand((B, C), device=inp.dev, generator=inp.gen)
+             < band_frac for _ in range(REPS)]
+    a11 = (st.vp, st.ftail, vn, qc.vp, qc.ftail, xn, pool)
+    kw11 = dict(dim=d, early_exit=True)
+    err = max(check_pdx_compact(torch, ops, ref, st, qc, pool, m, C, th2,
+                                "main shape") for m in masks[:3])
+    runs = [ops.pdx_compact_gather_sq_dists(*a11, m, C, th2, **kw11)
+            for m in masks]
+    dims = sum(int(r[3]) for r in runs) / REPS
+    lanes = sum(int(r[4]) for r in runs) / REPS / d
+    del runs
+    e11 = entry(
+        f"({B},{C}) pool over ({n_nodes},{d}) f32 PDX rows, band "
+        f"{band_frac:.4f} of the slots ({lanes:.0f} lanes), cap {C}, "
+        f"{dims / max(lanes * d, 1):.4f} of their dims scanned", err,
+        lambda r, a=a11, m=masks, t2=th2, kw=kw11:
+            ops.pdx_compact_gather_sq_dists(*a, m[r], C, t2, **kw),
+        lambda r, a=a11, m=masks, t2=th2, kw=kw11:
+            ref.pdx_compact_gather_sq_dists(*a, m[r], C, t2, **kw), None,
+        B * C * 10 + B * 4 + B * (d + S + 1) * 4 + dims * 4
+        + lanes * (S + 1) * 4 + 16, 3.0 * dims)
+    comp = (lambda r, a=a11, m=masks, t2=th2, kw=kw11:
+            ref.pdx_compact_gather_sq_dists(
+                *a, m[r], C, t2, gather=ops.pdx_gather_sq_dists, **kw))
+    e11["composition_event_ms"] = event_ms(torch, comp)
+    pending.append((e11, "composition_ms", comp))
+    out["pdx_compact_gather"] = e11
+    del st, qc, idxs, pool, masks, a11
 
     # the fused NLJ count at the NLJ block: 512 queries x the 1M rows,
     # about 1% of the pairs within θ; the library call is torch.matmul
@@ -1311,10 +1545,14 @@ def time_kernels(torch, ops, ref) -> dict:
     for name, r in out.items():
         off = (f" early exit off ms={r['ms_exit_off']:.4f} (events "
                f"{r['event_ms_exit_off']:.4f})" if "ms_exit_off" in r else "")
+        comp = (f" composition_ms={r['composition_ms']:.4f} (events "
+                f"{r['composition_event_ms']:.4f})"
+                if "composition_ms" in r else "")
         log(f"[kernels] {name} {r['shape']}: max_abs_err={r['max_abs_err']} "
             f"ms={r['ms']:.4f} (events {r['event_ms']:.4f}){off} "
             f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
-            f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']}")
+            f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']}"
+            f"{comp}")
     return out
 
 
@@ -1643,6 +1881,9 @@ def run_mode(torch, ops, run: dict, mode: str, *, floor: float, kernels,
     missing = [k for k in kernels if launches[k] == 0]
     if missing:
         raise AssertionError(f"{tag} path never launched {missing}")
+    bare = [k for k in FUSED_AWAY if launches[k]]
+    if bare:
+        raise AssertionError(f"{tag} join launched the bare {bare}")
 
     want = card_keys(torch, pairs, n_data)
     variants = [("overlap off", dataclasses.replace(cfg, overlap=False))]
@@ -1682,7 +1923,8 @@ def run_mode(torch, ops, run: dict, mode: str, *, floor: float, kernels,
         log(f"[{tag}] nlj early exit on/off: identical pairs and n_rerank; "
             f"seconds on {nlj['seconds']:.2f} off {off['seconds']:.2f}")
     return dict(name=tag, recall=rec, launches=launches,
-                nlj_launches=nlj["launches"], join_s=join_s)
+                nlj_launches=nlj["launches"], join_s=join_s,
+                band_frac=st.n_rerank / (n_query * cfg.traversal.pool_cap))
 
 
 # ---------------------------------------------------------------------------
@@ -2062,7 +2304,7 @@ def main() -> int:
                     nlj_kernels=SKETCHPDX8_NLJ_KERNELS)
     del ood8["eng"]
 
-    table = time_kernels(torch, ops, ref)
+    table = time_kernels(torch, ops, ref, pd8["band_frac"])
     trace_pair_block(torch)
     profile_join(torch, ood_run)
 
@@ -2084,6 +2326,8 @@ def main() -> int:
         "pairwise_bounds_pdx": "src/repro/kernels/pdx.py:116",
         "pdx_gather_sq_dists": "src/repro/kernels/pdx.py:222",
         "nlj_count": "src/repro/kernels/nlj.py:50",
+        "gather_sketch_bounds": "src/repro/kernels/bits.py:93",
+        "pdx_compact_gather": "src/repro/kernels/pdx.py:222",
     }
     source = {k: "src/repro_torch/kernels/csrc/distance.cu" for k in
               ("pairwise_sq_dists", "pairlist_sq_dists", "rowwise_sq_dists",
@@ -2094,10 +2338,11 @@ def main() -> int:
                     "gather_bounds_int8_pairs")})
     source["topk_merge"] = "src/repro_torch/kernels/csrc/topk_merge.cu"
     source.update({k: "src/repro_torch/kernels/csrc/bits.cu"
-                   for k in ("pairwise_hamming", "rowwise_hamming")})
+                   for k in ("pairwise_hamming", "rowwise_hamming",
+                             "gather_sketch_bounds")})
     source.update({k: "src/repro_torch/kernels/csrc/pdx.cu"
                    for k in ("pairwise_sq_dists_pdx", "pairwise_bounds_pdx",
-                             "pdx_gather_sq_dists")})
+                             "pdx_gather_sq_dists", "pdx_compact_gather")})
     source["nlj_count"] = "src/repro_torch/kernels/csrc/nlj.cu"
     paths = {"f32": main_run["launches"], "sq8": sq8_run["launches"],
              "sq8/nlj": sq8_nlj["launches"]}
@@ -2114,8 +2359,8 @@ def main() -> int:
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
-                    **({"ms_exit_off": r["ms_exit_off"]}
-                       if "ms_exit_off" in r else {}))
+                    **{x: r[x] for x in ("ms_exit_off", "composition_ms",
+                                         "composition_event_ms") if x in r})
                for k, r in table.items()]
     log(f"[done] total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -60,6 +60,11 @@ _SIGNATURES = {
     "repro_pdx_gather_sq_dists": (_P,) * 9 + (_LL, _I, _I, _I, _LL, _F, _F,
                                               _F, _I, _I, _P),
     "repro_nlj_count": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    "repro_gather_sketch_bounds": (_P,) * 9 + (_I, _I, _I, _I, _I, _F, _F,
+                                               _F, _I, _P),
+    "repro_pdx_compact_gather": (_P,) * 12 + (_I, _I, _LL, _LL, _I, _I, _I,
+                                              _LL, _F, _F, _F, _I, _I, _I,
+                                              _P),
 }
 
 _lock = threading.Lock()

@@ -73,6 +73,34 @@
 //    with 16-byte loads, and an XOR-butterfly shuffle sums it (every lane
 //    ends with the same value, so the retirement test is warp-uniform and a
 //    retired lane reads no further slab).
+//
+// 2'. repro_pdx_compact_gather — entry 2 with the wave pipeline's band
+//    compaction fused in (kernels/ops.py pdx_compact_gather_sq_dists, the
+//    pdx8 / sketchpdx8 band re-rank of engine/waves.py): over a (B, C) pool
+//    of ids and its band mask, each masked slot ranked below cap among the
+//    row's masked slots is re-ranked at its own column; every other column
+//    reads +inf. Writes exact (B, C), within = mask & rank < cap, n_masked
+//    (B,) and the two scan counters (dims scanned, min(nscan·slab, d)
+//    summed over the compacted lanes with an id >= 0, and d times their
+//    count) by 64-bit integer atomics, exact in any order. It replaces
+//    band_compact → entry 2 → band_scatter and ~34 eager ops around them
+//    (kernels/ref.py pdx_compact_gather_sq_dists).
+//    Bits: dist and nscan are entry 2's. A pair's lanes keep entry 2's
+//    per-lane slab map and XOR tree on a group of G lanes, G the power of
+//    two that covers the slab's chunks (up to a warp): where G < 32 the
+//    lanes past G held entry 2's exact zeros and its tree's first steps
+//    added them, so the tree's last log2(G) steps give the same sums.
+//    Bound: bytes — the pool's ids and mask, the scanned slabs of each
+//    compacted valid row, and the outputs.
+//    Design: `parts` blocks a pool row (enough blocks to fill the card at
+//    B = 256); each scans the row's mask by warp ballots a 256-slot chunk
+//    at a time (the next chunk's mask loading meanwhile) into a
+//    rank-ordered list of band columns and their ids in shared memory (the
+//    ids read there, coalesced, and not at the head of each pair's chain
+//    of dependent loads), then its groups take every parts·(256/G)-th
+//    entry. The query's PDX
+//    row and its S tail roots sit in shared memory, read once a block;
+//    a group loads its slab with 16-byte loads (a half-warp at slab 64).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -667,6 +695,188 @@ pdx_gather_kernel(const float* __restrict__ vp, const float* __restrict__ vtail,
   }
 }
 
+// ---------------------------------------------------------------------------
+// 2'. the band compaction with the f32 gather fused in
+// ---------------------------------------------------------------------------
+
+constexpr int kBandList = 1024;     // band columns staged a round
+
+// A thread's share of the scan counters: dims scanned and lanes (ids >= 0)
+struct BandScan {
+  long long dims, lanes;
+};
+
+// The pool row's band slots ranked [done, done + n) sit in cols[0, n) and
+// their ids in list_ids[0, n); this block's groups re-rank every
+// stride-th one: dist goes to exact; returns the group leader's scan
+// counts (0 elsewhere).
+template <bool EE>
+__device__ __forceinline__ BandScan pdx_band_round(
+    const int* cols, const int* list_ids, int n, const float* __restrict__ vp,
+    const float* __restrict__ vtail, const float* __restrict__ vnorm,
+    const float* xs, const float* sx, float xnb,
+    float* __restrict__ exact, long long row0, int S, int slab, long long N,
+    float th2, float guard, float guard_abs, int dim, int vec4, int G,
+    unsigned gmask, int first, int stride) {
+  const int gl = threadIdx.x & (G - 1);
+  const long long dp = (long long)S * slab;
+  BandScan cnt{0, 0};
+  for (int j = first; j < n; j += stride) {
+    const int col = cols[j];
+    const int id = list_ids[j];
+    float dist = INFINITY;
+    int k = 0;
+    if (id >= 0 && (long long)id < N) {
+      const float* v = vp + (long long)id * dp;
+      const float energy = __fadd_rn(xnb, __ldg(vnorm + id));
+      float acc = 0.f;
+      for (; k < S; ++k) {
+        if (EE) {
+          const float tl =
+              tail_bound(sx[k], sqrtf(__ldg(vtail + (long long)id * S + k)),
+                         energy, guard, guard_abs);
+          if (!(__fadd_rn(acc, tl) <= th2)) break;     // group-uniform
+        }
+        const int g0 = k * slab;
+        float s = 0.f;
+        if (vec4) {
+          for (int i = g0 + 4 * gl; i < g0 + slab; i += 4 * G) {
+            const float4 a = __ldg(reinterpret_cast<const float4*>(v + i));
+            const float4 q = *reinterpret_cast<const float4*>(xs + i);
+            float t = __fsub_rn(a.x, q.x);
+            s = __fadd_rn(s, __fmul_rn(t, t));
+            t = __fsub_rn(a.y, q.y);
+            s = __fadd_rn(s, __fmul_rn(t, t));
+            t = __fsub_rn(a.z, q.z);
+            s = __fadd_rn(s, __fmul_rn(t, t));
+            t = __fsub_rn(a.w, q.w);
+            s = __fadd_rn(s, __fmul_rn(t, t));
+          }
+        } else {
+          for (int i = g0 + gl; i < g0 + slab; i += G) {
+            const float t = __fsub_rn(__ldg(v + i), xs[i]);
+            s = __fadd_rn(s, __fmul_rn(t, t));
+          }
+        }
+        for (int o = G >> 1; o > 0; o >>= 1)
+          s = __fadd_rn(s, __shfl_xor_sync(gmask, s, o));
+        acc = __fadd_rn(acc, s);
+      }
+      if (k == S) dist = acc;
+    }
+    if (gl == 0) {
+      exact[row0 + col] = dist;
+      if (id >= 0) {
+        cnt.lanes += 1;
+        cnt.dims += min((long long)k * slab, (long long)dim);
+      }
+    }
+  }
+  return cnt;
+}
+
+// grid (B, parts); dynamic shared memory: the query's PDX row (S·slab f32)
+// and its S tail roots. counts = {dims scanned, dims of a full scan}. The
+// pool's ids and mask rows may be strided (ld_ids, ld_mask elements), as
+// a traversal's pool is a view of a wider buffer.
+template <bool EE>
+__global__ void __launch_bounds__(kThreads, 4)
+pdx_compact_gather_kernel(
+    const float* __restrict__ vp, const float* __restrict__ vtail,
+    const float* __restrict__ vnorm, const float* __restrict__ xp,
+    const float* __restrict__ xtail, const float* __restrict__ xn,
+    const int* __restrict__ ids, const unsigned char* __restrict__ mask,
+    float* __restrict__ exact, unsigned char* __restrict__ within,
+    int* __restrict__ n_masked, unsigned long long* __restrict__ counts,
+    int C, long long ld_ids, long long ld_mask, int cap, int S, int slab,
+    long long N, float th2, float guard, float guard_abs, int dim, int vec4,
+    int G) {
+  extern __shared__ __align__(16) float qrow[];
+  __shared__ int cols[kBandList];       // band columns in rank order
+  __shared__ int list_ids[kBandList];   // and their ids
+  __shared__ int warp_tot[kThreads / 32];
+  __shared__ unsigned long long red[2];
+  const int b = blockIdx.x;
+  const int part = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long dp = (long long)S * slab;
+  const long long row0 = (long long)b * C;
+  const int* row_ids = ids + (long long)b * ld_ids;
+  const unsigned char* row_mask = mask + (long long)b * ld_mask;
+  bool m_next = tid < C && row_mask[tid] != 0;
+  float* sx = qrow + dp;
+  for (long long i = tid; i < dp; i += kThreads)
+    qrow[i] = __ldg(xp + (long long)b * dp + i);
+  for (int k = tid; k < S; k += kThreads)
+    sx[k] = sqrtf(__ldg(xtail + (long long)b * S + k));
+  if (tid < 2) red[tid] = 0ull;
+  const float xnb = __ldg(xn + b);
+  const unsigned gmask =
+      G == 32 ? 0xffffffffu : ((1u << G) - 1u) << (lane & ~(G - 1));
+  const int groups = kThreads / G;
+  const int first = part * groups + tid / G;
+  const int stride = gridDim.y * groups;
+  BandScan cnt{0, 0};
+  int total = 0;       // masked slots seen so far (block-uniform)
+  int done = 0;        // band columns re-ranked in earlier rounds
+  __syncthreads();
+  for (int c0 = 0; c0 < C; c0 += kThreads) {
+    const int listed = min(total, cap) - done;
+    if (listed + kThreads > kBandList) {
+      const BandScan r = pdx_band_round<EE>(
+          cols, list_ids, listed, vp, vtail, vnorm, qrow, sx, xnb, exact,
+          row0, S, slab, N, th2, guard, guard_abs, dim, vec4, G, gmask, first,
+          stride);
+      cnt.dims += r.dims;
+      cnt.lanes += r.lanes;
+      done += listed;
+      __syncthreads();                  // the list is free again
+    }
+    const int c = c0 + tid;
+    const bool m = m_next;
+    // the next chunk's mask while this one is ranked
+    m_next = c + kThreads < C && row_mask[c + kThreads] != 0;
+    const unsigned bal = __ballot_sync(0xffffffffu, m);
+    if (lane == 0) warp_tot[warp] = __popc(bal);
+    __syncthreads();
+    int before = 0, chunk = 0;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) {
+      const int t = warp_tot[w];
+      before += w < warp ? t : 0;
+      chunk += t;
+    }
+    const int rank = total + before + __popc(bal & ((1u << lane) - 1u));
+    const bool in = m && rank < cap;
+    if (in) {                  // the ids load here, coalesced, not per pair
+      cols[rank - done] = c;
+      list_ids[rank - done] = __ldg(row_ids + c);
+    }
+    if (part == 0 && c < C) {
+      within[row0 + c] = in;
+      if (!in) exact[row0 + c] = INFINITY;
+    }
+    total += chunk;
+    __syncthreads();                    // warp_tot reread, list complete
+  }
+  const BandScan r = pdx_band_round<EE>(
+      cols, list_ids, min(total, cap) - done, vp, vtail, vnorm, qrow, sx, xnb,
+      exact, row0, S, slab, N, th2, guard, guard_abs, dim, vec4, G, gmask,
+      first, stride);
+  cnt.dims += r.dims;
+  cnt.lanes += r.lanes;
+  if (cnt.lanes > 0) {
+    atomicAdd(&red[0], static_cast<unsigned long long>(cnt.dims));
+    atomicAdd(&red[1], static_cast<unsigned long long>(cnt.lanes * dim));
+  }
+  __syncthreads();
+  if (tid == 0) {
+    if (red[0]) atomicAdd(counts, red[0]);
+    if (red[1]) atomicAdd(counts + 1, red[1]);
+    if (part == 0) n_masked[b] = total;
+  }
+}
+
 }  // namespace
 
 extern "C" int repro_pairwise_sq_dists_pdx(
@@ -708,5 +918,35 @@ extern "C" int repro_pdx_gather_sq_dists(
     pdx_gather_kernel<false><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
         vp, vtail, vnorm, xp, xtail, xn, ids, out, nscan, n_pairs, K, S, slab,
         N, th2, guard, guard_abs, vec4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_pdx_compact_gather(
+    const float* vp, const float* vtail, const float* vnorm, const float* xp,
+    const float* xtail, const float* xn, const int* ids,
+    const unsigned char* mask, float* exact, unsigned char* within,
+    int* n_masked, unsigned long long* counts, int B, int C, long long ld_ids,
+    long long ld_mask, int cap, int S, int slab, long long N, float th2,
+    float guard, float guard_abs, int dim, int early_exit, int vec4,
+    void* stream) {
+  // the lanes that cover a slab's chunks, as a power of two up to a warp
+  const int chunks = vec4 ? (slab + 3) / 4 : slab;
+  int G = 1;
+  while (G < chunks && G < 32) G <<= 1;
+  // about four blocks of 256 threads for each of the card's SMs at B = 256
+  const dim3 grid(B, B >= 1024 ? 1 : min(8, (1024 + B - 1) / B));
+  const int smem = (S * slab + S) * static_cast<int>(sizeof(float));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto kernel = early_exit ? pdx_compact_gather_kernel<true>
+                           : pdx_compact_gather_kernel<false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<grid, kThreads, smem, st>>>(vp, vtail, vnorm, xp, xtail, xn, ids,
+                                       mask, exact, within, n_masked, counts,
+                                       C, ld_ids, ld_mask, cap, S, slab, N,
+                                       th2, guard, guard_abs, dim, vec4, G);
   return static_cast<int>(cudaGetLastError());
 }

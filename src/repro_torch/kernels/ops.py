@@ -3,8 +3,9 @@
 Implementation selection (``impl``) follows the tensors' device:
   * ``cuda`` — the hand-written kernels of ``csrc/*.cu`` (f32 distances,
     the fused NLJ count, int8 distances and the int8 tier's certified
-    bounds, the top-k merge, sketch Hamming counts, PDX early-exit
-    distances and their certified bounds), for CUDA tensors;
+    bounds, the top-k merge, sketch Hamming counts and the sketch tier's
+    gather bounds, PDX early-exit distances, their certified bounds and
+    the fused PDX band re-rank), for CUDA tensors;
   * ``ref``  — the plain PyTorch versions in ``kernels/ref.py``, for CPU
     tensors (what the CPU tests run).
 An explicit ``impl`` must name the one its tensors' device takes.
@@ -19,6 +20,9 @@ kernels: ``reset_launch_counts()`` before, ``launch_counts()`` after.
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -32,7 +36,8 @@ LAUNCHES: dict[str, int] = {
     "pairwise_sq_dists_pdx": 0, "pairwise_bounds_pdx": 0,
     "pdx_gather_sq_dists": 0, "nlj_count": 0,
     "pairwise_bounds_int8": 0, "gather_sq_dists_pairs": 0,
-    "gather_bounds_int8": 0, "gather_bounds_int8_pairs": 0}
+    "gather_bounds_int8": 0, "gather_bounds_int8_pairs": 0,
+    "gather_sketch_bounds": 0, "pdx_compact_gather": 0}
 _GRID_Y_MAX = 65535
 _MAX_BLOCKS = 2**31 - 1
 
@@ -62,14 +67,20 @@ def _impl(impl: str | None, t: torch.Tensor) -> str:
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
-           device: torch.device) -> None:
+           device: torch.device, *, strided_rows: bool = False) -> None:
+    """Device, dtype, rank and layout: contiguous, or with
+    ``strided_rows`` a 2-D view whose rows are contiguous (the kernel
+    takes the row stride)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if strided_rows:
+        if t.shape[1] > 1 and t.stride(1) != 1:
+            raise ValueError(f"{name} must have contiguous rows")
+    elif not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
@@ -749,6 +760,78 @@ def gather_hamming(codes: torch.Tensor, cx: torch.Tensor, idx: torch.Tensor,
     return _rowwise_hamming_cuda(cx, codes, idx, K)
 
 
+_HS_MAX = 12288            # checkpoints staged in 48 KiB of shared memory
+
+
+def gather_sketch_bounds_cuda(codes, cx, idx, cum_q, cum_table, hs, iso, *,
+                              dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    from repro_torch.quant.sketch import lb_guard
+    dev = cx.device
+    _check("codes", codes, torch.int32, 2, dev)
+    _check("cx", cx, torch.int32, 2, dev)
+    _check("idx", idx, torch.int32, 2, dev)
+    _check("cum_q", cum_q, torch.float32, 2, dev)
+    _check("cum_table", cum_table, torch.float32, 2, dev)
+    _check("hs", hs, torch.int32, 1, dev)
+    _check("iso", iso, torch.float32, 0, dev)
+    B, W = cx.shape
+    N = codes.shape[0]
+    K = idx.shape[1]
+    Kc = hs.shape[0]
+    if (codes.shape[1] != W or idx.shape[0] != B
+            or tuple(cum_q.shape) != (B, Kc)
+            or tuple(cum_table.shape) != (N, Kc)):
+        raise ValueError(f"shapes differ: codes {tuple(codes.shape)}, cx "
+                         f"{tuple(cx.shape)}, idx {tuple(idx.shape)}, cum_q "
+                         f"{tuple(cum_q.shape)}, cum_table "
+                         f"{tuple(cum_table.shape)}, hs {tuple(hs.shape)}")
+    if dim <= 0 or not 0 < Kc <= _HS_MAX:
+        raise ValueError(f"dim={dim} and {Kc} checkpoints: need dim > 0 and "
+                         f"1..{_HS_MAX} checkpoints")
+    if B * K >= 2**31 or max(N, W) >= 2**31:
+        raise ValueError(f"shape too large for one launch: B={B} K={K}")
+    lb = torch.empty((B, K), dtype=torch.float32, device=dev)
+    est = torch.empty((B, K), dtype=torch.float32, device=dev)
+    # the composition's f32 scalars: torch's CUDA division by a scalar
+    # multiplies by its f32 reciprocal
+    inv_d = float(np.float32(1.0) / np.float32(dim))
+    _launch("gather_sketch_bounds", dev,
+            _build.load().repro_gather_sketch_bounds, codes.data_ptr(),
+            cx.data_ptr(), idx.data_ptr(), cum_q.data_ptr(),
+            cum_table.data_ptr(), hs.data_ptr(), iso.data_ptr(),
+            lb.data_ptr(), est.data_ptr(), B * K, K, W, N, Kc,
+            lb_guard(dim), _ref.f32(math.pi), inv_d,
+            int(W % 4 == 0 and _aligned(16, codes, cx)))
+    return lb, est
+
+
+def gather_sketch_bounds(codes: torch.Tensor, cx: torch.Tensor,
+                         idx: torch.Tensor, cum_q: torch.Tensor,
+                         cum_table: torch.Tensor, hs: torch.Tensor,
+                         iso: torch.Tensor, *, dim: int,
+                         impl: str | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sketch tier's gather bounds: (N, W) codes × (B, W) query codes
+    × (B, K) int32 ids → ``(lb, est)``, (B, K) f32: the certified lower
+    bound on each candidate's squared distance from its Hamming count and
+    the two slack tables (``cum_q`` (B, Kc), ``cum_table`` (N, Kc) on the
+    checkpoints ``hs``, isometry factor ``iso``), and the uncertified
+    SimHash estimate ``n_x + n_y − 2√(n_x n_y)·cos(πh/d)``; ids outside
+    [0, N) give +inf for both. On the card one kernel, bit for bit the
+    composition ``ref.gather_sketch_bounds`` runs there; on the CPU the
+    composition itself."""
+    impl = _impl(impl, cx)
+    B, K = idx.shape
+    if impl == "ref":
+        return _ref.gather_sketch_bounds(codes, cx, idx, cum_q, cum_table,
+                                         hs, iso, dim=dim)
+    if B == 0 or K == 0:
+        z = torch.zeros((B, K), dtype=torch.float32, device=cx.device)
+        return z, z.clone()
+    return gather_sketch_bounds_cuda(codes, cx, idx, cum_q, cum_table, hs,
+                                     iso, dim=dim)
+
+
 # ---------------------------------------------------------------------------
 # PDX (dimension-partitioned) early-exit distances
 # ---------------------------------------------------------------------------
@@ -944,38 +1027,8 @@ def quant_band_from_lb(lb: torch.Tensor, slack: torch.Tensor, th2
 # band compaction — sparse re-rank over a boolean band mask
 # ---------------------------------------------------------------------------
 
-def band_compact(mask: torch.Tensor, ids: torch.Tensor, cap: int
-                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Stably compact the masked slots of a (B, C) id matrix into ``cap``
-    slots. Returns ``(slots (B, cap) int32 source columns, −1 unused;
-    cand (B, cap) int32 ids, NO_NODE unused; n_masked (B,) int32)``;
-    entries ranked ≥ cap are not compacted — callers retry at a larger
-    cap when ``n_masked > cap``."""
-    B, C = mask.shape
-    pos = torch.cumsum(mask, dim=1) - 1
-    within = mask & (pos < cap)
-    tgt = torch.where(within, pos, cap)
-    col = torch.arange(C, dtype=torch.int32, device=mask.device).expand(B, C)
-    slots = torch.full((B, cap + 1), -1, dtype=torch.int32,
-                       device=mask.device)
-    slots.scatter_(1, tgt, torch.where(within, col, -1))
-    slots = slots[:, :cap]
-    cand = torch.where(slots >= 0,
-                       torch.gather(ids, 1, slots.clamp_min(0).long()),
-                       -1).to(torch.int32)
-    return slots, cand, torch.sum(mask, dim=1, dtype=torch.int32)
-
-
-def band_scatter(slots: torch.Tensor, vals: torch.Tensor, C: int,
-                 fill: float = float("inf")) -> torch.Tensor:
-    """Inverse of ``band_compact``: (B, cap) compacted values back to
-    their (B, C) source columns; unused slots read ``fill``."""
-    B = slots.shape[0]
-    tgt = torch.where(slots >= 0, slots, C).long()
-    out = torch.full((B, C + 1), fill, dtype=vals.dtype, device=vals.device)
-    out.scatter_(1, tgt, torch.where(slots >= 0, vals,
-                                     torch.full_like(vals, fill)))
-    return out[:, :C]
+band_compact = _ref.band_compact
+band_scatter = _ref.band_scatter
 
 
 def compact_gather_sq_dists(vecs: torch.Tensor, x: torch.Tensor,
@@ -994,30 +1047,76 @@ def compact_gather_sq_dists(vecs: torch.Tensor, x: torch.Tensor,
     return exact, within, n_masked
 
 
+def pdx_compact_gather_cuda(vp, vtail, vnorm, xp, xtail, xn, ids, mask,
+                            cap: int, th2: float, *, dim: int,
+                            early_exit: bool):
+    dev = xp.device
+    for name, t in (("vp", vp), ("vtail", vtail), ("xp", xp),
+                    ("xtail", xtail)):
+        _check(name, t, torch.float32, 2, dev)
+    _check("vnorm", vnorm, torch.float32, 1, dev)
+    _check("xn", xn, torch.float32, 1, dev)
+    _check("ids", ids, torch.int32, 2, dev, strided_rows=True)
+    _check("mask", mask, torch.bool, 2, dev, strided_rows=True)
+    B, dp = xp.shape
+    N, S = vtail.shape
+    C = ids.shape[1]
+    if (vp.shape != (N, dp) or xtail.shape != (B, S) or S == 0
+            or dp % S or vnorm.shape[0] != N or xn.shape[0] != B
+            or ids.shape[0] != B or mask.shape != ids.shape):
+        raise ValueError(f"shapes differ: vp {tuple(vp.shape)}, vtail "
+                         f"{tuple(vtail.shape)}, xp {tuple(xp.shape)}, xtail "
+                         f"{tuple(xtail.shape)}, ids {tuple(ids.shape)}, "
+                         f"mask {tuple(mask.shape)}")
+    if max(B, C, dp + S, dim) >= 2**31 or (dp + S) * 4 > 227 * 1024:
+        raise ValueError(f"shape too large for one launch: B={B} C={C} "
+                         f"dims={dp}")
+    slab = dp // S
+    guard, guard_abs = _pdx_guards(dim)
+    exact = torch.empty((B, C), dtype=torch.float32, device=dev)
+    within = torch.empty((B, C), dtype=torch.bool, device=dev)
+    n_masked = torch.empty((B,), dtype=torch.int32, device=dev)
+    counts = torch.zeros((2,), dtype=torch.int64, device=dev)
+    # the bare gather's lane map: 16-byte chunks on these bases, else words
+    vec4 = int(slab % 4 == 0 and _aligned(16, vp, xp))
+    _launch("pdx_compact_gather", dev, _build.load().repro_pdx_compact_gather,
+            vp.data_ptr(), vtail.data_ptr(), vnorm.data_ptr(), xp.data_ptr(),
+            xtail.data_ptr(), xn.data_ptr(), ids.data_ptr(), mask.data_ptr(),
+            exact.data_ptr(), within.data_ptr(), n_masked.data_ptr(),
+            counts.data_ptr(), B, C, ids.stride(0), mask.stride(0),
+            min(cap, C), S, slab, N, float(th2), guard, guard_abs, dim,
+            int(early_exit), vec4)
+    return exact, within, n_masked, counts[0], counts[1]
+
+
 def pdx_compact_gather_sq_dists(vp, vtail, vnorm, xp, xtail, xn, ids,
                                 mask, cap: int, th2: float, *, dim: int,
                                 early_exit: bool = False,
                                 impl: str | None = None):
     """PDX twin of ``compact_gather_sq_dists``: the early-exit re-rank of
-    the masked band slots through a ``cap``-wide compaction (the PDX
-    gather kernel sees only B × cap ids). Returns ``(exact, within,
-    n_masked, n_scanned, n_total)`` — the first three as there (``exact``
-    is +inf on retired and on uncompacted slots), then the dimensions
-    scanned and the dimensions of a full scan over the compacted valid
-    lanes, as 0-d int64 tensors on the device."""
-    C = ids.shape[1]
-    slots, cand, n_masked = band_compact(mask, ids, cap)
-    dist_c, nscan_c = pdx_gather_sq_dists(
-        vp, vtail, vnorm, xp, xtail, xn, cand, th2, dim=dim,
-        early_exit=early_exit, impl=impl)
-    exact = band_scatter(slots, dist_c, C)
-    within = mask & (torch.cumsum(mask, dim=1) - 1 < cap)
-    slab = vp.shape[1] // vtail.shape[1]
-    valid = cand >= 0
-    n_scanned = torch.sum(torch.where(
-        valid, torch.clamp_max(nscan_c.long() * slab, dim), 0))
-    n_total = torch.sum(valid) * dim
-    return exact, within, n_masked, n_scanned, n_total
+    the masked band slots ranked below ``cap`` (the pdx8 / sketchpdx8 band
+    re-rank). Returns ``(exact, within, n_masked, n_scanned, n_total)`` —
+    the first three as there (``exact`` is +inf on retired and on
+    uncompacted slots), then the dimensions scanned and the dimensions of
+    a full scan over the compacted lanes with an id ≥ 0, as 0-d int64
+    tensors on the device. On the card one kernel, bit for bit the
+    composition ``band_compact`` → ``pdx_gather_sq_dists`` →
+    ``band_scatter`` there; on the CPU that composition
+    (``ref.pdx_compact_gather_sq_dists``)."""
+    impl = _impl(impl, xp)
+    if impl == "ref":
+        return _ref.pdx_compact_gather_sq_dists(
+            vp, vtail, vnorm, xp, xtail, xn, ids, mask, cap, th2, dim=dim,
+            early_exit=early_exit)
+    B, C = ids.shape
+    if B == 0 or C == 0:
+        z = torch.zeros((), dtype=torch.int64, device=xp.device)
+        return (torch.full((B, C), torch.inf, device=xp.device),
+                torch.zeros((B, C), dtype=torch.bool, device=xp.device),
+                torch.zeros((B,), dtype=torch.int32, device=xp.device),
+                z, z.clone())
+    return pdx_compact_gather_cuda(vp, vtail, vnorm, xp, xtail, xn, ids, mask,
+                                   cap, th2, dim=dim, early_exit=early_exit)
 
 
 def next_pow2(n: int) -> int:

@@ -10,9 +10,14 @@ stay in the integer domain per dimension group. The Hamming versions count
 differing bits of sign-bit sketches held as int32 words (the reference's
 uint32 bit patterns); the PDX versions accumulate slab by slab with the
 reference's retirement latch (``_pdx_live_loop``), in the kernels' own
-operation order.
+operation order. Two fused kernels have compositions as their plain
+versions: the sketch tier's gather bounds (``gather_sketch_bounds``) and
+the PDX band re-rank (``pdx_compact_gather_sq_dists``, over the band
+compaction ``band_compact`` / ``band_scatter``).
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -335,6 +340,27 @@ def gather_hamming(codes: torch.Tensor, cx: torch.Tensor,
     return torch.where(valid, h, -1).to(torch.int32)
 
 
+def gather_sketch_bounds(codes, cx, idx, cum_q, cum_table, hs, iso, *,
+                         dim: int, hamming=gather_hamming
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sketch tier's (B, K) gather bounds → ``(lb, est)``: the Hamming
+    counts of ``hamming`` (this module's ``gather_hamming`` by default;
+    given ``ops.gather_hamming``, the composition the fused kernel
+    replaced, on the card), the certified lower bounds of
+    ``quant.sketch.sketch_lower_bound_gather`` and the SimHash navigation
+    estimate ``n_x + n_y − 2√(n_x n_y)·cos(πh/d)`` (not certified: callers
+    only order pruned candidates by it). Ids outside [0, N) give +inf for
+    both."""
+    from repro_torch.quant.sketch import sketch_lower_bound_gather
+    h = hamming(codes, cx, idx)
+    lb, nc = sketch_lower_bound_gather(h, cum_q, cum_table, idx, hs, iso,
+                                       dim=dim)
+    nq = cum_q[:, -1][:, None]
+    cos = torch.cos(math.pi * h.float() / dim)
+    est = nq + nc - 2.0 * torch.sqrt(torch.clamp_min(nq * nc, 0.0)) * cos
+    return lb, torch.where(torch.isfinite(lb), est, math.inf)
+
+
 # ---------------------------------------------------------------------------
 # PDX (dimension-partitioned) early-exit distances
 # ---------------------------------------------------------------------------
@@ -445,6 +471,71 @@ def pdx_gather_sq_dists(vp, vtail, vnorm, xp, xtail, xn, idx, th2: float,
     return torch.where(valid, d, torch.inf), torch.where(valid, ns, 0)
 
 
+# ---------------------------------------------------------------------------
+# band compaction — sparse re-rank over a boolean band mask
+# ---------------------------------------------------------------------------
+
+def band_compact(mask: torch.Tensor, ids: torch.Tensor, cap: int
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stably compact the masked slots of a (B, C) id matrix into ``cap``
+    slots. Returns ``(slots (B, cap) int32 source columns, −1 unused;
+    cand (B, cap) int32 ids, NO_NODE unused; n_masked (B,) int32)``;
+    entries ranked ≥ cap are not compacted — callers retry at a larger
+    cap when ``n_masked > cap``."""
+    B, C = mask.shape
+    pos = torch.cumsum(mask, dim=1) - 1
+    within = mask & (pos < cap)
+    tgt = torch.where(within, pos, cap)
+    col = torch.arange(C, dtype=torch.int32, device=mask.device).expand(B, C)
+    slots = torch.full((B, cap + 1), -1, dtype=torch.int32,
+                       device=mask.device)
+    slots.scatter_(1, tgt, torch.where(within, col, -1))
+    slots = slots[:, :cap]
+    cand = torch.where(slots >= 0,
+                       torch.gather(ids, 1, slots.clamp_min(0).long()),
+                       -1).to(torch.int32)
+    return slots, cand, torch.sum(mask, dim=1, dtype=torch.int32)
+
+
+def band_scatter(slots: torch.Tensor, vals: torch.Tensor, C: int,
+                 fill: float = float("inf")) -> torch.Tensor:
+    """Inverse of ``band_compact``: (B, cap) compacted values back to
+    their (B, C) source columns; unused slots read ``fill``."""
+    B = slots.shape[0]
+    tgt = torch.where(slots >= 0, slots, C).long()
+    out = torch.full((B, C + 1), fill, dtype=vals.dtype, device=vals.device)
+    out.scatter_(1, tgt, torch.where(slots >= 0, vals,
+                                     torch.full_like(vals, fill)))
+    return out[:, :C]
+
+
+def pdx_compact_gather_sq_dists(vp, vtail, vnorm, xp, xtail, xn, ids, mask,
+                                cap: int, th2: float, *, dim: int,
+                                early_exit: bool, gather=pdx_gather_sq_dists):
+    """The PDX band re-rank as a composition: ``band_compact`` of the
+    masked slots into ``cap`` columns, the PDX gather over them
+    (``gather``: this module's plain version by default; given
+    ``ops.pdx_gather_sq_dists``, the composition the fused kernel
+    replaced, on the card), ``band_scatter`` back, and the scan counters.
+    Returns ``(exact, within, n_masked, n_scanned, n_total)``: ``exact``
+    (B, C) +inf on retired and uncompacted slots; ``within`` the masked
+    slots ranked below cap; ``n_masked`` (B,) int32; the dimensions
+    scanned and those of a full scan over the compacted lanes with an id
+    ≥ 0, 0-d int64."""
+    C = ids.shape[1]
+    slots, cand, n_masked = band_compact(mask, ids, cap)
+    dist_c, nscan_c = gather(vp, vtail, vnorm, xp, xtail, xn, cand, th2,
+                             dim=dim, early_exit=early_exit)
+    exact = band_scatter(slots, dist_c, C)
+    within = mask & (torch.cumsum(mask, dim=1) - 1 < cap)
+    slab = vp.shape[1] // vtail.shape[1]
+    valid = cand >= 0
+    n_scanned = torch.sum(torch.where(
+        valid, torch.clamp_max(nscan_c.long() * slab, dim), 0))
+    n_total = torch.sum(valid) * dim
+    return exact, within, n_masked, n_scanned, n_total
+
+
 __all__ = ["sq_norms", "pairwise_sq_dists", "pairlist_sq_dists",
            "rowwise_sq_dists", "gather_sq_dists", "gather_sq_dists_pairs",
            "topk_merge",
@@ -455,5 +546,6 @@ __all__ = ["sq_norms", "pairwise_sq_dists", "pairlist_sq_dists",
            "gather_sq_dists_int8_pairs",
            "gather_bounds", "gather_bounds_int8", "gather_bounds_int8_pairs",
            "pairwise_hamming", "rowwise_hamming",
-           "gather_hamming", "pairwise_sq_dists_pdx", "pairwise_bounds_pdx",
-           "pdx_gather_sq_dists"]
+           "gather_hamming", "gather_sketch_bounds", "pairwise_sq_dists_pdx",
+           "pairwise_bounds_pdx", "pdx_gather_sq_dists", "band_compact",
+           "band_scatter", "pdx_compact_gather_sq_dists"]

@@ -11,8 +11,8 @@ module for the full design; the port keeps its interface:
   * ``encode(x)``       — queries on the tier's grid;
   * ``gather_bounds``   — (lb, ub, estimate) for the traversal's (B, K)
     candidate ids (the tier's gather kernel reads each code row by id;
-    NO_NODE slots read no row and give +inf; the int8 tiers' kernel
-    writes the certified bounds itself);
+    NO_NODE slots read no row and give +inf; each tier's kernel writes
+    its certified bounds itself);
   * ``pairwise_bounds`` — (lb, ub) against the whole store (NLJ shape);
   * ``pair_refine``     — (lb, ub) for explicit (query, data) id pairs
     (the NLJ's escalation shape: the int8 tiers' pair-list entry reads
@@ -30,7 +30,6 @@ every quant mode of the reference to its chain.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 
@@ -166,19 +165,17 @@ class SketchTier:
 
     def gather_bounds(self, qc: SketchQueries, cand: torch.Tensor, *,
                       impl: str | None):
-        """(B, K) candidate ids → (lb, None, estimate). The Hamming gather
-        kernel reads each code row by id; one gather reads the two slack
-        entries (d/8 + 8 bytes a candidate). The estimate
-        ``n_x + n_y − 2√(n_x n_y)·cos(πh/d)`` is not certified: callers
-        only order pruned candidates by it, never test a threshold."""
+        """(B, K) candidate ids → (lb, None, estimate): each code row and
+        its two slack entries read by id (d/8 + 8 bytes a candidate), on
+        the card in one kernel (``ops.gather_sketch_bounds``). The
+        estimate ``n_x + n_y − 2√(n_x n_y)·cos(πh/d)`` is not certified:
+        callers only order pruned candidates by it, never test a
+        threshold."""
         st = self.store
-        h = ops.gather_hamming(st.codes, qc.codes, cand, impl=impl)
-        lb, nc = sketch_lower_bound_gather(h, qc.cum, st.cum, cand, st.hs,
-                                           st.iso, dim=st.dim)
-        nq = qc.cum[:, -1][:, None]
-        cos = torch.cos(math.pi * h.float() / st.dim)
-        est = nq + nc - 2.0 * torch.sqrt(torch.clamp_min(nq * nc, 0.0)) * cos
-        return lb, None, torch.where(torch.isfinite(lb), est, math.inf)
+        lb, est = ops.gather_sketch_bounds(st.codes, qc.codes, cand, qc.cum,
+                                           st.cum, st.hs, st.iso, dim=st.dim,
+                                           impl=impl)
+        return lb, None, est
 
     def pairwise_bounds(self, qc: SketchQueries, *, impl: str | None,
                         y0: int = 0, y1: int | None = None):

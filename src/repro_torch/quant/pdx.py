@@ -140,13 +140,15 @@ def build_pdx(vecs, *, slab: int = DEFAULT_SLAB, scale_rows=None,
     """Build the PDX artifact for a vector table (offline phase).
 
     ``vecs`` is a tensor (kept on its device) or an array (placed on
-    ``device``). The permutation and the per-slab scales come from the
+    ``device``, the card when ``None``). The permutation and the per-slab scales come from the
     reference's numpy code on the host; ``scale_rows`` masks which rows
     set them (every row is encoded)."""
+    from repro_torch.core.types import resolve_device
     if isinstance(vecs, torch.Tensor):
         vt = vecs.float()
     else:
-        vt = torch.as_tensor(np.asarray(vecs, np.float32), device=device)
+        vt = torch.as_tensor(np.asarray(vecs, np.float32),
+                             device=resolve_device(device))
     v = vt.cpu().numpy()
     d = v.shape[1]
     S = n_slabs(d, slab)

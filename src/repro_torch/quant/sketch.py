@@ -131,12 +131,14 @@ def build_sketch(vecs, *, n_checkpoints: int = DEFAULT_N_CHECKPOINTS,
     """Sketch a vector table once (index-build time).
 
     ``vecs`` is a tensor (kept on its device) or an array (placed on
-    ``device``). ``scale_rows`` masks which rows set the center ``μ``;
-    every row is encoded."""
+    ``device``, the card when ``None``). ``scale_rows`` masks which rows
+    set the center ``μ``; every row is encoded."""
+    from repro_torch.core.types import resolve_device
     if isinstance(vecs, torch.Tensor):
         v = vecs.float()
     else:
-        v = torch.as_tensor(np.asarray(vecs, np.float32), device=device)
+        v = torch.as_tensor(np.asarray(vecs, np.float32),
+                            device=resolve_device(device))
     dev = v.device
     d = v.shape[1]
     R, iso = rotation if rotation is not None else make_rotation(d, seed)
@@ -176,16 +178,21 @@ def sketch_queries(x: torch.Tensor, store: SketchStore
     return sketch_encode(x, store.mu, store.rot, store.hs)
 
 
+def lb_guard(d: int) -> float:
+    """The rounding guard's per-energy factor ``_GUARD + _GUARD_PER_DIM·d``
+    in f32 arithmetic (the f32 value the bound multiplies by)."""
+    return float(np.float32(_GUARD) + np.float32(_GUARD_PER_DIM)
+                 * np.float32(d))
+
+
 def _lb_from_cum(cq, cc, nq, nc, iso, d: int) -> torch.Tensor:
     """``max(lb₁, lb₂)`` scaled by ``iso`` less the rounding guard
-    ``(_GUARD + _GUARD_PER_DIM·d)·(n_q + n_c)``, clamped at 0."""
+    ``lb_guard(d)·(n_q + n_c)``, clamped at 0."""
     lb1 = cq + cc
     lb2 = nq + nc - 2.0 * torch.sqrt(torch.clamp_min(nq - cq, 0.0)
                                      * torch.clamp_min(nc - cc, 0.0))
     lb = torch.clamp_min(torch.maximum(lb1, lb2), 0.0)
-    guard = float(np.float32(_GUARD) + np.float32(_GUARD_PER_DIM)
-                  * np.float32(d))
-    return torch.clamp_min(iso * lb - guard * (nq + nc), 0.0)
+    return torch.clamp_min(iso * lb - lb_guard(d) * (nq + nc), 0.0)
 
 
 def _checkpoint_index(h: torch.Tensor, hs: torch.Tensor) -> torch.Tensor:

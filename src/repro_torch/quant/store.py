@@ -73,14 +73,16 @@ def build_store(vecs, *, group_size: int = DEFAULT_GROUP_SIZE,
     """Quantize a vector table once (index-build time).
 
     ``vecs`` is a tensor (kept on its device) or an array (placed on
-    ``device``). ``scale_rows`` optionally masks which rows set the
+    ``device``, the card when ``None``). ``scale_rows`` optionally masks which rows set the
     per-group scales; rows outside it are still quantized (they may clip,
     which ``err`` records exactly).
     """
+    from repro_torch.core.types import resolve_device
     if isinstance(vecs, torch.Tensor):
         v = vecs.float()
     else:
-        v = torch.as_tensor(np.asarray(vecs, np.float32), device=device)
+        v = torch.as_tensor(np.asarray(vecs, np.float32),
+                            device=resolve_device(device))
     n, d = v.shape
     G = n_groups(d, group_size)
     src = v

@@ -23,7 +23,9 @@ pair-list entry against it, from aligned and unaligned bases; the int8
 gather bit for bit against ``ref.gather_sq_dists_int8_exact`` (its own
 arithmetic), its pair list against it and the fused int8 gather bounds
 (both entries, through ``Int8Tier``/``PdxTier``) against the torch
-composition over its d̂; the Hamming kernels exactly; the PDX kernels with early exit off within
+composition over its d̂; the Hamming kernels exactly, and the fused sketch
+gather bounds (#9′) bit for bit the torch composition it replaced, run on
+the card; the PDX kernels with early exit off within
 ``|Δ| ≤ 1e-6·value + 1e-6·(xn+yn)`` (pairwise; the plain version repeats
 its operation order) and ``rtol = 1e-6``, ``atol = 1e-6·max d`` (gather),
 survivors bit-identical with early exit on and off, the pairwise slab
@@ -32,7 +34,9 @@ pairwise kernel bit for bit its plain version and its fused bounds entry
 bit for bit ``ref.int8_bounds`` over its d̂, at slabs that are not a
 multiple of 32, ragged tiles, unaligned code bases, a query tile too deep
 for shared memory and thresholds where all, some or no lanes retire; the
-top-k merge on both of its routes), the NLJ count exactly (against the
+top-k merge on both of its routes), the fused PDX band re-rank (#11′) bit
+for bit the band compaction, the PDX gather kernel and the scatter it
+replaced, the NLJ count exactly (against the
 plain version at a θ clear of boundary pairs, and against the pairwise
 kernel's distances at any θ), and the joins on the card against the same
 joins on the CPU over the same indexes (and, under the sketch and PDX
@@ -628,6 +632,110 @@ def test_hamming_rowwise_and_gather_kernels_match_plain(dev, B, K, W):
         ref.gather_hamming(codes, cx, idx))
 
 
+def _flip_bits(words: np.ndarray, m: int) -> np.ndarray:
+    """A uint32 code row with its first ``m`` bits flipped."""
+    out = words.copy()
+    for i in range(m):
+        out[i // 32] ^= np.uint32(1 << (i % 32))
+    return out
+
+
+def _sketch_case(dev, B, K, d, key, n=300):
+    """A sketch store over ``n`` rows (iso = 0.75) and ``B`` encoded
+    queries on ``dev``: store rows 0 … len(hs) − 1 lie exactly hs[k] bits
+    from query 0 (0 and d among them), and (B, K) ids hold NO_NODE and ids
+    past the table."""
+    from repro_torch.quant.sketch import build_sketch, sketch_queries
+    rng = _rng("sk", B, K, d, key)
+    scale = rng.uniform(0.2, 3.0, d)
+    st = build_sketch(torch.from_numpy(
+        (rng.normal(size=(n, d)) * scale).astype(np.float32)))
+    qc, qcum = sketch_queries(torch.from_numpy(
+        (rng.normal(size=(B, d)) * scale).astype(np.float32)), st)
+    hs = st.hs.numpy()
+    codes = st.codes.numpy().view(np.uint32).copy()
+    idx = rng.integers(0, n + 10, (B, K)).astype(np.int32)
+    idx[rng.random((B, K)) < 0.4] = -1
+    if B:
+        for r, m in enumerate(hs):
+            codes[r] = _flip_bits(qc[0].numpy().view(np.uint32), int(m))
+        k = min(K, len(hs))
+        idx[0, :k] = np.arange(k)
+    st = dataclasses.replace(st, codes=torch.from_numpy(codes.view(np.int32)),
+                             iso=torch.tensor(0.75))
+    return (_store_to(st, dev), qc.to(dev), qcum.to(dev),
+            torch.from_numpy(idx).to(dev))
+
+
+@pytest.mark.parametrize("B,K,d", [(1, 1, 40), (1, 20, 128), (7, 40, 150),
+                                   (33, 300, 40), (256, 128, 128),
+                                   (0, 4, 128), (3, 0, 128)])
+def test_gather_sketch_bounds_kernel_is_the_composition(dev, B, K, d):
+    """#9′ bit for bit ``ref.gather_sketch_bounds`` run on the card (the
+    Hamming gather, ``sketch_lower_bound_gather`` and the estimate; with
+    the plain Hamming counts and with #9's, the composition it replaced),
+    lb and est, from aligned and unaligned code bases; within rounding of the
+    same composition on the CPU; one launch a call."""
+    st, qc, qcum, idx = _sketch_case(dev, B, K, d, "k")
+    tabs = (qcum, st.cum, st.hs, st.iso)
+    n0 = ops.launch_counts()["gather_sketch_bounds"]
+    lb, est = ops.gather_sketch_bounds(st.codes, qc, idx, *tabs, dim=d)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["gather_sketch_bounds"] == n0 + (B * K > 0)
+    assert lb.shape == est.shape == (B, K)
+    assert lb.dtype == est.dtype == torch.float32
+    for hamming in (ref.gather_hamming, ops.gather_hamming):
+        wlb, west = ref.gather_sketch_bounds(st.codes, qc, idx, *tabs, dim=d,
+                                             hamming=hamming)
+        assert torch.equal(lb, wlb) and torch.equal(est, west)
+    if B * K:
+        ulb, uest = ops.gather_sketch_bounds(_unaligned(st.codes),
+                                             _unaligned(qc), idx, *tabs,
+                                             dim=d)
+        assert torch.equal(ulb, lb) and torch.equal(uest, est)
+    clb, cest = ref.gather_sketch_bounds(
+        st.codes.cpu(), qc.cpu(), idx.cpu(), *(t.cpu() for t in tabs), dim=d)
+    ok = ((idx >= 0) & (idx < st.n_vectors)).cpu()
+    assert torch.equal(torch.isfinite(lb).cpu(), ok)
+    assert torch.equal(torch.isfinite(est).cpu(), ok)
+    energy = (qcum[:, -1:] + st.cum[idx.clamp(0, st.n_vectors - 1).long(),
+                                    -1]).cpu()
+    for got, want in ((lb, clb), (est, cest)):
+        assert bool(((got.cpu() - want).abs()[ok] <= 1e-6 * energy[ok]).all())
+
+
+def test_fused_wrappers_reject_what_the_kernels_do_not_take(dev):
+    """#9′ and #11′ refuse a wrong dtype, device or shape."""
+    st, qc, qcum, idx = _sketch_case(dev, 4, 8, 64, "rej")
+    tabs = (qcum, st.cum, st.hs, st.iso)
+    with pytest.raises(TypeError):
+        ops.gather_sketch_bounds(st.codes, qc, idx.long(), *tabs, dim=64)
+    with pytest.raises(ValueError, match="on cpu"):
+        ops.gather_sketch_bounds(st.codes, qc, idx, qcum.cpu(), st.cum,
+                                 st.hs, st.iso, dim=64)
+    with pytest.raises(ValueError, match="shapes differ"):
+        ops.gather_sketch_bounds(st.codes, qc, idx, qcum[:, 1:].contiguous(),
+                                 st.cum, st.hs, st.iso, dim=64)
+    pst, pqc = _pdx(dev, 50, 4, 64, "rej")
+    ids = torch.zeros((4, 16), dtype=torch.int32, device=dev)
+    mask = torch.ones((4, 16), dtype=torch.bool, device=dev)
+    head = (pst.vp, pst.ftail, pst.ftail[:, 0].contiguous(), pqc.vp,
+            pqc.ftail, pqc.ftail[:, 0].contiguous())
+    kw = dict(dim=64, early_exit=True)
+    with pytest.raises(TypeError):
+        ops.pdx_compact_gather_sq_dists(*head, ids.long(), mask, 8, 1.0, **kw)
+    with pytest.raises(TypeError):
+        ops.pdx_compact_gather_sq_dists(*head, ids, mask.int(), 8, 1.0, **kw)
+    with pytest.raises(ValueError, match="on cpu"):
+        ops.pdx_compact_gather_sq_dists(*head, ids, mask.cpu(), 8, 1.0, **kw)
+    with pytest.raises(ValueError, match="shapes differ"):
+        ops.pdx_compact_gather_sq_dists(*head, ids, mask[:, 1:].contiguous(),
+                                        8, 1.0, **kw)
+    with pytest.raises(ValueError, match="contiguous rows"):
+        ops.pdx_compact_gather_sq_dists(*head, ids, mask.t().contiguous().t(),
+                                        8, 1.0, **kw)
+
+
 def _pdx(dev, n, b, d, key):
     from repro_torch.quant.pdx import build_pdx, pdx_queries
     rng = _rng("pdx", n, b, d, key)
@@ -796,6 +904,70 @@ def test_pdx_gather_kernel_matches_plain(dev, B, K, d):
         assert bool((want.to(dev)[ret] >= th2).all())
 
 
+# (B, C, cap, d, slab): the band re-rank's pool (C = 1024) at cap 128 and
+# 1024; ragged pools; a band too wide for one round of the staged list;
+# slabs whose chunks take a group of 16 lanes (64), 2 (8), a whole warp with
+# two chunks a lane (200), and words (30, not a multiple of 4); from an
+# unaligned base, slabs 64 and 12 take the word map (a group of 16)
+COMPACT_SHAPES = [(256, 1024, 128, 128, 64), (256, 1024, 1024, 128, 64),
+                  (37, 300, 17, 70, 30), (9, 700, 64, 40, 8),
+                  (5, 2000, 1500, 300, 200), (3, 50, 50, 24, 12),
+                  (1, 1, 1, 8, 8)]
+
+
+@pytest.mark.parametrize("B,C,cap,d,slab", COMPACT_SHAPES)
+def test_pdx_compact_gather_kernel_is_the_composition(dev, B, C, cap, d,
+                                                      slab):
+    """#11′ bit for bit the composition it replaced on the card
+    (``band_compact`` → #11 → ``band_scatter`` and the scan counters):
+    ``exact``, ``within``, ``n_masked``, ``n_scanned`` and ``n_total``,
+    early exit on and off, at thresholds where lanes retire and survive,
+    with empty band rows, NO_NODE and ids past the table inside the band,
+    from aligned and unaligned row bases, and with the pool a view of a
+    wider buffer; one launch a call."""
+    from repro_torch.quant.pdx import build_pdx, pdx_queries
+    n = 500
+    rng = _rng("pdx-compact", B, C, cap, d, slab)
+    scale = rng.uniform(0.2, 3.0, d)
+    st = build_pdx(torch.from_numpy((rng.normal(size=(n, d)) * scale)
+                                    .astype(np.float32)).to(dev), slab=slab)
+    qc = pdx_queries(torch.from_numpy((rng.normal(size=(B, d)) * scale)
+                                      .astype(np.float32)).to(dev), st)
+    ids = rng.integers(-1, n + 5, (B, C)).astype(np.int32)
+    mask = rng.random((B, C)) < rng.uniform(0.05, 0.95, (B, 1))
+    mask[1::7] = False                                 # empty band rows
+    ids, mask = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
+    vn, xn = st.ftail[:, 0].contiguous(), qc.ftail[:, 0].contiguous()
+    med = float(torch.cdist(qc.vp, st.vp).pow(2).median())
+    for th2 in (float(np.float32(0.45 * med)), float(np.float32(1.2 * med))):
+        for vp in (st.vp, _unaligned(st.vp)):
+            for ee in (False, True):
+                args = (vp, st.ftail, vn, qc.vp, qc.ftail, xn, ids, mask,
+                        cap, th2)
+                n0 = ops.launch_counts()["pdx_compact_gather"]
+                got = ops.pdx_compact_gather_sq_dists(*args, dim=d,
+                                                      early_exit=ee)
+                torch.cuda.synchronize()
+                assert ops.launch_counts()["pdx_compact_gather"] == n0 + 1
+                want = ref.pdx_compact_gather_sq_dists(
+                    *args, dim=d, early_exit=ee,
+                    gather=ops.pdx_gather_sq_dists)
+                for g, w in zip(got, want):
+                    assert g.dtype == w.dtype and torch.equal(g, w)
+    # a pool that is a view of a wider buffer (the traversal's pool_idx)
+    wide = torch.full((B, C + 3), -1, dtype=torch.int32, device=dev)
+    wide[:, :C] = ids
+    wmask = torch.zeros((B, C + 5), dtype=torch.bool, device=dev)
+    wmask[:, :C] = mask
+    args = (st.vp, st.ftail, vn, qc.vp, qc.ftail, xn)
+    got = ops.pdx_compact_gather_sq_dists(*args, wide[:, :C], wmask[:, :C],
+                                          cap, th2, dim=d, early_exit=True)
+    want = ops.pdx_compact_gather_sq_dists(*args, ids, mask, cap, th2, dim=d,
+                                           early_exit=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("quant", ["sketch8", "pdx8", "sketchpdx8"])
 def test_sketch_and_pdx_joins_on_the_card_match_the_cpu(dev, quant):
     ds = make_dataset("manifold", n_data=1500, n_query=96, dim=150, seed=3)
@@ -822,10 +994,12 @@ def test_sketch_and_pdx_joins_on_the_card_match_the_cpu(dev, quant):
     eng.adopt(X=ds.X, index_merged=_to(merged, dev), tier_stores=stores)
     got = eng.join(ds.X)
     counts = ops.launch_counts()
-    if "sketch" in quant:
-        assert counts["rowwise_hamming"] > 0
+    if "sketch" in quant:          # the fused entries, never the bare ones
+        assert counts["gather_sketch_bounds"] > 0
+        assert counts["rowwise_hamming"] == 0
     if "pdx" in quant:
-        assert counts["pdx_gather_sq_dists"] > 0
+        assert counts["pdx_compact_gather"] > 0
+        assert counts["pdx_gather_sq_dists"] == 0
     np.testing.assert_array_equal(pair_keys(got.pairs, 1500),
                                   pair_keys(want.pairs, 1500))
     for f in ("n_dist", "n_iters", "n_ood", "n_rerank", "n_esc8",

@@ -222,6 +222,80 @@ def test_pdx_gather_matches_jax(B, K, d, slab, impl):
         assert torch.equal(on[surv], off[surv])
 
 
+def _old_pdx_compact(vp, vtail, vnorm, xp, xtail, xn, ids, mask, cap, th2,
+                     *, dim, early_exit):
+    """The composition ``ops.pdx_compact_gather_sq_dists`` ran before the
+    fused band re-rank kernel, as it stood."""
+    C = ids.shape[1]
+    slots, cand, n_masked = ops.band_compact(mask, ids, cap)
+    dist_c, nscan_c = ops.pdx_gather_sq_dists(
+        vp, vtail, vnorm, xp, xtail, xn, cand, th2, dim=dim,
+        early_exit=early_exit)
+    exact = ops.band_scatter(slots, dist_c, C)
+    within = mask & (torch.cumsum(mask, dim=1) - 1 < cap)
+    slab = vp.shape[1] // vtail.shape[1]
+    valid = cand >= 0
+    n_scanned = torch.sum(torch.where(
+        valid, torch.clamp_max(nscan_c.long() * slab, dim), 0))
+    n_total = torch.sum(valid) * dim
+    return exact, within, n_masked, n_scanned, n_total
+
+
+# (B, C, cap, d, slab): cap below the band (the retry case), cap = C, a
+# slab that is not a multiple of 4, two slabs of 64
+COMPACT_CASES = [(6, 40, 8, 128, 64), (5, 33, 33, 70, 30), (4, 24, 5, 40, 8)]
+
+
+@pytest.mark.parametrize("impl", JAX_IMPLS)
+@pytest.mark.parametrize("B,C,cap,d,slab", COMPACT_CASES)
+def test_pdx_compact_gather_matches_jax(B, C, cap, d, slab, impl):
+    """``ref.pdx_compact_gather_sq_dists`` (the plain version of the fused
+    band re-rank kernel, what the dispatcher runs on the CPU) against the
+    reference's ``pdx_compact_gather_sq_dists`` on a carried store, early
+    exit on and off, with an empty band row and NO_NODE inside the band:
+    ``within``, ``n_masked`` and both scan counters equal, ``exact``
+    finite at the same slots and within the PDX gather's tolerance; and
+    bit for bit the composition it replaced."""
+    jst, jq = _pdx_case(B, 50, d, slab, "cg")
+    st, qc = _carry_pdx(jst), _carry_queries(jq)
+    rng = _rng("cg", B, C, cap, d)
+    ids = rng.integers(0, 50, (B, C)).astype(np.int32)
+    ids[rng.random((B, C)) < 0.2] = -1
+    mask = rng.random((B, C)) < 0.6
+    mask[1] = False                                   # an empty band row
+    assert (mask & (ids < 0)).any()                   # NO_NODE in the band
+    vn, xn = st.ftail[:, 0].contiguous(), qc.ftail[:, 0].contiguous()
+    t_ids, t_mask = torch.from_numpy(ids), torch.from_numpy(mask)
+    for theta in _thetas(jst, jq):
+        th2 = float(np.float32(theta) ** 2)
+        args = (st.vp, st.ftail, vn, qc.vp, qc.ftail, xn, t_ids, t_mask, cap,
+                th2)
+        for ee in (False, True):
+            got = ops.pdx_compact_gather_sq_dists(*args, dim=d, early_exit=ee)
+            plain = ref.pdx_compact_gather_sq_dists(*args, dim=d,
+                                                    early_exit=ee)
+            old = _old_pdx_compact(*args, dim=d, early_exit=ee)
+            for g, p, o in zip(got, plain, old):
+                assert torch.equal(g, p) and torch.equal(p, o)
+            want = jops.pdx_compact_gather_sq_dists(
+                jst.vp, jst.ftail, jst.ftail[:, 0], jq.vp, jq.ftail,
+                jq.ftail[:, 0], jnp.asarray(ids), jnp.asarray(mask), cap,
+                np.float32(th2), dim=d, early_exit=ee, impl=impl)
+            we, ww, wm, ws, wt = (np.asarray(w) for w in want)
+            exact, within, n_masked, n_scanned, n_total = plain
+            fin = np.isfinite(we)
+            np.testing.assert_array_equal(np.isfinite(exact.numpy()), fin)
+            assert np.all(np.abs(exact.numpy()[fin] - we[fin])
+                          <= 1e-6 * np.abs(we[fin]) + 1e-6)
+            np.testing.assert_array_equal(within.numpy(), ww)
+            np.testing.assert_array_equal(n_masked.numpy(), wm)
+            assert int(n_scanned) == int(ws) and int(n_total) == int(wt)
+            assert n_scanned.dtype == n_total.dtype == torch.int64
+            assert int(n_masked[1]) == 0 and not within[1].any()
+            if cap < C:
+                assert int(n_masked.max()) > cap     # the retry case
+
+
 @pytest.mark.parametrize("seed", range(3))
 def test_pdx_retirement_is_certified(seed):
     """A lane the plain PDX sweep retires has a certified lower bound on

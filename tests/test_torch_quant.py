@@ -245,11 +245,32 @@ def test_cascade_knn_survivor_cap_grows_and_retries():
     torch.testing.assert_close(d32, d_big, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("tier", ["int8", "sketch1", "pdx"])
+def test_store_builders_put_an_array_on_the_card_by_default(tier):
+    """A numpy table given with no device goes to the card, as
+    ``build_index`` places it: where no card is visible the build
+    raises, and ``device="cpu"`` builds on the CPU. A tensor keeps its
+    device."""
+    from repro_torch.quant.cascade import build_tier_store
+
+    def devices(st) -> set:
+        return {t.device.type for t in vars(st).values()
+                if isinstance(t, torch.Tensor)}
+    v = _rng("dev", tier).normal(size=(20, 16)).astype(np.float32)
+    if torch.cuda.is_available():
+        assert devices(build_tier_store(tier, v)) == {"cuda"}
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_tier_store(tier, v)
+    assert devices(build_tier_store(tier, v, device="cpu")) == {"cpu"}
+    assert devices(build_tier_store(tier, torch.from_numpy(v))) == {"cpu"}
+
+
 def test_unported_tiers_raise():
     """Every tier of the reference is ported (sketch8 and pdx8 build their
     chains); a tier name that is not one of them is refused."""
     from repro_torch.quant.cascade import build_tier_store, tier_class
-    v = np.zeros((4, 8), np.float32)
+    v = torch.zeros((4, 8))
     assert build_cascade(v, "sketch8").names == ("sketch1", "int8")
     assert build_cascade(v, "pdx8").names == ("pdx",)
     assert build_cascade(v, "sketchpdx8").names == ("sketch1", "pdx")

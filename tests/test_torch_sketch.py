@@ -18,6 +18,8 @@ only on the card (``tests/test_torch_cuda.py``).
 Sketch codes are int32 words holding the reference's uint32 bits; they
 are compared through ``.view(np.uint32)``.
 """
+import dataclasses
+import math
 import re
 import zlib
 
@@ -40,7 +42,7 @@ from repro_torch.core import JoinConfig, TraversalConfig
 from repro_torch.core.join import cascade_join_pairs
 from repro_torch.core.types import graph_index_from_numpy, pair_keys
 from repro_torch.engine import JoinEngine
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.launch import join as launch
 from repro_torch.quant import cascade, sketch
 from repro_torch.quant.store import QuantStore
@@ -229,6 +231,89 @@ def test_sketch_tier_matches_jax_on_a_carried_store():
     pe = q.cum.numpy()[qi, -1] + tier.store.cum.numpy()[yi, -1]
     assert np.all(np.abs(plb.numpy() - np.asarray(jplb))
                   <= 1e-6 * np.abs(np.asarray(jplb)) + 1e-6 * pe)
+
+
+def _flip_bits(words: np.ndarray, m: int) -> np.ndarray:
+    """A uint32 code row with its first ``m`` bits flipped: Hamming count
+    ``m`` from the original."""
+    out = words.copy()
+    for i in range(m):
+        out[i // 32] ^= np.uint32(1 << (i % 32))
+    return out
+
+
+@pytest.mark.parametrize("iso", [None, 0.75])
+@pytest.mark.parametrize("d", [40, 128, 150])
+def test_gather_sketch_bounds_match_jax_on_a_carried_store(d, iso):
+    """``ref.gather_sketch_bounds`` (the plain version of the fused sketch
+    bounds kernel, what ``SketchTier.gather_bounds`` runs on the CPU)
+    against the reference tier on the same store, with the tolerance of
+    ``test_sketch_tier_matches_jax_on_a_carried_store``: Hamming counts at
+    every checkpoint (0 and d among them), NO_NODE and ids ≥ N, d = 40 and
+    150 (W not a multiple of 4), the store's iso and iso = 0.75; and bit
+    for bit the eager composition it replaced."""
+    rng = _rng("gsb", d, iso)
+    n, B, K = 150, 7, 40
+    v = (rng.normal(size=(n, d)) * rng.uniform(0.2, 3, d)).astype(np.float32)
+    x = (v[:B] + rng.normal(size=(B, d)) * 0.5).astype(np.float32)
+    jst = jsketch.build_sketch(v)
+    jtier = jcascade.SketchTier(jst)
+    jq = jtier.encode(x)
+    # store rows 0..len(hs)-1 lie exactly hs[k] bits from query 0
+    hs = np.asarray(jst.hs)
+    codes = np.asarray(jst.codes).copy()
+    for r, m in enumerate(hs):
+        codes[r] = _flip_bits(np.asarray(jq.codes)[0], int(m))
+    jst = dataclasses.replace(jst, codes=jnp.asarray(codes), **(
+        {} if iso is None else {"iso": jnp.float32(iso)}))
+    jtier = jcascade.SketchTier(jst)
+    st = _carry_sketch(jst)
+    qc = torch.tensor(np.asarray(jq.codes).view(np.int32))
+    qcum = torch.tensor(np.asarray(jq.cum))
+    idx = rng.integers(0, n, (B, K)).astype(np.int32)
+    idx[0, :len(hs)] = np.arange(len(hs))
+    idx[1:, :3] = -1                                    # NO_NODE
+    idx[1:, 3] = n + 5                                  # past the table
+    ok = (idx >= 0) & (idx < n)
+    t_idx = torch.from_numpy(idx)
+    h = ops.gather_hamming(st.codes, qc, t_idx)
+    np.testing.assert_array_equal(h[0, :len(hs)].numpy(), hs)
+    lb, est = ref.gather_sketch_bounds(st.codes, qc, t_idx, qcum, st.cum,
+                                       st.hs, st.iso, dim=d)
+    jlb, _, jest = jtier.gather_bounds(jq, jnp.asarray(np.where(ok, idx, 0)),
+                                       impl="ref")
+    jlb, jest = np.asarray(jlb), np.asarray(jest)
+    energy = qcum[:, -1:].numpy() + st.cum.numpy()[np.where(ok, idx, 0), -1]
+    assert np.all(np.abs(lb.numpy() - jlb)[ok]
+                  <= 1e-6 * np.abs(jlb)[ok] + 1e-6 * energy[ok])
+    np.testing.assert_allclose(est.numpy()[ok], jest[ok], rtol=1e-5,
+                               atol=1e-4)
+    assert np.all(np.isinf(lb.numpy()[~ok])) and np.all(
+        np.isinf(est.numpy()[~ok]))
+    # the tier on the CPU, and the composition it ran before the fused
+    # kernel, bit for bit
+    tlb, tub, test = cascade.SketchTier(st).gather_bounds(
+        cascade.SketchQueries(codes=qc, cum=qcum), t_idx, impl=None)
+    assert tub is None and torch.equal(tlb, lb) and torch.equal(test, est)
+    olb, nc = sketch.sketch_lower_bound_gather(h, qcum, st.cum, t_idx, st.hs,
+                                               st.iso, dim=d)
+    nq = qcum[:, -1][:, None]
+    cos = torch.cos(math.pi * h.float() / d)
+    oest = nq + nc - 2.0 * torch.sqrt(torch.clamp_min(nq * nc, 0.0)) * cos
+    oest = torch.where(torch.isfinite(olb), oest, math.inf)
+    assert torch.equal(lb, olb) and torch.equal(est, oest)
+
+
+@pytest.mark.parametrize("B,K", [(0, 5), (3, 0)])
+def test_gather_sketch_bounds_of_empty_inputs(B, K):
+    """Empty id matrices give empty (lb, est) of their shape."""
+    st = sketch.build_sketch(torch.zeros((4, 40)))
+    qc, qcum = sketch.sketch_queries(torch.zeros((B, 40)), st)
+    lb, est = ops.gather_sketch_bounds(
+        st.codes, qc, torch.zeros((B, K), dtype=torch.int32), qcum, st.cum,
+        st.hs, st.iso, dim=40)
+    assert lb.shape == est.shape == (B, K)
+    assert lb.dtype == est.dtype == torch.float32
 
 
 # -- the sketch8 joins -------------------------------------------------------------
