@@ -44,11 +44,20 @@ Phases (each raises on failure, so the script exits non-zero):
      overlap off gives the same pairs;
   3b. on the same engine: ``ops.nlj_count`` over all 10,000 queries in
      one launch against the exact NLJ's per-query pair counts; then the
-     search path — es_sws (building G_Y and G_X), es_hws, and es and
-     index on the first SEARCH_CUT queries, es_sws again with overlap off
-     (identical pairs and cache counters) and under sq8 (an int8 store
-     over G_Y's rows, no second graph build) — each sound, at its recall
-     floor, through its kernels, with its n_dist beside es_mi_adapt's;
+     search path — es_sws (building G_Y and G_X), es and index on the
+     first SEARCH_CUT queries, and on the first MST_CUT es_sws with
+     overlap on and off (identical pairs and cache counters), es_hws and
+     es_sws under sq8 (an int8 store over G_Y's rows, no second graph
+     build) — each sound, at its recall floor, through its kernels, with
+     its n_dist beside es_mi_adapt's;
+  3c. the streaming engine on the same engine: es_sws ``submit``ted in
+     batches of STREAM_BATCH over the first SEARCH_CUT queries with
+     overlap on, then off (identical pairs, n_dist, n_iters, eviction and
+     tombstone counts, work-sharing cache and carry window), the same
+     batches through one ``submit_many`` (identical again), an nlj batch
+     (the exact NLJ of its queries) and an es batch under global ids, and
+     es_sws under sq8, whose parents come from the int8 pairwise kernel
+     (#6) and whose band cap from the LSH estimate (#8);
   4. the sq8 main path on the same data: ``make_engine(Y,
      EngineSpec(quant="sq8", quant_build="sq8")).join`` — the cascade-driven
      build (its kNN lists must equal the f32 build's but for ties at the
@@ -59,7 +68,10 @@ Phases (each raises on failure, so the script exits non-zero):
      (the f32 NLJ's pairs but for counted pairs within 16 f32 ulps of θ);
   5. the OOD path: laion-like data (d = 64), |Y| = 200,000, |X| = 2,000,
      where the hybrid BBFS must run (n_ood > 0), with the same checks, in
-     f32 and under sq8;
+     f32 and under sq8; then sketchpdx8 on the sq8 engine's index, and
+     (5c) es_mi_adapt under sq8 streamed in two batches of 1,000, each
+     building its own merged index, each equal to ``join`` of its queries
+     shifted by its offset;
   6. time each kernel at the main paths' shapes, the gathers also at the
      NLJ's pair block (4,194,304 pairs over a 512-query block), #10 and
      #10′ with early exit on and off, #9′ and #11′ beside the eager
@@ -113,6 +125,12 @@ MAIN_RECALL_FLOOR = 0.937
 # queries (the smoke's time limit; at full depth they took 21-23 s each
 # on an H100, PERF.md); recall floors measured there minus 0.05
 SEARCH_CUT = 2_000
+# es_sws's overlap on/off identity, es_hws and es_sws under sq8 (phase
+# 3b) run on the first MST_CUT queries, over their own G_X, built by the
+# first of them: an MST-order join's iterations fall slowly with its
+# queries (on an H100, PERF.md: 44,320 for 10,000, 19,844 for 2,000, 7,005
+# for 500), and on all 10,000 each of these joins took 70-121 s
+MST_CUT = 500
 SEARCH_RECALL_FLOORS = {"index": 0.935, "es": 0.935, "es_hws": 0.937,
                         "es_sws": 0.937, "es_sws/sq8": 0.912}
 # the profiled OOD join runs on the first PROFILE_QUERIES queries
@@ -874,7 +892,9 @@ def check_kernels_sketch_pdx(torch, ops, ref) -> None:
     inp = Inputs(torch)
     for B, N, W in [(0, 5, 2), (4, 0, 4), (1, 1, 1), (3, 5, 2),
                     (65, 129, 4), (129, 257, 4), (200, 1000, 2),
-                    (77, 300, 3), (64, 128, 40)]:
+                    (77, 300, 3), (64, 128, 40),
+                    # the LSH estimator's sample at d = 128 and 64
+                    (64, 2048, 4), (64, 2048, 2)]:
         check_hamming_pairwise(torch, ops, ref, rand_words(inp, B, W),
                                rand_words(inp, N, W))
     for B, K, W in [(0, 4, 4), (3, 0, 2), (1, 1, 1), (3, 5, 2), (7, 9, 4),
@@ -1219,6 +1239,23 @@ def time_kernels(torch, ops, ref, band_frac: float) -> dict:
         B * d + N * d + (B + N) * 4 + 4 + B * N * 4, 2.0 * B * N * d,
         PEAK_INT8_OPS)    # int8 operations on the int8 tensor-core peak
     out["pairwise_sq_dists_int8"] = e8
+    # #6 at the streaming parent choice's shape: a wave of 256 codes
+    # against the carry window padded to 4096 donors (checked bit for bit
+    # there too); logged beside its row
+    Bp, Np = 256, 4096
+    stp = build_store(rn(Np, d))
+    qxp, xnp, _ = quantize_queries(rn(Bp, d), stp)
+    e8["parent_shape"] = f"({Bp},{d})x({Np},{d}) int8"
+    e8["parent_max_abs_err"] = check_int8_pairwise(torch, ops, ref, stp,
+                                                   qxp, xnp)
+    parent_fn = (lambda _, qx=qxp, st=stp, xn=xnp: ops.pairwise_sq_dists_int8(
+        qx, st.q, st.scales, xn=xn, yn=st.norms))
+    e8["parent_event_ms"] = event_ms(torch, parent_fn)
+    e8["parent_bound_ms"], e8["parent_bound_by"] = bound_ms(
+        Bp * d + Np * d + (Bp + Np) * 4 + 4 + Bp * Np * 4, 2.0 * Bp * Np * d,
+        PEAK_INT8_OPS)
+    pending.append((e8, "parent_ms", parent_fn))
+    del stp, qxp, xnp
 
     # the fused bounds entry (#6') at the same block: d̂ and both bounds in
     # one pass, two f32 outputs. Plain: the composition over the plain
@@ -1542,6 +1579,11 @@ def time_kernels(torch, ops, ref, band_frac: float) -> dict:
     log(f"[kernels] pairwise_sq_dists: torch.mm (TF32 off) of the same "
         f"operands {mm_ms:.4f} ms, {mm['flops'] / mm_ms / 1e9:.1f} TFLOP/s; "
         f"the kernel {mm['flops'] / out['pairwise_sq_dists']['ms'] / 1e9:.1f}")
+    e8 = out["pairwise_sq_dists_int8"]
+    log(f"[kernels] pairwise_sq_dists_int8 at the streaming parent shape "
+        f"{e8['parent_shape']}: max_abs_err={e8['parent_max_abs_err']} "
+        f"ms={e8['parent_ms']:.4f} (events {e8['parent_event_ms']:.4f}) "
+        f"bound_ms={e8['parent_bound_ms']:.4f} ({e8['parent_bound_by']})")
     for name, r in out.items():
         off = (f" early exit off ms={r['ms_exit_off']:.4f} (events "
                f"{r['event_ms_exit_off']:.4f})" if "ms_exit_off" in r else "")
@@ -1983,7 +2025,6 @@ SEARCH_SQ8_KERNELS = ("gather_bounds_int8", "gather_sq_dists",
                       "rowwise_sq_dists")
 # (method, kernels its join must launch, queries it runs on)
 SEARCH_RUNS = (("es_sws", SEARCH_KERNELS, MAIN_N_QUERY),
-               ("es_hws", CACHING_KERNELS, MAIN_N_QUERY),
                ("es", ("gather_sq_dists",), SEARCH_CUT),
                ("index", ("gather_sq_dists",), SEARCH_CUT))
 CACHE_FIELDS = ("cache_hits", "cache_misses", "cache_evictions",
@@ -2061,11 +2102,12 @@ def search_join(torch, ops, run: dict, cfg, kernels, floor: float,
 
 
 def run_search(torch, ops, run: dict) -> dict:
-    """Phase 3b: index / es / es_hws / es_sws on the f32 main engine (its
-    Y, θ and exact NLJ reused; G_Y and G_X built by the first join), the
-    es_sws overlap-off repeat (the same pairs and cache counters), and
-    es_sws under sq8 on the same G_Y (an int8 store over its rows, no
-    second graph build). Returns the runs by path name."""
+    """Phase 3b: es_sws on all queries (building G_Y and their G_X), es
+    and index on the first SEARCH_CUT, and on the first MST_CUT (one more
+    G_X): es_sws with overlap on and off (the same pairs and cache
+    counters), es_hws, and es_sws under sq8 on the same G_Y (an int8 store
+    over its rows, no second graph build); all on the f32 main engine, its
+    Y, θ and exact NLJ reused. Returns the runs by path name."""
     from repro_torch.core import JoinConfig
     eng = run["eng"]
     for k in ("knn_out", "build_stats"):     # the merged build's diagnostics
@@ -2085,23 +2127,32 @@ def run_search(torch, ops, run: dict) -> dict:
     if any(r["new_builds"] for m, r in runs.items() if m != "es_sws"):
         raise AssertionError("a later search join built an index again")
 
-    sws = runs["es_sws"]
-    off = search_join(torch, ops, run, dataclasses.replace(
-        base, method="es_sws", overlap=False), CACHING_KERNELS,
-        SEARCH_RECALL_FLOORS["es_sws"])
+    # on the first MST_CUT queries (the smoke's time limit): es_sws with
+    # overlap on builds their G_X; overlap off, es_hws and sq8 reuse it
+    sws_cfg = dataclasses.replace(base, method="es_sws")
+    sws, off, hws = (
+        search_join(torch, ops, run, cfg, CACHING_KERNELS,
+                    SEARCH_RECALL_FLOORS[cfg.method], MST_CUT)
+        for cfg in (sws_cfg, dataclasses.replace(sws_cfg, overlap=False),
+                    dataclasses.replace(base, method="es_hws")))
+    builds = [r["new_builds"] for r in (sws, off, hws)]
+    if builds != [{"index_x": 1}, {}, {}]:
+        raise AssertionError(f"es_sws on/off and es_hws built {builds}, "
+                             f"not one G_X")
+    runs["es_hws"] = hws
     fields = ("n_dist", "n_iters") + CACHE_FIELDS
     if not (torch.equal(off["keys"], sws["keys"])
             and all(getattr(off["res"].stats, f)
                     == getattr(sws["res"].stats, f) for f in fields)):
         raise AssertionError("es_sws: overlap off changes the pairs or the "
                              "cache counters")
-    log(f"[sift-like/es_sws] overlap on/off: identical pairs, n_dist, "
-        f"n_iters and cache counters; join_s on {sws['join_s']:.2f} off "
-        f"{off['join_s']:.2f}")
+    log(f"[sift-like/es_sws] overlap on/off over the first {MST_CUT} "
+        f"queries: identical pairs, n_dist, n_iters and cache counters; "
+        f"join_s on {sws['join_s']:.2f} off {off['join_s']:.2f}")
 
     sq8 = search_join(torch, ops, run, dataclasses.replace(
         base, method="es_sws", quant="sq8"), SEARCH_SQ8_KERNELS,
-        SEARCH_RECALL_FLOORS["es_sws/sq8"])
+        SEARCH_RECALL_FLOORS["es_sws/sq8"], MST_CUT)
     if sq8["new_builds"] != {"quant": 1}:
         raise AssertionError(f"es_sws/sq8 built {sq8['new_builds']}, not "
                              f"one int8 store over G_Y's rows")
@@ -2115,6 +2166,248 @@ def run_search(torch, ops, run: dict) -> dict:
         f"{m} {r['recall']:.6f}" for m, r in runs.items())
         + f" es_mi_adapt {run['recall']:.6f}")
     return runs
+
+
+# ---------------------------------------------------------------------------
+# phases 3c and 5c: the streaming engine
+# ---------------------------------------------------------------------------
+
+# phase 3c streams the first SEARCH_CUT queries in batches of STREAM_BATCH;
+# the mixed batch is an nlj and an es batch of MIXED_BATCH queries each
+STREAM_BATCH = 500
+MIXED_BATCH = 256
+# recall floors of the streamed es_sws, f32 and sq8: measured on an H100
+# (PERF.md) minus 0.05
+STREAM_RECALL_FLOORS = {"stream/es_sws": 0.936, "stream/es_sws/sq8": 0.912}
+# the kernels each streamed path must launch: the f32 traversal's gather;
+# under sq8 also the parent choice (#6), the LSH cap estimate (#8) and the
+# int8 probes; the nlj batch's pairwise block; the MI batches' merged
+# sq8 builds and joins
+STREAM_KERNELS = ("gather_sq_dists",)
+STREAM_SQ8_KERNELS = ("pairwise_sq_dists_int8", "pairwise_hamming",
+                      "gather_bounds_int8", "gather_sq_dists")
+STREAM_NLJ_KERNELS = ("pairwise_sq_dists", "gather_sq_dists")
+STREAM_MI_KERNELS = SQ8_KERNELS + ("pairwise_hamming",)
+STREAM_FIELDS = ("n_dist", "n_iters", "cache_evictions", "cache_tombstones")
+
+
+def launched(launches: dict) -> dict:
+    """The kernels a path launched, with their counts."""
+    return {k: v for k, v in launches.items() if v}
+
+
+def stream_state(eng) -> tuple:
+    """The engine's carried state: the work-sharing cache and the carry
+    window's query ids."""
+    return ({int(k): v.tolist() for k, v in eng._stream_cache.items()},
+            eng._stream_entry_n, eng._carry_qids.tolist())
+
+
+def stream_pass(torch, ops, run: dict, cfg, batches, tag: str, *,
+                many: bool = False) -> dict:
+    """One stream of ``batches`` through ``submit`` (or one
+    ``submit_many``) on the main engine after ``reset_stream``, with the
+    launch counts reset just before and read just after: pairs (global
+    ids) sound in float64, recall against the f32 NLJ restricted to the
+    streamed queries. Returns the per-batch results, the pair keys, the
+    carried state and the launches."""
+    eng, ds = run["eng"], run["ds"]
+    n_data = ds.Y.shape[0]
+    n_q = sum(len(b) for b in batches)
+    eng.reset_stream()
+    bs0 = eng.build_seconds
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    if many:
+        res = eng.submit_many([(b, cfg) for b in batches])
+    else:
+        res = [eng.submit(b, cfg) for b in batches]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    pairs = np.concatenate([r.pairs for r in res])
+    tot = {f: sum(getattr(r.stats, f) for r in res)
+           for f in STREAM_FIELDS + ("overflow_retries", "n_rerank",
+                                     "cache_hits", "cache_misses")}
+    log(f"[{tag}] {len(batches)} batches of {len(batches[0])}: "
+        f"wall_s={wall:.2f} (estimate/build s {eng.build_seconds - bs0:.2f}) "
+        f"pairs={len(pairs)} "
+        + " ".join(f"{k}={v}" for k, v in tot.items())
+        + f" per-batch n_dist {[r.stats.n_dist for r in res]} "
+        f"n_submitted={eng.n_submitted} launches={launched(launches)}")
+    if eng.n_submitted != n_q:
+        raise AssertionError(f"{tag}: n_submitted {eng.n_submitted} != {n_q}")
+    if len(pairs) and not ((pairs[:, 0] < n_q).all()
+                           and (pairs[:, 1] < n_data).all()):
+        raise AssertionError(f"{tag}: pair ids out of range")
+    Xt = torch.as_tensor(ds.X[:n_q], device=DEV)
+    band = check_sound(torch, Xt, eng.Y, pairs, run["theta"])
+    truth = run["truth_keys"]
+    rec, _ = recalls(torch, pairs, truth[truth < n_q * n_data], n_data, n_q,
+                     cfg.traversal.pool_cap)
+    log(f"[{tag}] sound (0 unsound; boundary band {band}) recall={rec:.6f}")
+    return dict(res=res, keys=card_keys(torch, pairs, n_data), wall=wall,
+                state=stream_state(eng), launches=launches, recall=rec,
+                name=tag)
+
+
+def same_stream(torch, a: dict, b: dict, fields=STREAM_FIELDS) -> bool:
+    """Two streams gave the same pairs, per-batch counters and state."""
+    return (torch.equal(a["keys"], b["keys"]) and a["state"] == b["state"]
+            and all(getattr(x.stats, f) == getattr(y.stats, f)
+                    for x, y in zip(a["res"], b["res"], strict=True)
+                    for f in fields))
+
+
+def run_stream(torch, ops, run: dict) -> dict:
+    """Phase 3c on the f32 main engine (its G_Y, its int8 store over G_Y
+    and the exact NLJ of phase 3b reused): es_sws streamed over the first
+    SEARCH_CUT queries with overlap on, then off (the same pairs,
+    counters, cache and carry), the same batches through one
+    ``submit_many`` (the same again), a mixed nlj + es stream (the nlj
+    batch is the exact NLJ of its queries), and es_sws under sq8, whose
+    parents come from #6 and whose band cap from the LSH estimate (#8).
+    Returns the paths' launches."""
+    from repro_torch.core import JoinConfig
+    eng, ds = run["eng"], run["ds"]
+    n_data = ds.Y.shape[0]
+    base = dataclasses.replace(JoinConfig(), theta=run["theta"],
+                               method="es_sws")
+    batches = [ds.X[b0:b0 + STREAM_BATCH]
+               for b0 in range(0, SEARCH_CUT, STREAM_BATCH)]
+    on = stream_pass(torch, ops, run, base, batches, "stream/es_sws")
+    off = stream_pass(torch, ops, run, dataclasses.replace(
+        base, overlap=False), batches, "stream/es_sws overlap off")
+    if not same_stream(torch, on, off):
+        raise AssertionError("stream/es_sws: overlap off changes the pairs, "
+                             "the counters or the carried state")
+    many = stream_pass(torch, ops, run, base, batches,
+                       "stream/es_sws submit_many", many=True)
+    if not same_stream(torch, on, many):
+        raise AssertionError("stream/es_sws: submit_many differs from "
+                             "sequential submit")
+    log(f"[stream/es_sws] overlap on/off and submit_many: identical pairs, "
+        f"{', '.join(STREAM_FIELDS)}, cache and carry; wall_s on "
+        f"{on['wall']:.2f} off {off['wall']:.2f} submit_many "
+        f"{many['wall']:.2f}")
+
+    # mixed: an nlj batch, then an es batch
+    eng.reset_stream()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    nlj = eng.submit(ds.X[:MIXED_BATCH], base, method="nlj")
+    es = eng.submit(ds.X[MIXED_BATCH:2 * MIXED_BATCH], base, method="es")
+    torch.cuda.synchronize()
+    mixed_s = time.perf_counter() - t0
+    mixed_launches = ops.launch_counts()
+    truth = run["truth_keys"]
+    want = truth[truth < MIXED_BATCH * n_data]
+    got = card_keys(torch, nlj.pairs, n_data)
+    diff = torch.cat([got[~torch.isin(got, want)],
+                      want[~torch.isin(want, got)]])
+    if diff.numel():
+        # only pairs within 16 f32 ulps of θ may fall the other way
+        q, y = diff // n_data, diff % n_data
+        Xt = torch.as_tensor(ds.X, device=DEV)
+        d64 = ((Xt[q].double() - eng.Y[y].double()) ** 2).sum(1).sqrt()
+        th = float(np.float32(run["theta"]))
+        if bool(((d64 - th).abs() > 16 * float(np.spacing(np.float32(th))))
+                .any()):
+            raise AssertionError("stream/nlj: the nlj batch differs from the "
+                                 "exact NLJ beyond θ's 16-ulp band")
+    es_pairs = es.pairs
+    if len(es_pairs) and not ((es_pairs[:, 0] >= MIXED_BATCH).all()
+                              and (es_pairs[:, 0] < 2 * MIXED_BATCH).all()):
+        raise AssertionError("stream/nlj: the es batch's ids are not global")
+    band = check_sound(torch, torch.as_tensor(ds.X, device=DEV), eng.Y,
+                       es_pairs, run["theta"])
+    log(f"[stream/nlj] nlj batch of {MIXED_BATCH}: {len(nlj.pairs)} pairs, "
+        f"the exact NLJ's {want.numel()} (differing within θ's 16-ulp band: "
+        f"{diff.numel()}); es batch ids {MIXED_BATCH}..{2 * MIXED_BATCH - 1}:"
+        f" {len(es_pairs)} sound pairs (boundary band {band}); wall_s "
+        f"{mixed_s:.2f} launches={launched(mixed_launches)}")
+
+    sq8 = stream_pass(torch, ops, run, dataclasses.replace(base, quant="sq8"),
+                      batches, "stream/es_sws/sq8")
+    log(f"[stream/es_sws/sq8] band cap estimates {eng._cap_estimates}")
+    paths = {"stream/es_sws": (on, STREAM_KERNELS),
+             "stream/es_sws/sq8": (sq8, STREAM_SQ8_KERNELS),
+             "stream/nlj": (dict(launches=mixed_launches, name="stream/nlj"),
+                            STREAM_NLJ_KERNELS)}
+    for name, (r, kernels) in paths.items():
+        check_launched(r, kernels)
+        if name in STREAM_RECALL_FLOORS \
+                and r["recall"] < STREAM_RECALL_FLOORS[name]:
+            raise AssertionError(f"{name}: recall {r['recall']} below the "
+                                 f"floor {STREAM_RECALL_FLOORS[name]}")
+    eng.reset_stream()
+    return {n: r["launches"] for n, (r, _) in paths.items()}
+
+
+def run_stream_mi(torch, ops, run: dict) -> dict:
+    """Phase 5c on the OOD sq8 engine: es_mi_adapt under sq8 streamed in
+    two batches of half the queries, each building its own merged index
+    (sq8 cascade build); each batch's pairs equal ``join`` of its queries
+    (on the cached index, its band cap not seeded) shifted by the offset.
+    Returns the launches of the two submits."""
+    eng, ds = run["eng"], run["ds"]
+    for k in ("knn_out", "build_stats"):     # the merged build's diagnostics
+        eng.build_kw.pop(k, None)
+    n_data, n_q = ds.Y.shape[0], ds.X.shape[0]
+    half = n_q // 2
+    batches = [ds.X[:half], ds.X[half:]]
+    cfg = eng.default
+    tag = f"stream/{cfg.method}/{cfg.quant}"
+    builds0, bs0 = dict(eng.build_counts), eng.build_seconds
+    eng.reset_stream()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = [eng.submit(b, cfg) for b in batches]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    build_s = eng.build_seconds - bs0
+    new_builds = {k: v - builds0[k] for k, v in eng.build_counts.items()
+                  if v != builds0[k]}
+    log(f"[{run['name']}/{tag}] 2 batches of {half}: build_s={build_s:.2f} "
+        f"join_s={wall - build_s:.2f} pairs "
+        f"{[len(r.pairs) for r in res]} n_dist "
+        f"{[r.stats.n_dist for r in res]} n_ood "
+        f"{[r.stats.n_ood for r in res]} overflow_retries "
+        f"{[r.stats.overflow_retries for r in res]} new builds "
+        f"{new_builds} band cap estimates {eng._cap_estimates} "
+        f"launches={launched(launches)}")
+    if new_builds.get("merged") != 2:
+        raise AssertionError(f"{tag}: built {new_builds}, not one merged "
+                             f"index a batch")
+    retries = []
+    for i, (b, r) in enumerate(zip(batches, res)):
+        t0 = time.perf_counter()
+        alone = eng.join(b, cfg)
+        torch.cuda.synchronize()
+        shifted = alone.pairs.copy()
+        shifted[:, 0] += i * half
+        if not (torch.equal(card_keys(torch, r.pairs, n_data),
+                            card_keys(torch, shifted, n_data))
+                and r.stats.n_dist == alone.stats.n_dist):
+            raise AssertionError(f"{tag}: batch {i} differs from join of its "
+                                 f"queries shifted by {i * half}")
+        retries.append((r.stats.overflow_retries,
+                        alone.stats.overflow_retries))
+        log(f"[{run['name']}/{tag}] batch {i}: {len(r.pairs)} pairs = join "
+            f"+ {i * half} ({time.perf_counter() - t0:.2f}s)")
+    pairs = np.concatenate([r.pairs for r in res])
+    band = check_sound(torch, torch.as_tensor(ds.X, device=DEV), eng.Y,
+                       pairs, run["theta"])
+    rec, _ = recalls(torch, pairs, run["truth_keys"], n_data, n_q,
+                     cfg.traversal.pool_cap)
+    log(f"[{run['name']}/{tag}] sound (0 unsound; boundary band {band}) "
+        f"recall={rec:.6f}; overflow_retries (submit, join) per batch "
+        f"{retries}: the cap seed changes retries, not pairs")
+    r = dict(launches=launches, name=tag)
+    check_launched(r, STREAM_MI_KERNELS)
+    eng.reset_stream()
+    return launches
 
 
 def check_launched(run: dict, kernels) -> None:
@@ -2262,6 +2555,7 @@ def main() -> int:
     check_launched(main_run, F32_KERNELS)
     nlj_check = check_nlj_count_main(torch, ops, main_run)
     search = run_search(torch, ops, main_run)
+    stream = run_stream(torch, ops, main_run)
     del main_run["eng"]                       # free the 1M-row indexes
 
     sq8 = EngineSpec(quant="sq8", quant_build="sq8")
@@ -2302,6 +2596,7 @@ def main() -> int:
                     floor=OOD_SKETCHPDX8_RECALL_FLOOR,
                     kernels=SKETCHPDX8_KERNELS,
                     nlj_kernels=SKETCHPDX8_NLJ_KERNELS)
+    stream_mi = run_stream_mi(torch, ops, ood8)
     del ood8["eng"]
 
     table = time_kernels(torch, ops, ref, pd8["band_frac"])
@@ -2348,6 +2643,8 @@ def main() -> int:
              "sq8/nlj": sq8_nlj["launches"]}
     paths.update({m: r["launches"] for m, r in search.items()})
     paths["nlj_check"] = nlj_check
+    paths.update(stream)
+    paths["stream/es_mi_adapt/sq8"] = stream_mi
     # the sketch/PDX paths: their merged-index join plus their NLJ
     for r in (sk8, pd8, skpd):
         paths[r["name"].split("/")[1]] = {
@@ -2360,7 +2657,8 @@ def main() -> int:
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
                     **{x: r[x] for x in ("ms_exit_off", "composition_ms",
-                                         "composition_event_ms") if x in r})
+                                         "composition_event_ms", "parent_ms",
+                                         "parent_bound_ms") if x in r})
                for k, r in table.items()]
     log(f"[done] total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -127,6 +127,9 @@ def early_exit_enabled(tcfg: TraversalConfig) -> bool:
 METHODS = ("nlj", "index", "es", "es_hws", "es_sws", "es_mi", "es_mi_adapt")
 QUANT_MODES = ("off", "sq8", "sketch8", "pdx8", "sketchpdx8")
 
+# Modes that route traversal through certified-lower-bound filtering.
+QUANT_FILTER_MODES = ("sq8", "sketch8", "pdx8", "sketchpdx8")
+
 
 @dataclasses.dataclass(frozen=True)
 class JoinConfig:

@@ -11,9 +11,13 @@ of X, kept in small LRUs) the query index G_X (the MST order of
 
 Supported here: every method, every quant mode (``off``, ``sq8``,
 ``sketch8``, ``pdx8``, ``sketchpdx8``; for joins and, through
-``build_kw["quant"]``, the cascade-driven index builds), one shard.
-Streaming (``submit``) and sharding raise ``NotImplementedError`` naming
-the ROADMAP slice that brings them.
+``build_kw["quant"]``, the cascade-driven index builds), one shard, and
+streaming: ``submit(X_batch)`` joins a batch under *global* query ids and,
+for the work-sharing methods, carries the cache of completed queries
+across batches (each new query seeds from the cache entry of the nearest
+query in the carry window); ``submit_many`` pipelines consecutive search
+batches across their boundaries. Sharding raises ``NotImplementedError``
+naming the ROADMAP slice that brings it.
 
 Each tier store of an index artifact (int8, sketch, PDX) is built once
 (``tier_store``, counted in ``build_counts["quant"]`` / ``["sketch"]`` /
@@ -31,19 +35,23 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import time
-from collections import OrderedDict
+from collections import ChainMap, OrderedDict
 from typing import Any
 
 import numpy as np
 import torch
 
-from repro_torch.core.types import (GraphIndex, JoinConfig, JoinResult,
-                                    JoinStats, early_exit_enabled,
-                                    resolve_device)
+from repro_torch.core.types import (QUANT_FILTER_MODES, GraphIndex,
+                                    JoinConfig, JoinResult, JoinStats,
+                                    early_exit_enabled, resolve_device)
 from repro_torch.engine import waves as W
+from repro_torch.kernels import ops
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
+from repro_torch.plan.cost import CostTable
 
 _MI_METHODS = ("es_mi", "es_mi_adapt")
+_SEARCH_METHODS = ("index", "es", "es_hws", "es_sws")
 _CACHING_METHODS = ("es_hws", "es_sws")
 
 # ~64 KiB of content sampled per fingerprint (see repro.engine.engine)
@@ -75,6 +83,18 @@ def _fingerprint(a) -> str:
     return h.hexdigest()[:16]
 
 
+def _host(X) -> np.ndarray:
+    """A query batch as a host f32 array (tensors copied off their device)."""
+    if isinstance(X, torch.Tensor):
+        return X.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(X, np.float32)
+
+
+def _pairs(parts: list[np.ndarray]) -> np.ndarray:
+    return (np.concatenate(parts, axis=0) if parts
+            else np.empty((0, 2), np.int64))
+
+
 class _LRU(OrderedDict):
     def __init__(self, cap: int):
         super().__init__()
@@ -103,6 +123,8 @@ class JoinEngine:
         ``degree``, ``style``, ...).
     default : the ``JoinConfig`` used when a call supplies none.
     n_shards : must be 1 (multi-GPU is ROADMAP Queue A slice 13).
+    carry_window : how many completed queries the streaming path keeps
+        as seed donors for later batches.
     max_cached_indexes : LRU capacity for per-X merged indexes.
     metrics : an ``obs.Metrics`` registry to publish every join into.
     device : where Y, the indexes and the joins live; ``None`` = the card.
@@ -110,7 +132,7 @@ class JoinEngine:
 
     def __init__(self, Y, *, build_kw: dict | None = None,
                  default: JoinConfig | None = None, n_shards: int = 1,
-                 max_cached_indexes: int = 4,
+                 carry_window: int = 4096, max_cached_indexes: int = 4,
                  metrics: obs_metrics.Metrics | None = None, device=None):
         if n_shards != 1:
             raise NotImplementedError(
@@ -125,6 +147,7 @@ class JoinEngine:
         self.build_kw = dict(build_kw or {})
         self.default = default or JoinConfig()
         self.n_shards = 1
+        self.carry_window = int(carry_window)
         self.metrics = metrics if metrics is not None else \
             obs_metrics.metrics()
         self._index_y: GraphIndex | None = None
@@ -138,7 +161,25 @@ class JoinEngine:
             "sketch": 0, "pdx": 0}
         self.build_seconds = 0.0
         self.serve_stats: dict[str, int] = {
-            "joins": 0, "queries": 0, "pairs": 0}
+            "joins": 0, "batches": 0, "queries": 0, "pairs": 0}
+
+        # streaming state (global query ids, carried work-sharing cache).
+        # Under a quantized mode with an int8 tier the carry window holds
+        # the donors' int8 codes and norms (host arrays), else f32 vectors
+        self._stream_n = 0
+        self._stream_cache: dict[int, np.ndarray] = {}
+        self._stream_entry_n = 0         # cached ids, not cached queries
+        self._carry_vecs: np.ndarray | None = None
+        self._carry_codes: np.ndarray | None = None
+        self._carry_norms: np.ndarray | None = None
+        self._carry_qids = np.empty(0, np.int64)
+
+        # the LSH estimator over Y (built on first use) and its band-cap
+        # estimates, sticky per (θ, quant, pool cap); the cost table of
+        # finished joins per (method, quant)
+        self._estimator = None
+        self._cap_estimates: dict[tuple, int] = {}
+        self.cost_table = CostTable()
 
     # -- index lifecycle ----------------------------------------------------
 
@@ -293,8 +334,6 @@ class JoinEngine:
         ``cfg.quant`` filters through the cascade over the method's index
         artifact (G_Y for the search path, G_{X∪Y} for the MI methods, Y
         for the NLJ)."""
-        from repro_torch.core.join import cascade_join_pairs
-
         cfg = self._resolve(cfg, method, theta)
         Xd = self._as_x(X)
         stats = JoinStats()
@@ -303,19 +342,7 @@ class JoinEngine:
                        index_merged=index_merged)
 
         if cfg.method == "nlj":
-            t0 = time.perf_counter()
-            casc = self.cascade_for(("y",), self.Y, cfg, stats)
-            pairs, counts = cascade_join_pairs(
-                Xd, self.Y, cfg.theta, casc, impl=cfg.traversal.dist_impl,
-                early_exit=early_exit_enabled(cfg.traversal))
-            stats.n_rerank = counts["n_rerank"]
-            if counts["escalated"]:
-                stats.n_esc8 = counts["escalated"][0]
-            stats.n_dims_scanned += counts["dims_scanned"]
-            stats.n_dims_total += counts["dims_total"]
-            stats.other_seconds = time.perf_counter() - t0
-            stats.n_dist = int(Xd.shape[0]) * int(self.Y.shape[0])
-            return self._done(JoinResult(pairs=pairs, stats=stats), Xd)
+            return self._done(self._join_nlj(Xd, cfg, stats), Xd, cfg)
 
         all_pairs: list[np.ndarray] = []
         t0 = time.perf_counter()
@@ -332,9 +359,27 @@ class JoinEngine:
             stats.other_seconds += time.perf_counter() - t0
             W.run_search_join(Xd, iy, ix, cfg, stats, all_pairs,
                               cascade=casc)
-        pairs = (np.concatenate(all_pairs, axis=0) if all_pairs
-                 else np.empty((0, 2), np.int64))
-        return self._done(JoinResult(pairs=pairs, stats=stats), Xd)
+        return self._done(JoinResult(pairs=_pairs(all_pairs), stats=stats),
+                          Xd, cfg)
+
+    def _join_nlj(self, Xd: torch.Tensor, cfg: JoinConfig,
+                  stats: JoinStats) -> JoinResult:
+        """The exact NLJ of ``Xd`` against Y through ``cfg.quant``'s
+        cascade over Y (local query ids)."""
+        from repro_torch.core.join import cascade_join_pairs
+        t0 = time.perf_counter()
+        casc = self.cascade_for(("y",), self.Y, cfg, stats)
+        pairs, counts = cascade_join_pairs(
+            Xd, self.Y, cfg.theta, casc, impl=cfg.traversal.dist_impl,
+            early_exit=early_exit_enabled(cfg.traversal))
+        stats.n_rerank = counts["n_rerank"]
+        if counts["escalated"]:
+            stats.n_esc8 = counts["escalated"][0]
+        stats.n_dims_scanned += counts["dims_scanned"]
+        stats.n_dims_total += counts["dims_total"]
+        stats.other_seconds = time.perf_counter() - t0
+        stats.n_dist = int(Xd.shape[0]) * int(self.Y.shape[0])
+        return JoinResult(pairs=pairs, stats=stats)
 
     def sweep(self, X, thetas, cfg: JoinConfig | None = None, *,
               method: str | None = None) -> list[JoinResult]:
@@ -342,15 +387,371 @@ class JoinEngine:
         return [self.join(X, cfg, method=method, theta=float(t))
                 for t in thetas]
 
-    def submit(self, X_batch, cfg: JoinConfig | None = None, **kw):
-        """Streaming joins are not ported yet."""
-        raise NotImplementedError(
-            "streaming submit arrives with the streaming engine slice "
-            "(ROADMAP Queue A slice 6)")
+    # -- streaming ----------------------------------------------------------
+
+    @property
+    def n_submitted(self) -> int:
+        return self._stream_n
+
+    def reset_stream(self) -> None:
+        """Forget every streamed query: global ids restart at 0 and the
+        work-sharing cache and carry window are dropped."""
+        self._stream_n = 0
+        self._stream_cache.clear()
+        self._stream_entry_n = 0
+        self._carry_vecs = None
+        self._carry_codes = None
+        self._carry_norms = None
+        self._carry_qids = np.empty(0, np.int64)
+
+    def submit(self, X_batch, cfg: JoinConfig | None = None, *,
+               method: str | None = None,
+               theta: float | None = None) -> JoinResult:
+        """Join one streaming batch; result pairs carry *global* query ids
+        (``n_submitted`` at call time + local position).
+
+        The batch is padded into waves. For ``es_sws``/``es_hws`` the
+        work-sharing cache persists across calls: each query seeds from
+        the cache entry of the nearest previously completed query in the
+        carry window instead of s_Y (the streaming form of the paper's MST
+        parent order). An MI batch builds (and caches) the merged index of
+        its own queries; under a filtering quant mode its band capacity is
+        seeded from the LSH estimate (``estimate_rerank_cap``)."""
+        cfg = self._resolve(cfg, method, theta)
+        Xd = self._as_x(X_batch)
+        nb = int(Xd.shape[0])
+        offset = self._stream_n
+        stats = JoinStats()
+
+        if cfg.method == "nlj":
+            result = self._join_nlj(Xd, cfg, stats)
+            result.pairs[:, 0] += offset
+        elif cfg.method in _MI_METHODS:
+            # the merged index must contain the batch's query nodes, so MI
+            # streaming pays one (cached, fingerprint-keyed) build per
+            # distinct batch
+            all_pairs: list[np.ndarray] = []
+            merged = self.merged_index(X_batch)
+            casc = self.cascade_for(("merged", _fingerprint(X_batch)),
+                                    merged.vecs, cfg, stats)
+            W.run_mi_join(Xd, merged, cfg, stats, all_pairs,
+                          qid_offset=offset, cascade=casc,
+                          capctl=self._seeded_capctl(X_batch, cfg))
+            result = JoinResult(pairs=_pairs(all_pairs), stats=stats)
+        else:
+            result = self._submit_search_group(
+                [(_host(X_batch), cfg, stats, offset)])[0]
+
+        self._stream_n = offset + nb
+        self._batch_done(result, nb, cfg)
+        return result
+
+    def _batch_done(self, result: JoinResult, nb: int,
+                    cfg: JoinConfig) -> None:
+        self.serve_stats["batches"] += 1
+        self.serve_stats["queries"] += nb
+        self.serve_stats["pairs"] += len(result.pairs)
+        result.stats.publish(self.metrics)
+        self.metrics.counter("engine.batches").inc()
+        self.metrics.counter("engine.queries").inc(nb)
+        self.metrics.counter("engine.pairs").inc(len(result.pairs))
+        self._observe_cost(cfg, nb, result.stats)
+
+    def submit_many(self, jobs) -> list[JoinResult]:
+        """Submit several streaming batches; returns one ``JoinResult``
+        per job, pair-identical to calling ``submit`` on each in order.
+
+        ``jobs`` is a sequence of ``(X_batch, cfg)`` pairs (``cfg`` None
+        for the engine default). Consecutive search-path jobs that agree
+        on (method, quant, wave_size) and have the wave pipeline on run as
+        one pipelined group: the last wave of batch k stays in flight
+        while batch k+1's first wave launches from its seed feedback. The
+        feedback entries equal the prefix of the full cache entry, so the
+        pairs and the work-sharing cache are those of sequential
+        ``submit`` calls. NLJ and merged-index jobs run through
+        ``submit``."""
+        resolved = [(X, self._resolve(cfg, None, None)) for X, cfg in jobs]
+        results: list[JoinResult] = []
+        i = 0
+        while i < len(resolved):
+            X, cfg = resolved[i]
+            if not (cfg.method in _SEARCH_METHODS
+                    and W.overlap_enabled(cfg)):
+                results.append(self.submit(X, cfg))
+                i += 1
+                continue
+            key = (cfg.method, cfg.quant, cfg.wave_size)
+            j = i + 1
+            while j < len(resolved):
+                c2 = resolved[j][1]
+                if ((c2.method, c2.quant, c2.wave_size) != key
+                        or not W.overlap_enabled(c2)):
+                    break
+                j += 1
+            group = []
+            for X2, c2 in resolved[i:j]:
+                X2 = _host(X2)
+                group.append((X2, c2, JoinStats(), self._stream_n))
+                self._stream_n += int(X2.shape[0])
+            outs = self._submit_search_group(group)
+            for (X2, c2, _, _), res in zip(group, outs):
+                self._batch_done(res, int(X2.shape[0]), c2)
+            results.extend(outs)
+            i = j
+        return results
+
+    def _submit_search_group(self, group) -> list[JoinResult]:
+        """Streaming search-path waves over one or several batches.
+
+        ``group`` is a list of ``(X_batch, cfg, stats, offset)`` jobs
+        (host f32 batches) that share (method, quant, wave_size). Waves
+        are double-buffered as in ``waves.run_search_join``: wave k+1 is
+        launched from wave k's seed feedback while wave k is assembled,
+        across batch boundaries too. Each wave's donors join the carry
+        window before the next wave picks its parents (they need only the
+        wave's queries or codes, not its traversal); a donor evicted
+        before its cache entry landed becomes a tombstone of its wave,
+        and the entry is dropped when the wave drains. With overlap off
+        the same primitives run in sequence; pairs, stats and the cache
+        are the same either way."""
+        iy = self.index_y()
+        sy = int(iy.start)
+        all_pairs: list[list[np.ndarray]] = [[] for _ in group]
+        # seed overlay: feedback entries of the wave whose full cache
+        # update is still pending (the first S ids update_sws_cache writes)
+        overlay: dict[int, np.ndarray] = {}
+        seed_cache = ChainMap(overlay, self._stream_cache)
+        pending: tuple[int, W.WaveHandles] | None = None
+
+        def drain(j: int, h: W.WaveHandles) -> None:
+            _, cfg_j, stats_j, _ = group[j]
+            out = W.assemble_wave(h, stats_j)
+            all_pairs[j].append(out.pairs)
+            if cfg_j.method not in _CACHING_METHODS:
+                return
+            t1 = time.perf_counter()
+            with obs_trace.tracer().span("wave/cache_update",
+                                         lane="assembly"):
+                self._stream_entry_n = W.update_sws_cache(
+                    self._stream_cache, out, h.qids, cfg_j, stats_j,
+                    self._stream_entry_n)
+                for q in h.qids[h.lane_valid]:
+                    overlay.pop(int(q), None)
+                # donors evicted from the carry before their entry landed
+                # (carry_window < wave_size): drop the entry now, as the
+                # sequential update-then-evict order would have
+                for q in h.tombstones:
+                    gone = self._stream_cache.pop(int(q), None)
+                    if gone is not None:
+                        self._stream_entry_n -= len(gone)
+                        stats_j.cache_tombstones += 1
+            stats_j.other_seconds += time.perf_counter() - t1
+
+        for j, (X_np, cfg, stats, offset) in enumerate(group):
+            casc = self.cascade_for(("index_y",), iy.vecs, cfg, stats)
+            int8 = casc.tier("int8") if casc is not None else None
+            nb = int(X_np.shape[0])
+            caching = cfg.method in _CACHING_METHODS
+            ov = W.overlap_enabled(cfg)
+            capctl = W.RerankCap(W.effective_tcfg(cfg),
+                                 init_cap=self.estimate_rerank_cap(X_np, cfg))
+
+            for c0 in range(0, nb, cfg.wave_size):
+                local = np.arange(c0, min(c0 + cfg.wave_size, nb))
+                qids_l, lane_valid = W.pad_wave(local, cfg.wave_size)
+                qids_g = qids_l + offset
+                # the wave is gathered on the host, then moved (wave, d)
+                xw = torch.as_tensor(X_np[qids_l], device=self.device)
+                # the queries are encoded once a wave: the codes drive the
+                # parent choice, the carry window and the traversal
+                qc = casc.encode(xw) if casc is not None else None
+                qc8 = (qc[casc.names.index("int8")]
+                       if int8 is not None else None)
+
+                t0 = time.perf_counter()
+                parent = self._assign_parents(X_np[qids_l], qc8, int8,
+                                              qids_g, lane_valid, caching)
+                seeds, seeds_valid = W.seeds_from_cache(
+                    qids_g, lane_valid, parent, seed_cache, sy,
+                    cfg.wave_size, cfg.traversal.seeds_max, stats=stats)
+                stats.other_seconds += time.perf_counter() - t0
+
+                h = W.launch_search_wave(iy, xw, qids_g, lane_valid, cfg,
+                                         stats, seeds=seeds,
+                                         seeds_valid=seeds_valid,
+                                         cascade=casc, qc=qc,
+                                         capctl=capctl, sync=not ov,
+                                         collect_seeds=caching and ov)
+                if ov and pending is not None:
+                    drain(*pending)
+                    pending = None
+                if caching:
+                    if ov:
+                        overlay.update(W.fetch_feedback(h, stats))
+                    # this wave's donors join the carry window before the
+                    # next wave picks its parents; eviction may name
+                    # queries whose entry is still pending (tombstones)
+                    t0 = time.perf_counter()
+                    lv = lane_valid
+                    if qc8 is not None:
+                        missed = self._remember(
+                            None, qids_g[lv],
+                            codes=qc8.q.cpu().numpy()[lv],
+                            norms=qc8.norms.cpu().numpy()[lv], stats=stats)
+                    else:
+                        missed = self._remember(X_np[qids_l[lv]],
+                                                qids_g[lv], stats=stats)
+                    for q in missed:
+                        overlay.pop(int(q), None)
+                    h.tombstones.extend(missed)
+                    stats.other_seconds += time.perf_counter() - t0
+                if ov:
+                    pending = (j, h)
+                else:
+                    drain(j, h)
+        if pending is not None:
+            drain(*pending)
+        return [JoinResult(pairs=_pairs(ps), stats=group[j][2])
+                for j, ps in enumerate(all_pairs)]
+
+    # -- band-capacity estimates (plan.LshEstimator) -------------------------
+
+    @property
+    def estimator(self):
+        """The engine's ``plan.LshEstimator`` over Y (built on first use:
+        it samples and sketches ≤ 2,048 rows where Y lives)."""
+        if self._estimator is None:
+            from repro_torch.plan import LshEstimator
+            self._estimator = LshEstimator(self.Y)
+        return self._estimator
+
+    def estimate_rerank_cap(self, X_batch, cfg: JoinConfig) -> int | None:
+        """LSH-sample estimate of the initial band-compaction capacity
+        under a filtering quant mode (None otherwise): the covering power
+        of two of the sampled max sketch-band occupancy with headroom,
+        sticky per (θ, quant, pool cap). Emitted pairs never depend on
+        it: a wave whose band overflows still grows the cap and retries."""
+        tcfg = cfg.traversal
+        if cfg.quant not in QUANT_FILTER_MODES or tcfg.rerank_cap <= 0:
+            return None
+        key = (round(float(cfg.theta), 6), cfg.quant, tcfg.pool_cap)
+        cached = self._cap_estimates.get(key)
+        if cached is not None:
+            return cached
+        t0 = time.perf_counter()
+        est = self.estimator.estimate(X_batch, float(cfg.theta))
+        cap = est.rerank_cap(tcfg.pool_cap)
+        self._cap_estimates[key] = cap
+        self.metrics.gauge(
+            "engine.rerank_cap_estimate",
+            help="LSH-sampled initial band capacity (last estimate)"
+        ).set(cap)
+        self.build_seconds += time.perf_counter() - t0
+        return cap
+
+    def _seeded_capctl(self, X_batch, cfg: JoinConfig) -> W.RerankCap:
+        """A ``RerankCap`` seeded from the sticky LSH estimate (the config
+        cold start for non-filtering modes)."""
+        return W.RerankCap(cfg.traversal,
+                           init_cap=self.estimate_rerank_cap(_host(X_batch),
+                                                             cfg))
+
+    # -- the carry window -----------------------------------------------------
+
+    def _assign_parents(self, xw: np.ndarray, qc8, int8_tier,
+                        qids_g: np.ndarray, lane_valid: np.ndarray,
+                        caching: bool) -> dict[int, int]:
+        """Streaming parent = the nearest completed query in the carry
+        window (the first one at a tie).
+
+        Under a mode with an int8 tier both sides are int8: the wave's
+        codes (already encoded for the traversal) against the donors'
+        codes and norms, padded to the full window, through the int8
+        pairwise kernel on the engine's device; the padded columns are cut
+        before the argmin. Otherwise the f32 product runs in numpy on the
+        host, as in the reference, so the parents are the reference's.
+        Parent choice is a seeding heuristic: nothing certifies it."""
+        if not caching or not len(self._carry_qids):
+            return {}
+        if qc8 is not None and self._carry_codes is not None:
+            st = int8_tier.store
+            C, Nn = self._carry_codes, self._carry_norms
+            ncar = C.shape[0]
+            if ncar < self.carry_window:
+                pad = self.carry_window - ncar
+                C = np.concatenate(
+                    [C, np.zeros((pad,) + C.shape[1:], C.dtype)])
+                Nn = np.concatenate([Nn, np.zeros(pad, Nn.dtype)])
+            dev = qc8.q.device
+            d2 = ops.pairwise_sq_dists_int8(
+                qc8.q, torch.as_tensor(C, device=dev), st.scales,
+                group_size=st.group_size, xn=qc8.norms,
+                yn=torch.as_tensor(Nn, device=dev)).cpu().numpy()[:, :ncar]
+        elif self._carry_vecs is not None:
+            C = self._carry_vecs
+            d2 = (np.sum(xw * xw, axis=1, keepdims=True)
+                  + np.sum(C * C, axis=1)[None, :] - 2.0 * xw @ C.T)
+        else:
+            # the carry holds the other representation (the quant mode
+            # changed mid-stream): no parents for this wave
+            return {}
+        nearest = self._carry_qids[np.argmin(d2, axis=1)]
+        return {int(q): int(p)
+                for q, p, v in zip(qids_g, nearest, lane_valid) if v}
+
+    def _remember(self, vecs: np.ndarray | None, qids: np.ndarray, *,
+                  codes: np.ndarray | None = None,
+                  norms: np.ndarray | None = None,
+                  stats: JoinStats | None = None) -> list[int]:
+        """Append donors to the carry window, evicting beyond capacity
+        (an evicted donor's cache entry goes with it).
+
+        Returns the evicted qids whose cache entry did not exist yet (the
+        pipelined path appends donors before the wave's cache update
+        lands; the caller turns them into tombstones)."""
+        def _append(cur, new):
+            if new is None:
+                return cur
+            return new.copy() if cur is None else np.concatenate([cur, new])
+
+        missed: list[int] = []
+
+        def _evict(qs) -> None:
+            for q in qs:
+                gone = self._stream_cache.pop(int(q), None)
+                if gone is not None:
+                    self._stream_entry_n -= len(gone)
+                    if stats is not None:
+                        stats.cache_evictions += 1
+                else:
+                    missed.append(int(q))
+
+        # a mode switch mid-stream changes the carry representation (f32
+        # vectors ↔ int8 codes): the window restarts, and the dropped
+        # donors leave the cache as evicted ones do
+        if (codes is not None) != (self._carry_codes is not None) \
+                and len(self._carry_qids):
+            _evict(self._carry_qids)
+            self._carry_vecs = self._carry_codes = self._carry_norms = None
+            self._carry_qids = np.empty(0, np.int64)
+        self._carry_vecs = _append(self._carry_vecs, vecs)
+        self._carry_codes = _append(self._carry_codes, codes)
+        self._carry_norms = _append(self._carry_norms, norms)
+        self._carry_qids = np.concatenate(
+            [self._carry_qids, qids.astype(np.int64)])
+        if len(self._carry_qids) > self.carry_window:
+            keep = len(self._carry_qids) - self.carry_window
+            _evict(self._carry_qids[:keep])
+            for attr in ("_carry_vecs", "_carry_codes", "_carry_norms"):
+                cur = getattr(self, attr)
+                if cur is not None:
+                    setattr(self, attr, cur[keep:])
+            self._carry_qids = self._carry_qids[keep:]
+        return missed
 
     # -- bookkeeping --------------------------------------------------------
 
-    def _done(self, result: JoinResult, X) -> JoinResult:
+    def _done(self, result: JoinResult, X, cfg: JoinConfig) -> JoinResult:
         self.serve_stats["joins"] += 1
         self.serve_stats["queries"] += int(X.shape[0])
         self.serve_stats["pairs"] += len(result.pairs)
@@ -358,5 +759,17 @@ class JoinEngine:
         self.metrics.counter("engine.joins").inc()
         self.metrics.counter("engine.queries").inc(int(X.shape[0]))
         self.metrics.counter("engine.pairs").inc(len(result.pairs))
+        self._observe_cost(cfg, int(X.shape[0]), result.stats)
         return result
+
+    def _observe_cost(self, cfg: JoinConfig, n_queries: int,
+                      stats: JoinStats) -> None:
+        """Offer a finished join to the cost table (the fastest per-query
+        measurement per (method, quant) wins)."""
+        if self.cost_table.observe(cfg.method, cfg.quant, n_queries,
+                                   stats):
+            self.metrics.counter(
+                "plan.calibrations",
+                help="cost-table entries (re)calibrated from finished "
+                     "joins").inc()
 

@@ -216,6 +216,9 @@ class WaveHandles:
     # closed at the first host contact with the results (_resolve_band)
     span: object = None
     n_amb_host: np.ndarray | None = None
+    # streamed queries evicted from the engine's carry window before this
+    # wave's cache update landed; their entries are dropped once written
+    tombstones: list = dataclasses.field(default_factory=list)
 
 
 def _count_band(h: WaveHandles, stats: JoinStats) -> None:
@@ -625,19 +628,25 @@ def update_sws_cache(cache: dict[int, np.ndarray], out: WaveOutput,
 
 
 def seeds_from_cache(qids: np.ndarray, lane_valid: np.ndarray,
-                     parent: np.ndarray, cache, sy: int, wave_size: int,
-                     seeds_max: int, stats: JoinStats | None = None
+                     parent: np.ndarray | dict[int, int], cache, sy: int,
+                     wave_size: int, seeds_max: int,
+                     stats: JoinStats | None = None
                      ) -> tuple[np.ndarray, np.ndarray]:
     """Seed lanes from their parents' cache entries (Alg. 1 lines 5–9),
-    s_Y otherwise. ``cache`` is any mapping qid → id array (the pipelined
-    runner passes ``ChainMap(seed_overlay, cache)``). With ``stats`` every
-    lane with a parent counts as a cache hit (a non-empty entry) or a miss
-    (it fell back to s_Y)."""
+    s_Y otherwise. ``parent`` maps a query id to its parent's (an array
+    indexed by id, or the streaming engine's dict, where a missing id has
+    none). ``cache`` is any mapping qid → id array (the pipelined runners
+    pass ``ChainMap(seed_overlay, cache)``). With ``stats`` every lane with
+    a parent counts as a cache hit (a non-empty entry) or a miss (it fell
+    back to s_Y)."""
     seeds = np.full((wave_size, seeds_max), sy, np.int32)
     seeds_valid = np.zeros((wave_size, seeds_max), bool)
     seeds_valid[:, 0] = True
+    get = (parent.get if isinstance(parent, dict)
+           else lambda q: int(parent[q]))
     for i, q in enumerate(qids):
-        p = int(parent[int(q)]) if lane_valid[i] else -1
+        p = get(int(q)) if lane_valid[i] else -1
+        p = -1 if p is None else int(p)
         if p < 0:
             continue
         c = cache.get(p)

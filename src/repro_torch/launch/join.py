@@ -1,12 +1,14 @@
 """Vector-join launcher (port of ``repro.launch.join``, the single-device
-one-shot subset: every method and every quant mode; no streaming, no
-shards, no sweep).
+subset: every method and every quant mode, streaming and sweeps; no
+shards, plans, traces or metric dumps).
 
 Runs one of the paper's methods (the exact ``nlj``; the search path
 ``index``, ``es``, ``es_hws``, ``es_sws``; the merged-index ``es_mi``,
 ``es_mi_adapt``) on a synthetic Table-1-regime dataset through a
 ``JoinEngine`` on the CUDA card and checks the result against the exact
-NLJ:
+NLJ. ``--stream B`` feeds the queries as streaming batches of B through
+``engine.submit`` (carrying the work-sharing cache between batches);
+``--sweep`` reruns every Table-2 threshold against the same cached index:
 
   PYTHONPATH=src python -m repro_torch.launch.join --method es_mi_adapt \\
       --regime ood --n-data 20000 --n-query 500 --theta-q 2 --quant pdx8
@@ -66,6 +68,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--engine-spec", default="default",
                     help="EngineSpec preset (default|ci|serving_sketch8)")
+    ap.add_argument("--stream", type=int, default=0, metavar="B",
+                    help="submit queries as streaming batches of B")
+    ap.add_argument("--sweep", action="store_true",
+                    help="rerun all 7 thresholds on the cached index")
     ap.add_argument("--no-truth", action="store_true",
                     help="skip the exact NLJ ground truth (big inputs)")
     ap.add_argument("--device", default=None,
@@ -93,23 +99,42 @@ def main(argv=None) -> int:
           f"overlap={'off' if args.no_overlap else 'on'}")
 
     t0 = time.perf_counter()
-    res = eng.join(ds.X, cfg)
-    dt = time.perf_counter() - t0
-    extra = (f", rerank={res.stats.n_rerank}, "
-             f"quant_bytes={res.stats.quant_bytes}" if quant != "off" else "")
-    if quant == "sketch8":
-        pruned = res.stats.n_dist - res.stats.n_esc8
-        extra += (f", esc8={res.stats.n_esc8}, sketch_pruned={pruned}"
-                  f" ({pruned / max(res.stats.n_dist, 1):.0%})")
-    if quant in ("pdx8", "sketchpdx8"):
-        extra += f", dims_frac={res.stats.dims_scanned_frac:.3f}"
-    print(f"[join] {len(res.pairs)} pairs in {dt:.2f}s "
-          f"(n_dist={res.stats.n_dist}, ood={res.stats.n_ood}, "
-          f"builds={eng.n_index_builds}{extra})")
+    if args.stream:
+        parts = [eng.submit(ds.X[b0:b0 + args.stream], cfg)
+                 for b0 in range(0, args.n_query, args.stream)]
+        pairs = np.concatenate([r.pairs for r in parts], axis=0)
+        n_dist = sum(r.stats.n_dist for r in parts)
+        dt = time.perf_counter() - t0
+        print(f"[join] {len(parts)} streamed batches: {len(pairs)} pairs "
+              f"in {dt:.2f}s (n_dist={n_dist})")
+    else:
+        res = eng.join(ds.X, cfg)
+        dt = time.perf_counter() - t0
+        extra = (f", rerank={res.stats.n_rerank}, "
+                 f"quant_bytes={res.stats.quant_bytes}"
+                 if quant != "off" else "")
+        if quant == "sketch8":
+            pruned = res.stats.n_dist - res.stats.n_esc8
+            extra += (f", esc8={res.stats.n_esc8}, sketch_pruned={pruned}"
+                      f" ({pruned / max(res.stats.n_dist, 1):.0%})")
+        if quant in ("pdx8", "sketchpdx8"):
+            extra += f", dims_frac={res.stats.dims_scanned_frac:.3f}"
+        print(f"[join] {len(res.pairs)} pairs in {dt:.2f}s "
+              f"(n_dist={res.stats.n_dist}, ood={res.stats.n_ood}, "
+              f"builds={eng.n_index_builds}{extra})")
+        pairs = res.pairs
+
+    if args.sweep:
+        for i, th in enumerate(grid):
+            t0 = time.perf_counter()
+            r = eng.join(ds.X, cfg, theta=th)
+            print(f"[sweep] θ{i + 1}={th:.4f}: {len(r.pairs)} pairs in "
+                  f"{time.perf_counter() - t0:.2f}s "
+                  f"(builds={eng.n_index_builds})")
 
     if not args.no_truth:
         truth = exact_join_pairs(ds.X, eng.Y, theta)
-        got = pair_keys(res.pairs, args.n_data)
+        got = pair_keys(pairs, args.n_data)
         tset = pair_keys(truth, args.n_data)
         rec = np.intersect1d(got, tset).size / max(tset.size, 1)
         sound = np.setdiff1d(got, tset).size == 0

@@ -8,7 +8,8 @@ from repro_torch.quant.pdx import (PdxQueries, PdxStore, build_pdx,
                                    pdx_queries, pdx_store_from_numpy)
 from repro_torch.quant.sketch import (SketchStore, build_sketch,
                                       sketch_queries,
-                                      sketch_store_from_numpy)
+                                      sketch_store_from_numpy,
+                                      sketch_survivors)
 from repro_torch.quant.store import (QuantStore, build_store, dequantize,
                                      quantize_queries)
 
@@ -18,4 +19,5 @@ __all__ = ["MATMUL_GUARD", "TIERS_BY_MODE", "FilterCascade", "Int8Queries",
            "PdxQueries", "PdxStore", "build_pdx",
            "pdx_queries", "pdx_store_from_numpy", "SketchStore",
            "build_sketch", "sketch_queries", "sketch_store_from_numpy",
+           "sketch_survivors",
            "QuantStore", "build_store", "dequantize", "quantize_queries"]

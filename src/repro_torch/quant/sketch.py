@@ -249,3 +249,26 @@ def sketch_lower_bound_gather(h, cum_q, cum_table, cand, hs, iso, *,
                       _dim(hs, dim))
     return (torch.where(valid, lb, math.inf),
             torch.where(valid, both[1], math.inf))
+
+
+def sketch_survivors(x, store: SketchStore, theta: float) -> np.ndarray:
+    """(B, N) numpy bool: which store rows the sketch tier *cannot* certify
+    out of θ-range for each query row, ``lb(x_b, y_n) ≤ θ²``.
+
+    The LSH selectivity primitive behind ``plan.LshEstimator``: the mask
+    is a certified superset of the true in-range mask (the lower bounds
+    never reject a true pair), so per-query survivor counts bound the
+    band occupancy from above. The queries (numpy or a tensor) are
+    encoded, Hamming-compared (``ops.pairwise_hamming``) and bounded on
+    the store's device."""
+    from repro_torch.kernels import ops
+    dev = store.codes.device
+    if isinstance(x, torch.Tensor):
+        xt = x.to(device=dev, dtype=torch.float32)
+    else:
+        xt = torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    qcodes, qcum = sketch_queries(xt, store)
+    h = ops.pairwise_hamming(qcodes, store.codes)
+    lb = sketch_lower_bound_pairwise(h, qcum, store.cum, store.hs, store.iso,
+                                     dim=store.dim)
+    return (lb <= float(np.float32(theta) ** 2)).cpu().numpy()

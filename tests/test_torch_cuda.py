@@ -41,7 +41,11 @@ plain version at a θ clear of boundary pairs, and against the pairwise
 kernel's distances at any θ), and the joins on the card against the same
 joins on the CPU over the same indexes (and, under the sketch and PDX
 modes, over the CPU engine's stores): the merged-index join in f32, under
-sq8, sketch8, pdx8 and sketchpdx8, and the search path's caching methods.
+sq8, sketch8, pdx8 and sketchpdx8, and the search path's caching methods;
+and the streaming engine's int8 parents through #6 (bit for bit its own
+arithmetic on the padded carry window; the CPU engine's parents but for
+near-ties) and ``sketch_survivors`` through #8 (the plain Hamming
+counts' masks).
 """
 import dataclasses
 import zlib
@@ -56,7 +60,7 @@ from repro_torch.core.types import GraphIndex, pair_keys
 from repro_torch.data.vectors import make_dataset, thresholds
 from repro_torch.engine import JoinEngine
 from repro_torch.kernels import ops, ref
-from repro_torch.quant import build_store, quantize_queries
+from repro_torch.quant import build_store, dequantize, quantize_queries
 from repro_torch.quant.cascade import MATMUL_GUARD, Int8Queries, Int8Tier
 
 pytestmark = pytest.mark.cuda
@@ -1087,3 +1091,108 @@ def test_search_join_on_the_card_matches_the_cpu(dev, method):
     for f in ("n_dist", "n_iters", "cache_hits", "cache_misses",
               "peak_cache_entries"):
         assert getattr(got.stats, f) == getattr(want.stats, f), f
+
+
+def _record_parents(eng) -> list:
+    log = []
+    choose = eng._assign_parents
+
+    def recorded(*a, **kw):
+        log.append(choose(*a, **kw))
+        return log[-1]
+    eng._assign_parents = recorded
+    return log
+
+
+def test_stream_parents_through_the_int8_kernel(dev):
+    """Streaming under sq8 on the card over the CPU engine's G_Y and int8
+    store: each wave's parents come from #6 (``pairwise_sq_dists_int8``)
+    over the carry window padded to its full width, bit for bit its own
+    arithmetic (``ref.pairwise_sq_dists_int8_exact``) on the same window,
+    and equal the CPU engine's parents (its plain, dequantizing d̂) but
+    for near-ties (d̂ in float64 within 1e-6, relative); with no near-tie
+    the batches' pairs and counters equal the CPU run's."""
+    ds = make_dataset("manifold", n_data=1500, n_query=96, dim=40, seed=3)
+    theta = float(thresholds(ds, 3)[1])
+    cpu = torch.device("cpu")
+    iy = build_index(ds.Y, k=24, degree=12, device=cpu)
+    cfg = JoinConfig(method="es_sws", theta=theta, wave_size=32,
+                     quant="sq8")
+    key = ("int8", "index_y")
+    runs = {}
+    for d in (cpu, dev):
+        eng = JoinEngine(ds.Y, default=cfg, carry_window=64, device=d)
+        if d == cpu:
+            eng.adopt(index_y=iy)
+        else:
+            eng.adopt(index_y=_to(iy, dev))
+            eng._tier_stores.put(key, _store_to(
+                runs[cpu][0]._tier_stores[key], dev))
+        log = _record_parents(eng)
+        ops.reset_launch_counts()
+        res = [eng.submit(ds.X[b:b + 32]) for b in range(0, 96, 32)]
+        runs[d] = (eng, log, res, ops.launch_counts())
+    eng, log, res, counts = runs[dev]
+    # batches 2 and 3 pick parents (one wave each); one sticky estimate
+    assert counts["pairwise_sq_dists_int8"] == 2
+    assert counts["pairwise_hamming"] == 1
+    # the card's parents against the CPU engine's, wave by wave
+    st_cpu = runs[cpu][0]._tier_stores[key]
+    x64 = dequantize(quantize_queries(torch.from_numpy(ds.X), st_cpu)[0],
+                     st_cpu.scales, st_cpu.group_size).double().numpy()
+    ties = 0
+    for pg, pw in zip(log, runs[cpu][1], strict=True):
+        assert pg.keys() == pw.keys()
+        for q, p in pg.items():
+            if p != pw[q]:
+                a, b = (((x64[q] - x64[r]) ** 2).sum() for r in (p, pw[q]))
+                assert abs(a - b) <= 1e-6 * max(a, b), (q, p, pw[q])
+                ties += 1
+    if ties == 0:
+        for g, w in zip(res, runs[cpu][2]):
+            np.testing.assert_array_equal(pair_keys(g.pairs, 1500),
+                                          pair_keys(w.pairs, 1500))
+            for f in ("n_dist", "n_iters", "cache_hits", "cache_evictions",
+                      "n_rerank"):
+                assert getattr(g.stats, f) == getattr(w.stats, f), f
+    # one more wave against the window (the last 64 of the 96 queries)
+    st = eng._tier_stores[key]
+    xw = ds.X[:32]
+    qc = Int8Tier(st).encode(torch.as_tensor(xw, device=dev))
+    qids = np.arange(96, 128)
+    got = eng._assign_parents(xw, qc, Int8Tier(st), qids, np.ones(32, bool),
+                              True)
+    n = len(eng._carry_qids)
+    C = torch.zeros((eng.carry_window, 40), dtype=torch.int8, device=dev)
+    Nn = torch.zeros(eng.carry_window, device=dev)
+    C[:n] = torch.as_tensor(eng._carry_codes, device=dev)
+    Nn[:n] = torch.as_tensor(eng._carry_norms, device=dev)
+    d2 = ref.pairwise_sq_dists_int8_exact(qc.q, C, st.scales, qc.norms, Nn,
+                                          group_size=st.group_size)[:, :n]
+    want = eng._carry_qids[d2.argmin(dim=1).cpu().numpy()]
+    assert got == {int(q): int(p) for q, p in zip(qids, want)}
+
+
+@pytest.mark.parametrize("d", [40, 128])
+def test_sketch_survivors_through_the_hamming_kernel(dev, d):
+    """``sketch_survivors`` on the card (#8 ``pairwise_hamming``, then the
+    certified bounds) equals the same bounds over the plain Hamming
+    counts on the same card, at a θ that keeps part of the sample."""
+    from repro_torch.quant.sketch import (build_sketch,
+                                          sketch_lower_bound_pairwise,
+                                          sketch_queries, sketch_survivors)
+    g = _rng("survivors", d)
+    y = g.normal(size=(2048, d)).astype(np.float32)
+    x = g.normal(size=(64, d)).astype(np.float32)
+    st = build_sketch(y, device=dev)
+    qc, qcum = sketch_queries(torch.as_tensor(x, device=dev), st)
+    lb = sketch_lower_bound_pairwise(ref.pairwise_hamming(qc, st.codes),
+                                     qcum, st.cum, st.hs, st.iso, dim=d)
+    theta = float(lb.flatten().kthvalue(lb.numel() // 20).values.sqrt())
+    ops.reset_launch_counts()
+    got = sketch_survivors(x, st, theta)
+    assert ops.launch_counts()["pairwise_hamming"] == 1
+    want = (lb <= float(np.float32(theta) ** 2)).cpu().numpy()
+    assert got.dtype == bool and got.shape == (64, 2048)
+    np.testing.assert_array_equal(got, want)
+    assert 0 < got.mean() < 1

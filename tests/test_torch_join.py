@@ -162,13 +162,21 @@ def test_merged_index_cached_and_sweep(ds_manifold, theta_mid):
 @pytest.mark.parametrize("bad", [dict(method="es_sws"),
                                  dict(method="es_mi_adapt")])
 def test_unported_paths_raise(ds_manifold, bad):
-    """Streaming (``submit``) and sharding are not ported yet."""
-    eng = JoinEngine(ds_manifold.Y[:50], device=CPU)
-    cfg = dataclasses.replace(JoinConfig(), **bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A slice 6"):
-        eng.submit(ds_manifold.X[:4], cfg)
+    """Sharding is not ported yet; streaming (``submit``) is: on the tiny
+    engine a batch gives sound pairs under global query ids."""
+    Y, X = ds_manifold.Y[:50], ds_manifold.X[:8]
+    eng = JoinEngine(Y, device=CPU, build_kw=dict(k=8, degree=4))
+    theta = float(thresholds(ds_manifold, 3)[2])
+    cfg = dataclasses.replace(JoinConfig(), theta=theta, **bad)
+    eng.submit(X[:4], cfg)
+    res = eng.submit(X[4:], cfg)
+    assert eng.n_submitted == 8
+    truth = exact_join_pairs(X, torch.from_numpy(Y), theta)
+    got = pair_keys(res.pairs, 50)
+    assert got.size and np.all(res.pairs[:, 0] >= 4)
+    assert np.setdiff1d(got, pair_keys(truth, 50)).size == 0     # sound
     with pytest.raises(NotImplementedError, match="slice 13"):
-        JoinEngine(ds_manifold.Y[:50], device=CPU, n_shards=2)
+        JoinEngine(Y, device=CPU, n_shards=2)
 
 
 def test_configs_and_stats_mirror_jax():
