@@ -58,6 +58,18 @@ Phases (each raises on failure, so the script exits non-zero):
      (the exact NLJ of its queries) and an es batch under global ids, and
      es_sws under sq8, whose parents come from the int8 pairwise kernel
      (#6) and whose band cap from the LSH estimate (#8);
+  3d. the serving path: ``JoinService`` with two tenants, ``sift`` (the
+     main engine's 1M-row card tensor, phase 3b's G_Y installed) and
+     ``laion`` (phase 5's data, its G_Y built by its warmup), warmed at
+     their θ (es_sws, off and sq8), serving SERVE_REQUESTS requests of 1 to
+     SERVE_MAX queries (a quarter at recall budget 0.5, four planned by the
+     cost table) and two bad ones (rejected and counted): served = a
+     direct ``submit`` replay of the same plans (pairs, ``qid_offset``,
+     n_dist, n_iters), every pair sound, recall per tenant and quant at its
+     floor, the kernel-build count flat after warmup, ``unload("laion")``
+     freeing its G_Y, #3 (and under sq8 #6, #7′, #8) launched per tenant;
+     then ``plan_config`` on the main engine and ``python -m
+     repro_torch.launch.serve_join --plan auto`` in a process of its own;
   4. the sq8 main path on the same data: ``make_engine(Y,
      EngineSpec(quant="sq8", quant_build="sq8")).join`` — the cascade-driven
      build (its kNN lists must equal the f32 build's but for ties at the
@@ -100,9 +112,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2410,6 +2424,290 @@ def run_stream_mi(torch, ops, run: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 3d: the serving path
+# ---------------------------------------------------------------------------
+
+SERVE_BUCKETS = (64, 128, 256)
+SERVE_REQUESTS = 48
+# requests draw their queries from the first SERVE_SPAN of each tenant's
+SERVE_SPAN = 1_024
+SERVE_MAX = 256
+SERVE_SEED = 20
+# recall floors per (tenant, quant) of the requests at budget 1.0:
+# measured on an H100 (PERF.md) minus 0.05
+SERVE_RECALL_FLOORS = {("sift", "off"): 0.937, ("sift", "sq8"): 0.912,
+                       ("laion", "off"): 0.025, ("laion", "sq8"): 0.018}
+# the kernels each tenant's path (warmup and serving) must launch: the
+# f32 probes (#3); under sq8 the int8 parents (#6), the int8 probes (#7′)
+# and the LSH cap estimate (#8)
+SERVE_KERNELS = ("gather_sq_dists", "pairwise_sq_dists_int8",
+                 "gather_bounds_int8", "pairwise_hamming")
+SERVE_FIELDS = ("n_dist", "n_iters")
+
+
+def add_launches(total: dict, more: dict) -> None:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+
+
+def serve_requests(data: dict) -> list:
+    """SERVE_REQUESTS requests from a fixed seed: tenants alternate, the
+    quants alternate in pairs within a tenant (so sq8 waves meet a carry
+    window of int8 codes), sizes 1..SERVE_MAX from the first SERVE_SPAN
+    queries; a quarter at recall budget 0.5, four left to the planner.
+    Returns (request, first query index) pairs."""
+    from repro_torch.serve import JoinRequest
+    rng = np.random.default_rng(SERVE_SEED)
+    out = []
+    for uid in range(SERVE_REQUESTS):
+        name = ("sift", "laion")[uid % 2]
+        ds, theta = data[name]
+        n = int(rng.integers(1, SERVE_MAX + 1))
+        lo = int(rng.integers(0, SERVE_SPAN - n + 1))
+        r = JoinRequest(uid=uid, tenant=name, X=ds.X[lo:lo + n], theta=theta,
+                        method="es_sws", quant=("off", "sq8")[(uid // 4) % 2])
+        if uid % 4 == 3:
+            r.recall_budget = 0.5
+        if uid % 24 in (5, 10):               # two a tenant
+            r.method = r.quant = None
+        out.append((r, lo))
+    return out
+
+
+def run_serve(torch, ops, run: dict) -> dict:
+    """Phase 3d: ``JoinService`` at full width on two tenants — ``sift``,
+    the main engine's 1M x 128 card tensor (no copy) with phase 3b's G_Y
+    installed, and ``laion``, the laion-like data of phase 5, whose G_Y
+    its first warmup builds. Warm each at its θ (es_sws; off and sq8),
+    serve SERVE_REQUESTS requests plus two bad ones (a wave off the ladder,
+    the wrong width: rejected and counted), then hold the served results
+    to a direct replay (``reset_stream``, ``submit(X, svc.plan(req))`` in
+    dispatch order): the same pairs, ``qid_offset``, ``n_dist`` and
+    ``n_iters``; every pair sound in float64; recall per tenant and quant
+    at budget 1.0 against the exact NLJ; the kernel-build count flat from
+    warmup to the end of serving; ``unload("laion")`` freeing its G_Y.
+    Then the planner on the main engine and ``launch.serve_join --plan
+    auto`` as a subprocess. Returns the tenants' launches (warmup and
+    serving)."""
+    from repro_torch.core import JoinConfig, exact_join_pairs
+    from repro_torch.configs.vectorjoin import EngineSpec
+    from repro_torch.data.vectors import table1_dataset, thresholds
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs.metrics import Metrics
+    from repro_torch.serve import JoinRequest, JoinService, ServiceConfig
+    main_eng, sift = run["eng"], run["ds"]
+    t0 = time.perf_counter()
+    laion = table1_dataset("laion-like", n_data=OOD_N_DATA,
+                           n_query=OOD_N_QUERY, seed=0)
+    data = {"sift": (sift, run["theta"]),
+            "laion": (laion, float(thresholds(laion, 7)[2]))}
+    log(f"[serve] laion-like data {time.perf_counter() - t0:.1f}s; θ sift "
+        f"{data['sift'][1]:.6f} laion {data['laion'][1]:.6f}")
+
+    svc = JoinService(ServiceConfig(buckets=SERVE_BUCKETS), metrics=Metrics())
+    svc.load("sift", main_eng.Y, engine_kw=dict(device=DEV),
+             default=dataclasses.replace(JoinConfig(), method="es_sws",
+                                         theta=run["theta"]))
+    svc.engine("sift").adopt(index_y=main_eng.index_y())
+    svc.load("laion", laion.Y, build_kw=EngineSpec().build_kw(),
+             engine_kw=dict(device=DEV),
+             default=dataclasses.replace(JoinConfig(), method="es_sws",
+                                         theta=data["laion"][1]))
+    engs = {n: svc.engine(n) for n in data}
+    if engs["sift"].Y.data_ptr() != main_eng.Y.data_ptr():
+        raise AssertionError("serve: the sift tenant copied the main Y")
+    launches = {n: {} for n in data}
+    warm_s = {}
+    for name, (_, theta) in data.items():
+        eng = engs[name]
+        bs0 = eng.build_seconds
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        n_warm = svc.warmup(name, thetas=[theta], quants=("off", "sq8"))
+        torch.cuda.synchronize()
+        warm_s[name] = time.perf_counter() - t0
+        add_launches(launches[name], ops.launch_counts())
+        log(f"[serve/{name}] warmup: {n_warm} joins in {warm_s[name]:.2f}s "
+            f"(builds {eng.build_seconds - bs0:.2f}s: {eng.build_counts}); "
+            f"band cap estimates {eng._cap_estimates}; launches "
+            f"{launched(launches[name])}")
+    if engs["sift"].build_counts["index_y"] != 0:
+        raise AssertionError("serve: the sift tenant built its own G_Y")
+    if engs["laion"].build_counts["index_y"] != 1:
+        raise AssertionError("serve: the laion warmup did not build G_Y")
+    c_warm = obs_metrics.compile_count()
+
+    serve_tenant = svc._serve_tenant
+
+    def counted(tenant, items):
+        ops.reset_launch_counts()
+        out = serve_tenant(tenant, items)
+        torch.cuda.synchronize()
+        add_launches(launches[tenant], ops.launch_counts())
+        return out
+    svc._serve_tenant = counted
+    reqs = serve_requests(data)
+    for r, _ in reqs:
+        if not svc.submit(r):
+            raise AssertionError(f"serve: request {r.uid} was rejected: "
+                                 f"{svc.failed.get(r.uid)}")
+    bad = [JoinRequest(uid=SERVE_REQUESTS, tenant="sift", X=sift.X[:100],
+                       theta=run["theta"], wave=100),
+           JoinRequest(uid=SERVE_REQUESTS + 1, tenant="laion",
+                       X=sift.X[:8], theta=data["laion"][1])]
+    for r in bad:
+        if svc.submit(r) is not False:
+            raise AssertionError(f"serve: bad request {r.uid} admitted")
+    t0 = time.perf_counter()
+    done = svc.run()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    svc._serve_tenant = serve_tenant
+    c_end = obs_metrics.compile_count()
+    if c_end != c_warm:
+        raise AssertionError(f"serve: {c_end - c_warm} kernel builds after "
+                             f"warmup")
+    if (svc.stats["rejected"] != len(bad)
+            or any(done[r.uid].ok for r in bad)
+            or not all(done[r.uid].ok for r, _ in reqs)):
+        raise AssertionError(f"serve: rejections {dict(svc.stats)} "
+                             f"{svc.failed}")
+    n_q = sum(len(r.X) for r, _ in reqs)
+    h = svc.metrics.get("serve_join.admission_seconds")
+    occ = svc.metrics.get("serve_join.occupancy")
+    log(f"[serve] {len(reqs)} requests ({n_q} queries) in {serve_s:.2f}s "
+        f"({n_q / serve_s:.1f} queries/s); admission latency mean "
+        f"{h.sum / h.count * 1e3:.2f} ms; occupancy mean "
+        f"{occ.sum / occ.count:.4f}; rejected {svc.stats['rejected']} "
+        f"({'; '.join(svc.failed.values())}); kernel builds: "
+        f"{c_warm} at the end of warmup, {c_end} after serving (flat)")
+
+    # the direct replay: the same plans, submitted in dispatch order
+    plans = {r.uid: svc.plan(r) for r, _ in reqs}
+    t0 = time.perf_counter()
+    for name, eng in engs.items():
+        eng.reset_stream()
+        for r, _ in reqs:
+            if r.tenant != name:
+                continue
+            off = eng.n_submitted
+            direct = eng.submit(r.X, plans[r.uid])
+            sj = done[r.uid]
+            n_data = eng.Y.shape[0]
+            if not (off == sj.qid_offset
+                    and torch.equal(card_keys(torch, direct.pairs, n_data),
+                                    card_keys(torch, sj.pairs, n_data))
+                    and all(getattr(direct.stats, f) == getattr(sj.stats, f)
+                            for f in SERVE_FIELDS)):
+                raise AssertionError(f"serve/{name}: request {r.uid} differs "
+                                     f"from its direct replay")
+    torch.cuda.synchronize()
+    log(f"[serve] direct replay in {time.perf_counter() - t0:.2f}s: every "
+        f"request's pairs, qid_offset, {', '.join(SERVE_FIELDS)} equal")
+
+    # soundness, and recall per tenant and quant at budget 1.0
+    recs = {}
+    for name, (ds, theta) in data.items():
+        eng = engs[name]
+        n_data = eng.Y.shape[0]
+        Xt = torch.as_tensor(ds.X[:SERVE_SPAN], device=DEV)
+        if name == "sift":
+            truth = run["truth_keys"]
+            truth = truth[truth < SERVE_SPAN * n_data]
+        else:
+            t0 = time.perf_counter()
+            truth = card_keys(torch, exact_join_pairs(Xt, eng.Y, theta),
+                              n_data)
+            log(f"[serve/laion] card NLJ of the first {SERVE_SPAN} queries: "
+                f"{truth.numel()} pairs ({time.perf_counter() - t0:.2f}s)")
+        band = 0
+        tally = {}
+        for r, lo in reqs:
+            if r.tenant != name:
+                continue
+            sj = done[r.uid]
+            pairs = sj.pairs.copy()
+            pairs[:, 0] += lo - sj.qid_offset       # the dataset's query ids
+            band += check_sound(torch, Xt, eng.Y, pairs, theta)
+            if r.recall_budget < 1.0:
+                continue
+            t = truth[(truth >= lo * n_data) & (truth < (lo + len(r.X))
+                                                * n_data)]
+            hit = int(torch.isin(card_keys(torch, pairs, n_data), t).sum())
+            quant = plans[r.uid].quant
+            hits, tot = tally.get(quant, (0, 0))
+            tally[quant] = (hits + hit, tot + t.numel())
+        for quant, (hit, tot) in sorted(tally.items()):
+            recs[(name, quant)] = hit / max(tot, 1)
+        log(f"[serve/{name}] sound (0 unsound; boundary band {band}); "
+            f"recall at budget 1.0 " + " ".join(
+                f"{q} {recs[(name, q)]:.6f} ({tally[q][1]} truth pairs)"
+                for q in sorted(tally)))
+    for key, floor in SERVE_RECALL_FLOORS.items():
+        if recs[key] < floor:
+            raise AssertionError(f"serve/{key}: recall {recs[key]} below "
+                                 f"the floor {floor}")
+
+    # unload the tenant that built its own G_Y: its memory comes back
+    iy = engs["laion"]._index_y
+    gy_bytes = sum(t.untyped_storage().nbytes()
+                   for t in (iy.vecs, iy.nbrs, iy.start, iy.mean_nbr_dist)
+                   if t.data_ptr() != engs["laion"].Y.data_ptr())
+    del iy
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    if not svc.unload("laion"):
+        raise AssertionError("serve: unload('laion') found no tenant")
+    torch.cuda.synchronize()
+    freed = before - torch.cuda.memory_allocated()
+    log(f"[serve/laion] unload freed {freed / 2**20:.1f} MiB (its G_Y "
+        f"beyond Y: {gy_bytes / 2**20:.1f} MiB); tenants {svc.tenants}")
+    if freed < gy_bytes:
+        raise AssertionError(f"serve: unload freed {freed} bytes, less than "
+                             f"its G_Y's {gy_bytes}")
+    for name in data:
+        for k in SERVE_KERNELS:
+            if launches[name].get(k, 0) == 0:
+                raise AssertionError(f"serve/{name} path never launched {k}")
+        log(f"[serve/{name}] launches (warmup and serving) "
+            f"{launched(launches[name])}")
+
+    # the planner on the main engine: it samples the 1M-row table
+    t0 = time.perf_counter()
+    cfg = main_eng.plan_config(sift.X[:2_000], main_eng.default)
+    plan = main_eng.planner.plan(
+        sift.X[:2_000], theta=run["theta"],
+        pool_cap=int(main_eng.default.traversal.pool_cap),
+        dim=int(main_eng.Y.shape[1]))
+    log(f"[serve] plan_config on the main engine ({time.perf_counter() - t0:.2f}"
+        f"s): method={cfg.method} quant={cfg.quant} wave={cfg.wave_size} "
+        f"rerank_cap={plan.rerank_cap} merge_cap={plan.merge_cap} "
+        f"predicted_pairs={plan.predicted_join_size:.0f} "
+        f"predicted_seconds={plan.predicted_seconds} source={plan.source}")
+
+    # the launcher, at its default sizes, in a process of its own
+    with tempfile.TemporaryDirectory() as tmp:
+        trace, mjson = Path(tmp) / "trace.json", Path(tmp) / "metrics.json"
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve_join", "--plan",
+             "auto", "--trace", str(trace), "--metrics-json", str(mjson)],
+            capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=str(SRC)))
+        for line in out.stdout.splitlines():
+            log(f"[serve/cli] {line}")
+        if out.returncode != 0:
+            raise AssertionError(f"launch.serve_join exited "
+                                 f"{out.returncode}:\n{out.stderr[-4000:]}")
+        snap = json.loads(mjson.read_text())
+        n_events = len(json.loads(trace.read_text())["traceEvents"])
+        log(f"[serve/cli] exit 0 in {time.perf_counter() - t0:.1f}s; trace "
+            f"{n_events} events; kernels.builds.serve_delta "
+            f"{snap['counters']['kernels.builds.serve_delta']}")
+    return {f"serve/{n}": launches[n] for n in data}
+
+
 def check_launched(run: dict, kernels) -> None:
     """Every kernel of the path was launched during its join (build
     included)."""
@@ -2556,6 +2854,7 @@ def main() -> int:
     nlj_check = check_nlj_count_main(torch, ops, main_run)
     search = run_search(torch, ops, main_run)
     stream = run_stream(torch, ops, main_run)
+    serve = run_serve(torch, ops, main_run)
     del main_run["eng"]                       # free the 1M-row indexes
 
     sq8 = EngineSpec(quant="sq8", quant_build="sq8")
@@ -2644,6 +2943,7 @@ def main() -> int:
     paths.update({m: r["launches"] for m, r in search.items()})
     paths["nlj_check"] = nlj_check
     paths.update(stream)
+    paths.update(serve)
     paths["stream/es_mi_adapt/sq8"] = stream_mi
     # the sketch/PDX paths: their merged-index join plus their NLJ
     for r in (sk8, pd8, skpd):

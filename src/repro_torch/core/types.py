@@ -233,6 +233,23 @@ class JoinStats:
             elif v:
                 metrics.counter(name).inc(v)
 
+    @classmethod
+    def from_metrics(cls, metrics, prefix: str = "join") -> "JoinStats":
+        """Materialize the registry's cumulative ``{prefix}.*`` values back
+        into a ``JoinStats`` (the engine-lifetime aggregate)."""
+        kw: dict[str, Any] = {}
+        for f in dataclasses.fields(cls):
+            name = f"{prefix}.{f.name}"
+            if f.name in cls._MERGE_CAT:
+                vals = []
+                while metrics.get(f"{name}.shard{len(vals)}") is not None:
+                    vals.append(int(metrics.value(f"{name}.shard{len(vals)}")))
+                kw[f.name] = tuple(vals)
+            else:
+                v = metrics.value(name, 0)
+                kw[f.name] = float(v) if f.type == "float" else int(v)
+        return cls(**kw)
+
 
 @dataclasses.dataclass
 class JoinResult:

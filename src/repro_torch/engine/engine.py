@@ -19,6 +19,12 @@ query in the carry window); ``submit_many`` pipelines consecutive search
 batches across their boundaries. Sharding raises ``NotImplementedError``
 naming the ROADMAP slice that brings it.
 
+``plan_config`` and ``plan_request`` pick operating points through the
+engine's ``plan.JoinPlanner`` (the LSH estimate and the cost table of
+finished joins); ``metrics_snapshot`` and ``cumulative_stats`` read the
+metrics registry every join is published into; ``drop_caches`` releases
+the index artifacts and tier stores (a serving tenant's unload).
+
 Each tier store of an index artifact (int8, sketch, PDX) is built once
 (``tier_store``, counted in ``build_counts["quant"]`` / ``["sketch"]`` /
 ``["pdx"]``) and shared by the artifact's cascade-driven build and by
@@ -41,14 +47,19 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.types import (QUANT_FILTER_MODES, GraphIndex,
-                                    JoinConfig, JoinResult, JoinStats,
-                                    early_exit_enabled, resolve_device)
+from repro_torch.core.types import (QUANT_FILTER_MODES, QUANT_MODES,
+                                    GraphIndex, JoinConfig, JoinResult,
+                                    JoinStats, early_exit_enabled,
+                                    resolve_device)
 from repro_torch.engine import waves as W
 from repro_torch.kernels import ops
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.plan.cost import CostTable
+
+# what the engine (and the launchers) say to n_shards != 1
+SHARDS_UNSUPPORTED = ("sharded execution (n_shards != 1) arrives with the "
+                      "multi-GPU slice (ROADMAP Queue A slice 13)")
 
 _MI_METHODS = ("es_mi", "es_mi_adapt")
 _SEARCH_METHODS = ("index", "es", "es_hws", "es_sws")
@@ -135,9 +146,7 @@ class JoinEngine:
                  carry_window: int = 4096, max_cached_indexes: int = 4,
                  metrics: obs_metrics.Metrics | None = None, device=None):
         if n_shards != 1:
-            raise NotImplementedError(
-                "sharded execution (n_shards != 1) arrives with the "
-                "multi-GPU slice (ROADMAP Queue A slice 13)")
+            raise NotImplementedError(SHARDS_UNSUPPORTED)
         self.device = resolve_device(device)
         if isinstance(Y, torch.Tensor):
             self.Y = Y.to(device=self.device, dtype=torch.float32).contiguous()
@@ -176,8 +185,9 @@ class JoinEngine:
 
         # the LSH estimator over Y (built on first use) and its band-cap
         # estimates, sticky per (θ, quant, pool cap); the cost table of
-        # finished joins per (method, quant)
+        # finished joins per (method, quant); the planner over both
         self._estimator = None
+        self._planner = None
         self._cap_estimates: dict[tuple, int] = {}
         self.cost_table = CostTable()
 
@@ -285,6 +295,32 @@ class JoinEngine:
                              for n in names])
         stats.quant_bytes += casc.nbytes
         return casc
+
+    def warm_quant(self, X, cfg: JoinConfig | None = None, *,
+                   method: str | None = None) -> None:
+        """Build the tier stores a join of ``X`` would use (nothing unless
+        the resolved config names a filtering quant mode): over Y for the
+        NLJ, over the merged index of ``X`` for the MI methods, over G_Y
+        for the search path."""
+        cfg = self._resolve(cfg, method, None)
+        if cfg.quant not in QUANT_FILTER_MODES:
+            return
+        if cfg.method == "nlj":
+            key, vecs = ("y",), self.Y
+        elif cfg.method in _MI_METHODS:
+            key, vecs = ("merged", _fingerprint(X)), self.merged_index(X).vecs
+        else:
+            key, vecs = ("index_y",), self.index_y().vecs
+        self.cascade_for(key, vecs, cfg, JoinStats())
+
+    def drop_caches(self) -> None:
+        """Release every cached index artifact and tier store (the tenant
+        unload path of ``serve.JoinService``). ``Y`` and the build
+        counters stay; the next join rebuilds on demand."""
+        self._index_y = None
+        self._index_x.clear()
+        self._merged.clear()
+        self._tier_stores.clear()
 
     def adopt(self, *, index_y: GraphIndex | None = None, X=None,
               index_x: GraphIndex | None = None,
@@ -625,6 +661,16 @@ class JoinEngine:
             self._estimator = LshEstimator(self.Y)
         return self._estimator
 
+    @property
+    def planner(self):
+        """The engine's sticky ``plan.JoinPlanner`` (estimator + cost
+        table + this engine's metrics registry)."""
+        if self._planner is None:
+            from repro_torch.plan import JoinPlanner
+            self._planner = JoinPlanner(self.estimator, self.cost_table,
+                                        metrics=self.metrics)
+        return self._planner
+
     def estimate_rerank_cap(self, X_batch, cfg: JoinConfig) -> int | None:
         """LSH-sample estimate of the initial band-compaction capacity
         under a filtering quant mode (None otherwise): the covering power
@@ -655,6 +701,57 @@ class JoinEngine:
         return W.RerankCap(cfg.traversal,
                            init_cap=self.estimate_rerank_cap(_host(X_batch),
                                                              cfg))
+
+    # -- planning (plan.JoinPlanner) -----------------------------------------
+
+    def plan_config(self, X_batch, cfg: JoinConfig | None = None, *,
+                    method: str | None = None, theta: float | None = None,
+                    quant: str | None = None) -> JoinConfig:
+        """Plan one batch's operating point and return it as a concrete
+        ``JoinConfig`` (``--plan auto``). Explicit ``method``/``quant`` pin
+        those knobs; otherwise the planner picks among every method and
+        quant mode by calibrated cost (the selectivity heuristic before
+        calibration). The wave size snaps to the planner's bucket ladder
+        (``planner.buckets``); the cap seeds flow through the sticky
+        estimates at join time. A planned config joins through the same
+        overflow-checked drivers as a hand-tuned one and emits the same
+        pairs."""
+        base = self._resolve(cfg, method, theta)
+        if quant is not None:
+            base = dataclasses.replace(base, quant=quant)
+        methods = ("nlj",) + _SEARCH_METHODS + _MI_METHODS
+        default_method = base.method if base.method != "nlj" else None
+        p = self.planner.plan(
+            _host(X_batch), theta=float(base.theta),
+            pool_cap=int(base.traversal.pool_cap),
+            method=method, quant=quant, methods=methods,
+            quants=QUANT_MODES if quant is None else (quant,),
+            default_method=default_method, default_quant=base.quant,
+            n_shards=self.n_shards, dim=int(self.Y.shape[1]))
+        out = dataclasses.replace(base, method=p.method, quant=p.quant,
+                                  wave_size=p.wave_size)
+        if (p.hybrid_patience is not None
+                and p.method == "es_mi_adapt"
+                and p.hybrid_patience != out.traversal.hybrid_patience):
+            out = dataclasses.replace(out, traversal=dataclasses.replace(
+                out.traversal, hybrid_patience=p.hybrid_patience))
+        return out
+
+    def plan_request(self, n_queries: int, *, theta: float,
+                     method: str | None = None,
+                     quant: str | None = None) -> tuple[str, str]:
+        """Per-request (method, quant) for the serving admission path,
+        from the cost table alone: planning a request never samples the
+        estimator or touches the device. Before any calibration, the
+        servable default (es_sws) and the engine's default quant."""
+        servable = ("nlj",) + _SEARCH_METHODS
+        methods = (method,) if method else servable
+        quants = (quant,) if quant else (self.default.quant,)
+        choice = self.planner.choose(int(n_queries), methods=methods,
+                                     quants=quants)
+        if choice is not None:
+            return choice[0], choice[1]
+        return (method or "es_sws"), (quant or self.default.quant)
 
     # -- the carry window -----------------------------------------------------
 
@@ -761,6 +858,22 @@ class JoinEngine:
         self.metrics.counter("engine.pairs").inc(len(result.pairs))
         self._observe_cost(cfg, int(X.shape[0]), result.stats)
         return result
+
+    def metrics_snapshot(self) -> dict:
+        """Plain-dict dump of the engine's metrics registry (cumulative
+        ``join.*`` stats, ``engine.cache.*`` hits and misses, serve
+        counters, the ambient wave histograms on the default registry),
+        plus the planner's cost table under ``"cost_table"``."""
+        snap = self.metrics.snapshot()
+        ct = self.cost_table.snapshot()
+        if ct:
+            snap["cost_table"] = ct
+        return snap
+
+    def cumulative_stats(self) -> JoinStats:
+        """Engine-lifetime ``JoinStats``, materialized back from the
+        metrics registry every join was published into."""
+        return JoinStats.from_metrics(self.metrics)
 
     def _observe_cost(self, cfg: JoinConfig, n_queries: int,
                       stats: JoinStats) -> None:

@@ -427,6 +427,10 @@ def launch_mi_wave(merged: GraphIndex, xw: torch.Tensor, qids: np.ndarray,
     if sync:
         _sync(r.pool_idx)
         stats.expand_seconds += time.perf_counter() - t0
+    else:
+        # the loops are host-stepped: the host waited on the device inside
+        # them (the reference, dispatching them whole, waits at the fetch)
+        stats.wait_seconds += time.perf_counter() - t0
 
     ee = early_exit_enabled(tcfg)
     keep, dist2, n_amb, seed_ids, seed_valid, nds, ndt = _finalize_wave(
@@ -569,6 +573,9 @@ def launch_search_wave(index_y: GraphIndex, xw: torch.Tensor,
     if sync:
         _sync(r.pool_idx)
         stats.expand_seconds += time.perf_counter() - t0
+    else:
+        # host-stepped loops: see launch_mi_wave
+        stats.wait_seconds += time.perf_counter() - t0
 
     seed_mode = cfg.method if collect_seeds else "none"
     ee = early_exit_enabled(tcfg)

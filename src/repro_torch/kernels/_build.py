@@ -23,6 +23,8 @@ import threading
 import time
 from pathlib import Path
 
+from repro_torch.obs import metrics as obs_metrics
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "distance.cu", CSRC / "int8.cu", CSRC / "topk_merge.cu",
            CSRC / "bits.cu", CSRC / "pdx.cu", CSRC / "nlj.cu")
@@ -128,6 +130,7 @@ def build() -> Path:
         os.replace(tmp, out)   # atomic: a concurrent build never sees a torn file
     (BUILD_DIR / f"{out.stem}.log").write_text(build_log)
     build_seconds = time.perf_counter() - t0
+    obs_metrics.note_kernel_build()
     return out
 
 

@@ -1,6 +1,6 @@
 """Vector-join launcher (port of ``repro.launch.join``, the single-device
-subset: every method and every quant mode, streaming and sweeps; no
-shards, plans, traces or metric dumps).
+subset: every method and every quant mode, streaming, sweeps, planned
+operating points, traces and metric dumps; no shards).
 
 Runs one of the paper's methods (the exact ``nlj``; the search path
 ``index``, ``es``, ``es_hws``, ``es_sws``; the merged-index ``es_mi``,
@@ -8,7 +8,10 @@ Runs one of the paper's methods (the exact ``nlj``; the search path
 ``JoinEngine`` on the CUDA card and checks the result against the exact
 NLJ. ``--stream B`` feeds the queries as streaming batches of B through
 ``engine.submit`` (carrying the work-sharing cache between batches);
-``--sweep`` reruns every Table-2 threshold against the same cached index:
+``--sweep`` reruns every Table-2 threshold against the same cached index;
+``--plan auto`` lets the engine's planner pick the operating point;
+``--trace`` writes a Perfetto trace and ``--metrics-dump`` prints the
+engine's registry in the Prometheus text format:
 
   PYTHONPATH=src python -m repro_torch.launch.join --method es_mi_adapt \\
       --regime ood --n-data 20000 --n-query 500 --theta-q 2 --quant pdx8
@@ -30,6 +33,7 @@ from repro_torch.core import exact_join_pairs
 from repro_torch.core.types import (METHODS, QUANT_MODES, pair_keys,
                                     resolve_device)
 from repro_torch.data.vectors import make_dataset, thresholds
+from repro_torch.obs import trace as obs_trace
 
 
 def main(argv=None) -> int:
@@ -65,6 +69,13 @@ def main(argv=None) -> int:
     ap.add_argument("--no-overlap", action="store_true",
                     help="run the strictly sequential wave loop (pair sets "
                          "are identical either way)")
+    ap.add_argument("--plan", choices=("manual", "auto"), default="manual",
+                    help="auto: let the engine's JoinPlanner pick the "
+                         "operating point (method, quant, wave bucket, "
+                         "cap seeds) from its LSH selectivity estimate "
+                         "and calibrated cost table; --method/--quant "
+                         "become defaults, not pins (the pairs are those "
+                         "of the hand-tuned knobs)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--engine-spec", default="default",
                     help="EngineSpec preset (default|ci|serving_sketch8)")
@@ -74,6 +85,15 @@ def main(argv=None) -> int:
                     help="rerun all 7 thresholds on the cached index")
     ap.add_argument("--no-truth", action="store_true",
                     help="skip the exact NLJ ground truth (big inputs)")
+    ap.add_argument("--trace", metavar="OUT.json", default=None,
+                    help="record per-wave spans and export a Chrome/"
+                         "Perfetto trace (load at ui.perfetto.dev). The "
+                         "REPRO_TRACE env var also enables tracing: 1/on "
+                         "traces to trace.json, any other value is the "
+                         "output path")
+    ap.add_argument("--metrics-dump", action="store_true",
+                    help="print the engine's metrics registry in "
+                         "Prometheus exposition format after the run")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
@@ -93,8 +113,30 @@ def main(argv=None) -> int:
                               overlap=not args.no_overlap)
     eng = make_engine(ds.Y, args.engine_spec, default=cfg, device=device,
                       quant_build=quant_build)
+    if args.plan == "auto":
+        # the planner picks method/quant/wave from the LSH estimate (the
+        # cost table is empty on a cold launcher, so the selectivity
+        # heuristic decides); caps stay overflow-checked, so the pairs
+        # cannot change
+        cfg = eng.plan_config(ds.X, cfg)
+        quant = cfg.quant
+        # the sticky plan plan_config just made
+        plan = eng.planner.plan(
+            ds.X, theta=theta, pool_cap=int(cfg.traversal.pool_cap),
+            n_shards=eng.n_shards, dim=args.dim)
+        print(f"[join] plan auto: method={cfg.method} quant={cfg.quant} "
+              f"wave={cfg.wave_size} rerank_cap={plan.rerank_cap} "
+              f"merge_cap={plan.merge_cap} mesh={plan.mesh_kind} "
+              f"predicted_pairs={plan.predicted_join_size:.0f} "
+              f"source={plan.source}")
+
+    trace_path = args.trace or (
+        (obs_trace.env_trace_path() or "trace.json")
+        if obs_trace.env_trace_enabled() else None)
+    if trace_path:
+        tracer = obs_trace.enable()
     print(f"[join] {args.regime} |X|={args.n_query} |Y|={args.n_data} "
-          f"dim={args.dim} θ={theta:.4f} method={args.method} "
+          f"dim={args.dim} θ={theta:.4f} method={cfg.method} "
           f"device={device} quant={quant} quant_build={quant_build} "
           f"overlap={'off' if args.no_overlap else 'on'}")
 
@@ -131,6 +173,14 @@ def main(argv=None) -> int:
             print(f"[sweep] θ{i + 1}={th:.4f}: {len(r.pairs)} pairs in "
                   f"{time.perf_counter() - t0:.2f}s "
                   f"(builds={eng.n_index_builds})")
+
+    if trace_path:
+        obs_trace.disable()
+        tracer.export(trace_path)
+        print(f"[join] wrote {tracer.n_events} trace events to "
+              f"{trace_path} (load at ui.perfetto.dev)")
+    if args.metrics_dump:
+        print(eng.metrics.prometheus_text(), end="")
 
     if not args.no_truth:
         truth = exact_join_pairs(ds.X, eng.Y, theta)

@@ -29,7 +29,8 @@ import re
 import threading
 
 __all__ = ["Counter", "Gauge", "Histogram", "Metrics", "metrics",
-           "POW2_BUCKETS", "LATENCY_BUCKETS"]
+           "POW2_BUCKETS", "LATENCY_BUCKETS", "compile_count",
+           "enable_compile_counter"]
 
 # Fixed default bucket grids. Powers of two suit count-shaped
 # distributions (band occupancy, pairs per wave); the latency grid spans
@@ -225,3 +226,44 @@ def metrics() -> Metrics:
     the default backend of every ``JoinEngine``)."""
     return _DEFAULT
 
+
+
+# ---------------------------------------------------------------------------
+# kernel-build counter (the bucket-ladder steady-state guard)
+# ---------------------------------------------------------------------------
+
+# The port has no jit: what a first call compiles is the CUDA kernel
+# library (``kernels/_build.py`` running nvcc; loading a library already
+# built for the sources' hash is not a build). ``_build`` reports each
+# build here; it counts once the counter is enabled.
+_BUILD_COUNTER = "kernels.builds"
+_compile_counter_enabled = False
+
+
+def enable_compile_counter() -> None:
+    """Start counting kernel-library builds behind ``compile_count()``
+    (idempotent, process-global). ``JoinService`` enables it at
+    construction; tests may call it directly."""
+    global _compile_counter_enabled
+    _DEFAULT.counter(_BUILD_COUNTER,
+                     help="CUDA kernel library builds (nvcc runs)")
+    _compile_counter_enabled = True
+
+
+def note_kernel_build() -> None:
+    """Called by ``kernels._build`` after it compiled the library."""
+    if _compile_counter_enabled:
+        _DEFAULT.counter(_BUILD_COUNTER).inc()
+
+
+def compile_count() -> int:
+    """Kernel-library builds seen since ``enable_compile_counter()`` was
+    first called (0 before): the port's counterpart of the reference's
+    XLA compile count.
+
+    The library holds every kernel at every shape and is built at most
+    once a process (and not at all when a library for the sources' hash
+    is on disk), so once it is loaded this count is flat by construction:
+    the guard cannot see a shape the warmup missed, as the reference's
+    can. It shows only that serving built nothing."""
+    return int(_DEFAULT.value(_BUILD_COUNTER, 0))

@@ -26,6 +26,10 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.quant import sketch as SK
 
+# Merge-cap floor: the sharded drivers' cold-start merge capacity, so a
+# seeded cap is never below what an unseeded run would start with.
+MERGE_CAP_FLOOR = 32
+
 
 @dataclasses.dataclass(frozen=True)
 class BandEstimate:
@@ -53,12 +57,31 @@ class BandEstimate:
 
     HEADROOM = 1.25
 
+    @property
+    def selectivity(self) -> float:
+        denom = self.n_queries * self.n_data
+        return self.join_size / denom if denom > 0 else 0.0
+
     def rerank_cap(self, pool_cap: int) -> int:
         """Power-of-two band capacity covering the predicted max
         occupancy with headroom."""
         est = self.occ_max * self.HEADROOM
         return int(min(ops.next_pow2(max(int(np.ceil(est)), 16)),
                        pool_cap))
+
+    def merge_cap(self, limit: int, *, floor: int = MERGE_CAP_FLOOR,
+                  exact: bool = False) -> int:
+        """Power-of-two merged-pool capacity covering the predicted worst
+        per-shard occupancy with headroom, at most ``limit`` (the plan's
+        advisory seed). ``exact`` sizes it from the sampled true in-range
+        counts instead of the sketch-band superset."""
+        if exact:
+            occ = (max(self.shard_true_occ) if self.shard_true_occ
+                   else 0.0)
+        else:
+            occ = max(self.shard_occ) if self.shard_occ else self.occ_max
+        need = max(int(np.ceil(occ * self.HEADROOM)), floor)
+        return int(min(ops.next_pow2(need), max(limit, 1)))
 
 
 class LshEstimator:
@@ -95,10 +118,15 @@ class LshEstimator:
         self._rows = rows.float().cpu().numpy()
         self._scale = N / len(y_idx)
 
-    def estimate(self, X_batch, theta: float) -> BandEstimate:
+    def estimate(self, X_batch, theta: float, *,
+                 n_shards: int = 1) -> BandEstimate:
         """One (θ, X-batch) estimate: a query encode + Hamming/bound pass
         on the cached sample plus an exact numpy distance block on the
-        raw rows."""
+        raw rows. One shard only (the port's engine runs unsharded)."""
+        if n_shards != 1:
+            raise NotImplementedError(
+                "per-shard estimates (n_shards != 1) arrive with the "
+                "multi-GPU slice (ROADMAP Queue A slice 13)")
         if isinstance(X_batch, torch.Tensor):
             X_batch = X_batch.detach().cpu().numpy()
         X = np.asarray(X_batch, np.float32)

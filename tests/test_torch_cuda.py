@@ -1196,3 +1196,65 @@ def test_sketch_survivors_through_the_hamming_kernel(dev, d):
     assert got.dtype == bool and got.shape == (64, 2048)
     np.testing.assert_array_equal(got, want)
     assert 0 < got.mean() < 1
+
+
+def test_service_on_the_card_equals_its_direct_replay(dev):
+    """``JoinService`` with two tenants on the card (f32 and sq8 requests,
+    pinned, planner-routed and at a reduced recall budget, served through
+    ``submit_many``): each tenant's ``reset_stream`` and a direct
+    ``submit(X, svc.plan(req))`` per request in dispatch order give the
+    served pairs and counters; the kernel-build count stays flat after
+    warmup; warmup and serving launched #3, and under sq8 #6, #7′ and #8
+    (the LSH cap estimate, made once in warmup)."""
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs.metrics import Metrics
+    from repro_torch.serve import JoinRequest, JoinService, ServiceConfig
+
+    data = {"a": make_dataset("manifold", n_data=1500, n_query=96, dim=40,
+                              seed=3),
+            "b": make_dataset("clustered", n_data=1200, n_query=96, dim=40,
+                              seed=4)}
+    svc = JoinService(ServiceConfig(buckets=(16, 32)), metrics=Metrics())
+    thetas = {}
+    ops.reset_launch_counts()
+    for name, ds in data.items():
+        thetas[name] = float(thresholds(ds, 3)[1])
+        svc.load(name, torch.as_tensor(ds.Y, device=dev),
+                 build_kw=dict(k=24, degree=12),
+                 default=JoinConfig(method="es_sws"),
+                 engine_kw=dict(carry_window=64, device=dev))
+        svc.warmup(name, thetas=[thetas[name]], quants=("off", "sq8"))
+    c0 = obs_metrics.compile_count()
+    g = _rng("service")
+    reqs = []
+    for uid in range(16):
+        name = "ab"[uid % 2]
+        n = int(g.integers(1, 48))
+        lo = int(g.integers(0, 96 - n))
+        r = JoinRequest(uid=uid, tenant=name, X=data[name].X[lo:lo + n],
+                        theta=thetas[name], method="es_sws",
+                        quant=("off", "sq8")[(uid // 2) % 2])
+        if uid % 5 == 4:
+            r.method = r.quant = None
+        if uid % 4 == 3:
+            r.recall_budget = 0.5
+        reqs.append(r)
+        assert svc.submit(r)
+    done = svc.run()
+    counts = ops.launch_counts()
+    assert obs_metrics.compile_count() == c0
+    assert all(sj.ok for sj in done.values()) and len(done) == 16
+    for k in ("gather_sq_dists", "gather_bounds_int8",
+              "pairwise_sq_dists_int8", "pairwise_hamming"):
+        assert counts[k] > 0, k
+    for name in data:
+        eng = svc.engine(name)
+        eng.reset_stream()
+        for r in (r for r in reqs if r.tenant == name):
+            direct = eng.submit(r.X, svc.plan(r))
+            sj = done[r.uid]
+            np.testing.assert_array_equal(pair_keys(direct.pairs, 1500),
+                                          pair_keys(sj.pairs, 1500))
+            for f in ("n_dist", "n_iters", "n_rerank", "cache_hits",
+                      "cache_evictions", "cache_tombstones"):
+                assert getattr(direct.stats, f) == getattr(sj.stats, f), f

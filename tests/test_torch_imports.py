@@ -15,6 +15,8 @@ import repro_torch
 from repro_torch.configs.vectorjoin import make_engine
 from repro_torch.engine import JoinEngine
 from repro_torch.launch import join as launch_join
+from repro_torch.launch import serve_join as launch_serve_join
+from repro_torch.serve import JoinService
 
 ROOT = Path(__file__).resolve().parents[1]
 MODULES = sorted(m.name for m in pkgutil.walk_packages(
@@ -48,8 +50,9 @@ def test_every_module_imports_without_jax_or_repro():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
     assert "repro_torch.kernels.ops" in MODULES and len(MODULES) >= 20
     assert {"repro_torch.quant.sketch", "repro_torch.quant.pdx",
-            "repro_torch.quant.cascade",
-            "repro_torch.core.ordering"} <= set(MODULES)
+            "repro_torch.quant.cascade", "repro_torch.core.ordering",
+            "repro_torch.serve.join_service",
+            "repro_torch.plan.planner"} <= set(MODULES)
 
 
 @pytest.fixture
@@ -65,6 +68,15 @@ def test_entry_points_refuse_the_cpu_by_default(no_cuda):
         make_engine(Y, "ci")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_join.main(["--n-data", "50", "--n-query", "4", "--dim", "8"])
+    svc = JoinService()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        svc.load("t", Y)
+    assert svc.tenants == []
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_serve_join.main(["--n-data", "50", "--dim", "8",
+                                "--requests", "2", "--max-request", "4"])
+    assert svc.load("t", Y, engine_kw=dict(device="cpu")).Y.device.type \
+        == "cpu"
     eng = JoinEngine(Y, device="cpu")                 # named: allowed
     assert eng.Y.device.type == "cpu"
     assert not torch.backends.cuda.matmul.allow_tf32
