@@ -70,6 +70,22 @@ Phases (each raises on failure, so the script exits non-zero):
      freeing its G_Y, #3 (and under sq8 #6, #7′, #8) launched per tenant;
      then ``plan_config`` on the main engine and ``python -m
      repro_torch.launch.serve_join --plan auto`` in a process of its own;
+  3e. the sharded join on SHARDS logical shards of the card (a
+     ``DeviceMesh`` of ``cuda`` four times) over the main engine's card
+     tensor: es_mi_adapt in f32 on the first SHARD_CUT queries (the
+     per-shard builds; overlap on = off; sound; recall against the exact
+     NLJ of those queries at its floor, the unsharded join's beside it),
+     sq8 and pdx8 (per-shard stores, #7′, #11′) and the ring label
+     (= the all_gather join's pairs) on the same queries, the
+     vector-plan mesh NLJ (= the exact NLJ, exactly), a hybrid 2 data x
+     4 model plan on ci_hd-shaped data (= the exact NLJ but for pairs
+     within 16 ulps of θ; psum traffic metered), sharded ``submit``
+     (nlj = the exact NLJ; es_mi = each batch's join shifted by its
+     offset), a 4-shard
+     ``JoinService`` tenant (nlj requests = their direct replays; an
+     es_sws request rejected), ``vector_join`` with a prebuilt merged
+     index (= the engine's join), and ``launch.join --shards 4`` in a
+     process of its own (``--sharded-only`` runs this phase alone);
   4. the sq8 main path on the same data: ``make_engine(Y,
      EngineSpec(quant="sq8", quant_build="sq8")).join`` — the cascade-driven
      build (its kNN lists must equal the f32 build's but for ties at the
@@ -135,9 +151,10 @@ MAIN_N_DATA = 1_000_000
 MAIN_N_QUERY = 10_000
 # recall of the main path measured on an H100 (PERF.md) minus 0.05
 MAIN_RECALL_FLOOR = 0.937
-# the search path (phase 3b): es and index run on the first SEARCH_CUT
-# queries (the smoke's time limit; at full depth they took 21-23 s each
-# on an H100, PERF.md); recall floors measured there minus 0.05
+# the search path (phase 3b): es_sws, es and index run on the first
+# SEARCH_CUT queries (the smoke's time limit: at full depth es and index
+# took 21-23 s each on an H100 and es_sws 79-118 s, the last in a smoke
+# of 1,166.8 s, PERF.md); recall floors measured there minus 0.05
 SEARCH_CUT = 2_000
 # es_sws's overlap on/off identity, es_hws and es_sws under sq8 (phase
 # 3b) run on the first MST_CUT queries, over their own G_X, built by the
@@ -1778,7 +1795,7 @@ def run_join(torch, ops, name: str, n_data: int, n_query: int,
         f"(identical pairs) ms_per_iter on {ms_iter:.3f} off "
         f"{seq_s / max(seq.stats.n_iters, 1) * 1e3:.3f}")
     merged = eng.merged_index(ds.X)
-    return dict(recall=rec, launches=launches, n_ood=st.n_ood,
+    return dict(recall=rec, launches=launches, n_ood=st.n_ood, pairs=pairs,
                 n_dist=st.n_dist, n_iters=st.n_iters,
                 build_s=eng.build_seconds, join_s=join_s,
                 eng=eng, X=ds.X, cfg=seq_cfg, name=tag, ds=ds, truth=truth,
@@ -2038,7 +2055,7 @@ CACHING_KERNELS = ("gather_sq_dists", "rowwise_sq_dists")
 SEARCH_SQ8_KERNELS = ("gather_bounds_int8", "gather_sq_dists",
                       "rowwise_sq_dists")
 # (method, kernels its join must launch, queries it runs on)
-SEARCH_RUNS = (("es_sws", SEARCH_KERNELS, MAIN_N_QUERY),
+SEARCH_RUNS = (("es_sws", SEARCH_KERNELS, SEARCH_CUT),
                ("es", ("gather_sq_dists",), SEARCH_CUT),
                ("index", ("gather_sq_dists",), SEARCH_CUT))
 CACHE_FIELDS = ("cache_hits", "cache_misses", "cache_evictions",
@@ -2116,8 +2133,8 @@ def search_join(torch, ops, run: dict, cfg, kernels, floor: float,
 
 
 def run_search(torch, ops, run: dict) -> dict:
-    """Phase 3b: es_sws on all queries (building G_Y and their G_X), es
-    and index on the first SEARCH_CUT, and on the first MST_CUT (one more
+    """Phase 3b: es_sws (building G_Y and their G_X), es and index on
+    the first SEARCH_CUT queries, and on the first MST_CUT (one more
     G_X): es_sws with overlap on and off (the same pairs and cache
     counters), es_hws, and es_sws under sq8 on the same G_Y (an int8 store
     over its rows, no second graph build); all on the f32 main engine, its
@@ -2708,6 +2725,328 @@ def run_serve(torch, ops, run: dict) -> dict:
     return {f"serve/{n}": launches[n] for n in data}
 
 
+# ---------------------------------------------------------------------------
+# phase 3e: the sharded join
+# ---------------------------------------------------------------------------
+
+# every sharded run puts SHARDS logical shards on the one card and joins
+# the first SHARD_CUT queries
+SHARDS = 4
+SHARD_CUT = 2_000
+# recall floors of the sharded joins: f32 measured on an H100 (PERF.md)
+# minus 0.05; sq8 and pdx8 the PERF.md §2 floors of those modes
+SHARD_RECALL_FLOORS = {"shard/f32": 0.948, "shard/sq8": 0.912,
+                       "shard/pdx8": 0.920}
+# the hybrid plan's data: SCALES["ci_hd"]'s shape in benchmarks/common.py
+HYBRID_SHAPE = dict(n_data=4_000, n_query=128, dim=256)
+HYBRID_SHARDS = 8
+SHARD_STREAM_BATCH = 500
+SHARD_SERVE_REQUESTS = 8
+# the kernels each sharded path must launch: the per-shard f32 builds (#1,
+# #2, #4) and probes (#3); the int8 probes (#7′) and the LSH merge-cap
+# estimate (#8) under sq8; the PDX band re-rank (#11′) under pdx8; the
+# vector-plan NLJ's #1
+SHARD_KERNELS = {
+    "shard/f32": ("pairwise_sq_dists", "rowwise_sq_dists",
+                  "gather_sq_dists", "topk_merge", "pairwise_hamming"),
+    "shard/sq8": ("gather_bounds_int8", "gather_sq_dists"),
+    "shard/pdx8": ("gather_bounds_int8", "pdx_compact_gather"),
+    "shard/nlj": ("pairwise_sq_dists",),
+    "shard/stream": ("pairwise_sq_dists", "gather_sq_dists", "topk_merge"),
+    "shard/serve": ("pairwise_sq_dists",),
+}
+
+
+def shard_step(torch, ops, name: str, fn, launches: dict):
+    """Run one step of phase 3e with the launch counts reset just before
+    and read just after (added to its path's ``launches``); logs its
+    seconds and peak device memory. Returns ``fn()``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    add_launches(launches.setdefault(name.split(":")[0], {}), counts)
+    log(f"[{name}] {wall:.2f}s peak_mem_GB="
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"launches={launched(counts)}")
+    return out
+
+
+def differ_at_theta(torch, X, Y, a: np.ndarray, b: np.ndarray, theta: float,
+                    n_data: int, what: str) -> int:
+    """Pair sets ``a`` and ``b`` equal but for pairs within 16 f32 ulps of
+    θ² in float64 (raises otherwise); returns how many such pairs
+    differ."""
+    ka, kb = card_keys(torch, a, n_data), card_keys(torch, b, n_data)
+    diff = torch.cat([ka[~torch.isin(ka, kb)], kb[~torch.isin(kb, ka)]])
+    if diff.numel():
+        q, y = diff // n_data, diff % n_data
+        d64 = ((X[q].double() - Y[y].double()) ** 2).sum(1)
+        th2 = float(np.float32(theta)) ** 2
+        if bool(((d64 - th2).abs() > ULP16 * th2).any()):
+            raise AssertionError(f"{what}: {diff.numel()} pairs differ, not "
+                                 f"all within 16 ulps of θ")
+    return int(diff.numel())
+
+
+def sharded_inputs(torch) -> dict:
+    """Phase 3e's inputs without the main path (``--sharded-only``): the
+    main path's data and θ, Y on the card, and the exact NLJ of the first
+    SHARD_CUT queries."""
+    from repro_torch.core import exact_join_pairs
+    from repro_torch.data.vectors import table1_dataset, thresholds
+    from repro_torch.engine import JoinEngine
+
+    ds = table1_dataset("sift-like", n_data=MAIN_N_DATA,
+                        n_query=MAIN_N_QUERY, seed=0)
+    theta = float(thresholds(ds, 7)[1])
+    eng = JoinEngine(ds.Y, device=DEV)
+    truth = exact_join_pairs(ds.X[:SHARD_CUT], eng.Y, theta)
+    return dict(ds=ds, theta=theta, eng=eng, launches={},
+                truth_keys=card_keys(torch, truth, MAIN_N_DATA))
+
+
+def run_sharded(torch, ops, run: dict) -> dict:
+    """Phase 3e: the sharded join on SHARDS logical shards of the card
+    (``DeviceMesh.on_device``), over the main engine's 1M x 128 card
+    tensor (no copy) and its θ: es_mi_adapt in f32 on the first SHARD_CUT
+    queries (per-shard builds; overlap on = off; sound; recall against the
+    exact NLJ of those queries), under sq8 and pdx8, the ring label, the
+    vector-plan mesh NLJ (= the exact NLJ, exactly), a hybrid plan on 8
+    shards, sharded streaming (nlj and es_mi), a sharded serving tenant,
+    ``vector_join``, and ``launch.join --shards``. Returns the launches
+    per path."""
+    from repro_torch.configs.vectorjoin import EngineSpec
+    from repro_torch.core import (JoinConfig, exact_join_pairs, recall,
+                                  vector_join)
+    from repro_torch.core import distributed as D
+    from repro_torch.core.types import JoinResult
+    from repro_torch.data.vectors import make_dataset, thresholds
+    from repro_torch.engine import JoinEngine
+    from repro_torch.obs.metrics import Metrics
+    from repro_torch.serve import JoinRequest, JoinService, ServiceConfig
+
+    t_phase = time.perf_counter()
+    ds, theta, Y = run["ds"], run["theta"], run["eng"].Y
+    n_data = int(Y.shape[0])
+    Xs = ds.X[:SHARD_CUT]
+    truth = run["truth_keys"]
+    truth_s = truth[truth < SHARD_CUT * n_data]
+    mesh = D.DeviceMesh.on_device(DEV, SHARDS)
+    eng = JoinEngine(Y, build_kw=EngineSpec().build_kw(), n_shards=SHARDS,
+                     mesh=mesh, metrics=Metrics(),
+                     default=JoinConfig(theta=theta))
+    launches: dict = {}
+
+    def mi_join(tag: str, X, cfg, floor: float | None, n_q: int,
+                off_run=None):
+        """The join with overlap on, then off (``off_run`` when given)."""
+        res = shard_step(torch, ops, f"{tag}:on",
+                         lambda: eng.join(X, cfg), launches)
+        off = shard_step(torch, ops, f"{tag}:off", off_run or (
+            lambda: eng.join(X, dataclasses.replace(cfg, overlap=False))),
+            launches)
+        st = res.stats
+        if not torch.equal(card_keys(torch, res.pairs, n_data),
+                           card_keys(torch, off.pairs, n_data)):
+            raise AssertionError(f"{tag}: overlap on/off pair sets differ")
+        band = check_sound(torch, torch.as_tensor(X, device=DEV), Y,
+                           res.pairs, theta)
+        rec, rec_cap = recalls(torch, res.pairs,
+                               truth[truth < n_q * n_data], n_data, n_q,
+                               cfg.traversal.pool_cap)
+        waves = -(-n_q // cfg.wave_size)
+        log(f"[{tag}] pairs={len(res.pairs)} n_dist={st.n_dist} "
+            f"n_iters={st.n_iters} (host syncs; {st.n_iters / waves:.1f} a "
+            f"wave over {waves} waves) n_rerank={st.n_rerank} "
+            f"overflow_retries={st.overflow_retries} "
+            f"band_occ_per_shard={st.band_occ_per_shard} "
+            f"bytes_allgather={st.bytes_allgather} "
+            f"bytes_assembly={st.bytes_assembly} sound (boundary band "
+            f"{band}) recall={rec:.6f} recall_within_pool_cap="
+            f"{rec_cap:.6f}; overlap off: same pairs, n_iters "
+            f"{off.stats.n_iters}")
+        if floor is not None and rec < floor:
+            raise AssertionError(f"{tag}: recall {rec} below the floor "
+                                 f"{floor}")
+        return res, off
+
+    # 1. es_mi_adapt in f32: the per-shard builds, overlap on and off;
+    # 3. the run with overlap off is the driver's under the reference's
+    # ring label (the port combines with all_gather either way, so the
+    # pairs are the same and the pool's bytes move to bytes_ppermute)
+    cfg = eng.default
+
+    def ring_off():
+        pairs, st = D.distributed_mi_join(
+            torch.as_tensor(Xs, device=DEV), eng.sharded_index(Xs), mesh,
+            "data", theta=theta, cfg=cfg.traversal,
+            wave_size=cfg.wave_size, hybrid=True, n_data=n_data,
+            overlap=False, plan=D.MeshPlan(n_shards=SHARDS,
+                                           pool_combine="ppermute"))
+        return JoinResult(pairs[pairs[:, 1] < n_data], st)
+    f32, ring = mi_join("shard/f32", Xs, cfg,
+                        SHARD_RECALL_FLOORS["shard/f32"], SHARD_CUT,
+                        off_run=ring_off)
+    if ring.stats.bytes_allgather or not ring.stats.bytes_ppermute:
+        raise AssertionError("shard: the ring label's bytes are not "
+                             "metered as ppermute")
+    log(f"[shard/ring] overlap off under the ppermute label = all_gather "
+        f"with overlap on: {len(ring.pairs)} pairs; bytes_ppermute="
+        f"{ring.stats.bytes_ppermute} (all_gather's bytes_allgather "
+        f"{f32.stats.bytes_allgather})")
+    smi = eng.sharded_index(Xs)
+    log(f"[shard/f32] {SHARDS} per-shard builds of "
+        f"{smi.shards[0].n_nodes} nodes: {eng.build_seconds:.2f}s "
+        f"(build_counts {eng.build_counts}); kNN blocks "
+        f"{launches['shard/f32']['topk_merge']} against the single build's "
+        f"{run['launches'].get('topk_merge')}")
+    if run.get("pairs") is not None:
+        un = run["pairs"][run["pairs"][:, 0] < SHARD_CUT]
+        un_rec, _ = recalls(torch, un, truth_s, n_data, SHARD_CUT,
+                            cfg.traversal.pool_cap)
+        log(f"[shard/f32] the unsharded join on the same queries (phase "
+            f"3's pairs): recall={un_rec:.6f} pairs={len(un)}")
+
+    # 2. sq8 and pdx8: per-shard stores, #7′ and #11′
+    for quant in ("sq8", "pdx8"):
+        mi_join(f"shard/{quant}", Xs, dataclasses.replace(cfg, quant=quant),
+                SHARD_RECALL_FLOORS[f"shard/{quant}"], SHARD_CUT)
+
+    # 4. the vector-plan mesh NLJ: the exact NLJ's pairs, exactly (#1)
+    nlj = shard_step(torch, ops, "shard/nlj", lambda: eng.join(
+        Xs, dataclasses.replace(cfg, method="nlj")), launches)
+    if not torch.equal(card_keys(torch, nlj.pairs, n_data), truth_s):
+        raise AssertionError("shard/nlj: the mesh NLJ's pairs differ from "
+                             "the single-device exact NLJ's")
+    log(f"[shard/nlj] {len(nlj.pairs)} pairs = the exact NLJ of the first "
+        f"{SHARD_CUT} queries; plan {eng._mesh_plan(traversal=False)}; "
+        f"bytes_allgather={nlj.stats.bytes_allgather} "
+        f"overflow_retries={nlj.stats.overflow_retries}")
+
+    # 5. a hybrid plan: 8 shards → 2 data × 4 model
+    hd = make_dataset("manifold", seed=0, **HYBRID_SHAPE)
+    th_hd = float(thresholds(hd, 7)[1])
+    heng = JoinEngine(hd.Y, n_shards=HYBRID_SHARDS, metrics=Metrics(),
+                      mesh=D.DeviceMesh.on_device(DEV, HYBRID_SHARDS))
+    hres = shard_step(torch, ops, "shard/hybrid", lambda: heng.join(
+        hd.X, JoinConfig(method="nlj", theta=th_hd)), launches)
+    hplan = heng._mesh_plan(traversal=False)
+    if (hplan.n_shards, hplan.dim_shards) != (2, 4):
+        raise AssertionError(f"shard/hybrid: planned {hplan}")
+    hX = torch.as_tensor(hd.X, device=DEV)
+    hY = torch.as_tensor(hd.Y, device=DEV)
+    h_truth = exact_join_pairs(hX, hY, th_hd)
+    n_band = differ_at_theta(torch, hX, hY, hres.pairs, h_truth, th_hd,
+                             HYBRID_SHAPE["n_data"], "shard/hybrid")
+    if hres.stats.bytes_psum <= 0:
+        raise AssertionError("shard/hybrid: no psum traffic metered")
+    log(f"[shard/hybrid] {hplan}: {len(hres.pairs)} pairs = the exact NLJ's "
+        f"({len(h_truth)}) but for {n_band} within 16 ulps of θ; "
+        f"bytes_psum={hres.stats.bytes_psum}")
+
+    # 6. streaming: nlj in 4 batches, es_mi in 2, under global ids
+    batches = [Xs[b:b + SHARD_STREAM_BATCH]
+               for b in range(0, SHARD_CUT, SHARD_STREAM_BATCH)]
+    streamed = shard_step(torch, ops, "shard/stream:nlj", lambda: [
+        eng.submit(b, cfg, method="nlj") for b in batches], launches)
+    sp = np.concatenate([r.pairs for r in streamed])
+    if not torch.equal(card_keys(torch, sp, n_data), truth_s):
+        raise AssertionError("shard/stream: the streamed nlj batches differ "
+                             "from the exact NLJ")
+    mi_b = batches[:2]
+    streamed = shard_step(torch, ops, "shard/stream:es_mi", lambda: [
+        eng.submit(b, cfg, method="es_mi") for b in mi_b], launches)
+    for i, (b, r) in enumerate(zip(mi_b, streamed)):
+        j = eng.join(b, cfg, method="es_mi")
+        shifted = j.pairs + np.array([i * SHARD_STREAM_BATCH + SHARD_CUT, 0])
+        if not torch.equal(card_keys(torch, r.pairs, n_data),
+                           card_keys(torch, shifted, n_data)):
+            raise AssertionError(f"shard/stream: es_mi batch {i} differs "
+                                 f"from its join shifted by its offset")
+    if eng.n_submitted != SHARD_CUT + 2 * SHARD_STREAM_BATCH:
+        raise AssertionError(f"shard/stream: n_submitted {eng.n_submitted}")
+    log(f"[shard/stream] nlj x{len(batches)} = the exact NLJ; es_mi x2 = "
+        f"join shifted by the offset; n_submitted={eng.n_submitted}")
+
+    # 7. serving: a 4-shard sift tenant answers nlj requests
+    svc = JoinService(ServiceConfig(buckets=(64, 128, 256)),
+                      metrics=Metrics())
+    rng = np.random.default_rng(SERVE_SEED)
+    reqs = []
+    for uid in range(SHARD_SERVE_REQUESTS):
+        n = int(rng.integers(1, 257))
+        lo = int(rng.integers(0, SHARD_CUT - n + 1))
+        reqs.append(JoinRequest(uid=uid, tenant="sift", X=ds.X[lo:lo + n],
+                                theta=theta, method="nlj", quant="off"))
+
+    def serve():
+        svc.load("sift", Y, engine_kw=dict(n_shards=SHARDS, mesh=mesh))
+        for r in reqs:
+            if not svc.submit(r):
+                raise AssertionError(f"shard/serve: uid {r.uid} rejected")
+        bad = JoinRequest(uid=99, tenant="sift", X=ds.X[:8], theta=theta,
+                          method="es_sws", quant="off")
+        if svc.submit(bad) or svc.stats["rejected"] != 1:
+            raise AssertionError("shard/serve: es_sws on a sharded tenant "
+                                 "was not rejected")
+        return svc.run()
+    done = shard_step(torch, ops, "shard/serve", serve, launches)
+    teng = svc.engine("sift")
+    teng.reset_stream()
+    for r in reqs:
+        direct = teng.submit(r.X, svc.plan(r))
+        sj = done[r.uid]
+        if not (sj.ok and torch.equal(card_keys(torch, direct.pairs, n_data),
+                                      card_keys(torch, sj.pairs, n_data))):
+            raise AssertionError(f"shard/serve: uid {r.uid} differs from "
+                                 f"its direct replay")
+    log(f"[shard/serve] {len(reqs)} nlj requests = their direct replays; "
+        f"rejected {svc.stats['rejected']} ({svc.failed.get(99)})")
+    svc.unload("sift")
+
+    # 8. vector_join with index_merged = the engine's join
+    e1 = JoinEngine(hd.Y, device=DEV, metrics=Metrics())
+    want = e1.join(hd.X, JoinConfig(theta=th_hd))
+    got = shard_step(torch, ops, "one_shot", lambda: vector_join(
+        hd.X, hd.Y, JoinConfig(theta=th_hd),
+        index_merged=e1.merged_index(hd.X), device=DEV), launches)
+    hkeys = card_keys(torch, want.pairs, HYBRID_SHAPE["n_data"])
+    if not (isinstance(got, JoinResult) and torch.equal(
+            card_keys(torch, got.pairs, HYBRID_SHAPE["n_data"]), hkeys)
+            and got.stats.n_dist == want.stats.n_dist):
+        raise AssertionError("vector_join differs from the engine's join")
+    log(f"[one_shot] vector_join = eng.join: {len(got.pairs)} pairs, "
+        f"n_dist={got.stats.n_dist}, recall "
+        f"{recall(got, h_truth):.6f}")
+
+    # 9. the launcher with --shards, in a process of its own
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.join", "--shards",
+         str(SHARDS), "--device", ",".join(["cuda:0"] * SHARDS),
+         "--n-data", "200000", "--n-query", "512", "--dim", "64",
+         "--engine-spec", "ci"], capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, PYTHONPATH=str(SRC)))
+    for line in out.stdout.splitlines():
+        log(f"[shard/cli] {line}")
+    if out.returncode != 0 or "sound=True" not in out.stdout:
+        raise AssertionError(f"launch.join --shards exited {out.returncode}:"
+                             f"\n{out.stderr[-4000:]}")
+    log(f"[shard/cli] exit 0 in {time.perf_counter() - t0:.1f}s")
+    del eng, heng, e1
+    log(f"[shard] phase 3e {time.perf_counter() - t_phase:.1f}s")
+    for name, kernels in SHARD_KERNELS.items():
+        missing = [k for k in kernels if launches[name].get(k, 0) == 0]
+        if missing:
+            raise AssertionError(f"{name} path never launched {missing}")
+    return launches
+
+
 def check_launched(run: dict, kernels) -> None:
     """Every kernel of the path was launched during its join (build
     included)."""
@@ -2843,6 +3182,11 @@ def main() -> int:
     if "--kernels-only" in sys.argv[1:]:
         log(f"[done] kernels only, {time.perf_counter() - t_all:.1f}s")
         return 0                             # no contract line: not the run
+    if "--sharded-only" in sys.argv[1:]:
+        # phase 3e alone on the main path's data (no main-path join)
+        run_sharded(torch, ops, sharded_inputs(torch))
+        log(f"[done] sharded only, {time.perf_counter() - t_all:.1f}s")
+        return 0                             # no contract line: not the run
     log(f"[sync] one loop check (reduce + device→host bool) "
         f"{sync_us(torch):.1f} µs")
 
@@ -2855,7 +3199,8 @@ def main() -> int:
     search = run_search(torch, ops, main_run)
     stream = run_stream(torch, ops, main_run)
     serve = run_serve(torch, ops, main_run)
-    del main_run["eng"]                       # free the 1M-row indexes
+    sharded = run_sharded(torch, ops, main_run)
+    del main_run["eng"], main_run["pairs"]    # free the 1M-row indexes
 
     sq8 = EngineSpec(quant="sq8", quant_build="sq8")
     sq8_run = run_join(torch, ops, "sift-like", MAIN_N_DATA, MAIN_N_QUERY, 1,
@@ -2944,6 +3289,7 @@ def main() -> int:
     paths["nlj_check"] = nlj_check
     paths.update(stream)
     paths.update(serve)
+    paths.update(sharded)
     paths["stream/es_mi_adapt/sq8"] = stream_mi
     # the sketch/PDX paths: their merged-index join plus their NLJ
     for r in (sk8, pd8, skpd):

@@ -1,8 +1,9 @@
 """Vector-join operator configs (port of ``repro.configs.vectorjoin``).
 
 ``PRESETS`` name the paper's §5.1.2 methods; ``EngineSpec`` is how a
-deployment instantiates ``JoinEngine`` (one device; the sharded specs
-arrive with the multi-GPU slice). ``quant`` sets the storage tiers every
+deployment instantiates ``JoinEngine`` (``n_shards=0``, the serving
+presets': one shard per visible CUDA device). ``quant`` sets the storage
+tiers every
 join the engine serves filters through (``sq8``: certified int8 bounds;
 ``sketch8``: a 1-bit sketch prune above int8; ``pdx8``: the PDX tier with
 mid-vector early exit; ``sketchpdx8``: the sketch above PDX), each with
@@ -41,6 +42,8 @@ class EngineSpec:
     k: int = 48                    # kNN candidates per node at build time
     degree: int = 32               # index max out-degree R
     style: str = "nsg"
+    n_shards: int = 1              # 0 = one shard per visible device
+    carry_window: int = 4096       # streaming work-sharing donor window
     max_cached_indexes: int = 4    # per-X artifact LRU capacity
     quant: str = "off"             # storage mode of the joins (QUANT_MODES)
     quant_build: str = "off"       # cascade-driven index builds
@@ -57,18 +60,29 @@ ENGINE_PRESETS = {
     "default": EngineSpec(),
     # CI-scale: smaller graphs, fast builds
     "ci": EngineSpec(k=32, degree=24),
-    # the reference's serving_sketch8 on one device: 1-bit sketch prune →
-    # int8 confirm → f32 re-rank, the offline build through the int8 tier
-    "serving_sketch8": EngineSpec(max_cached_indexes=8, quant="sketch8",
+    # serving: the data side sharded over every visible device
+    "serving": EngineSpec(n_shards=0, carry_window=16_384,
+                          max_cached_indexes=8),
+    # serving on int8 codes with the exact re-rank; the offline builds
+    # through the same tier (identical edges)
+    "serving_sq8": EngineSpec(n_shards=0, carry_window=16_384,
+                              max_cached_indexes=8, quant="sq8",
+                              quant_build="sq8"),
+    # 1-bit sketch prune → int8 confirm → f32 re-rank, the offline build
+    # through the int8 tier
+    "serving_sketch8": EngineSpec(n_shards=0, carry_window=16_384,
+                                  max_cached_indexes=8, quant="sketch8",
                                   quant_build="sq8"),
 }
 
 
 def make_engine(Y, spec: str | EngineSpec = "default", *,
-                default: JoinConfig | None = None, device=None, **overrides):
+                default: JoinConfig | None = None, device=None, mesh=None,
+                **overrides):
     """Instantiate a ``JoinEngine`` from a named (or explicit) spec;
-    ``device=None`` means the CUDA card. A spec with ``quant`` other than
-    ``off`` sets that mode on the engine's default ``JoinConfig``."""
+    ``device=None`` means the CUDA card (``mesh``, a ``DeviceMesh``, puts
+    the shards on its devices). A spec with ``quant`` other than ``off``
+    sets that mode on the engine's default ``JoinConfig``."""
     from repro_torch.engine import JoinEngine
 
     if isinstance(spec, str):
@@ -79,5 +93,7 @@ def make_engine(Y, spec: str | EngineSpec = "default", *,
         default = dataclasses.replace(default or JoinConfig(),
                                       quant=spec.quant)
     return JoinEngine(Y, build_kw=spec.build_kw(), default=default,
+                      n_shards=spec.n_shards, mesh=mesh,
+                      carry_window=spec.carry_window,
                       max_cached_indexes=spec.max_cached_indexes,
                       device=device)

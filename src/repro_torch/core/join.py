@@ -166,3 +166,21 @@ def exact_join_pairs(X, Y, theta: float, *, block: int = 512,
     pairs, _ = cascade_join_pairs(X, Y, theta, None, block=block, impl=impl,
                                   device=device)
     return pairs
+
+
+# ---------------------------------------------------------------------------
+# the one-shot wrapper over the engine
+# ---------------------------------------------------------------------------
+
+def vector_join(X, Y, cfg, *, index_y=None, index_x=None, index_merged=None,
+                build_kw: dict | None = None, device=None):
+    """Run the configured join method once (the paper's one-shot call):
+    a transient ``JoinEngine`` over ``Y`` on ``device`` (the card when
+    None) builds whatever index the method needs and is not supplied.
+    Hold a ``repro_torch.engine.JoinEngine`` to reuse indexes across
+    calls."""
+    from repro_torch.engine import JoinEngine  # local: engine imports core
+
+    eng = JoinEngine(Y, build_kw=build_kw, default=cfg, device=device)
+    return eng.join(X, cfg, index_y=index_y, index_x=index_x,
+                    index_merged=index_merged)

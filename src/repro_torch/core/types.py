@@ -178,6 +178,8 @@ class JoinStats:
     bytes_feedback: int = 0
     bytes_band: int = 0
     bytes_assembly: int = 0
+    # the mesh's collectives, as the reference's ranks move them (the port
+    # combines every pool with all_gather; the plan's label picks the meter)
     bytes_allgather: int = 0
     bytes_ppermute: int = 0
     bytes_psum: int = 0

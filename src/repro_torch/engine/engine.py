@@ -1,5 +1,5 @@
 """JoinEngine — a persistent join service over one data side Y (port of
-``repro.engine.engine`` for the single-device f32 path).
+``repro.engine.engine``).
 
 The engine holds Y on its device and builds each index artifact once:
 the data index G_Y (for the search-path methods ``index``, ``es``,
@@ -11,13 +11,21 @@ of X, kept in small LRUs) the query index G_X (the MST order of
 
 Supported here: every method, every quant mode (``off``, ``sq8``,
 ``sketch8``, ``pdx8``, ``sketchpdx8``; for joins and, through
-``build_kw["quant"]``, the cascade-driven index builds), one shard, and
-streaming: ``submit(X_batch)`` joins a batch under *global* query ids and,
-for the work-sharing methods, carries the cache of completed queries
-across batches (each new query seeds from the cache entry of the nearest
-query in the carry window); ``submit_many`` pipelines consecutive search
-batches across their boundaries. Sharding raises ``NotImplementedError``
-naming the ROADMAP slice that brings it.
+``build_kw["quant"]``, the cascade-driven index builds), and streaming:
+``submit(X_batch)`` joins a batch under *global* query ids and, for the
+work-sharing methods, carries the cache of completed queries across
+batches (each new query seeds from the cache entry of the nearest query
+in the carry window); ``submit_many`` pipelines consecutive search
+batches across their boundaries.
+
+Sharding: with ``n_shards > 1`` the data side is split over the devices
+of a ``core.distributed.DeviceMesh`` (core/distributed.py): the MI
+methods join against one merged index per shard, ``nlj`` runs the mesh
+NLJ (hybrid dimension+vector partitioning where ``MeshPlan`` picks it).
+``X ⋈_θ Y = ∪_s (X ⋈_θ Y_s)`` holds exactly. The mesh is the caller's
+(``mesh``; several shards may share one device) or the plan's over the
+visible CUDA devices; asking for more shards than that raises a clear
+``ValueError``. The search methods run on one device.
 
 ``plan_config`` and ``plan_request`` pick operating points through the
 engine's ``plan.JoinPlanner`` (the LSH estimate and the cost table of
@@ -47,6 +55,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core import distributed
 from repro_torch.core.types import (QUANT_FILTER_MODES, QUANT_MODES,
                                     GraphIndex, JoinConfig, JoinResult,
                                     JoinStats, early_exit_enabled,
@@ -56,10 +65,6 @@ from repro_torch.kernels import ops
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.plan.cost import CostTable
-
-# what the engine (and the launchers) say to n_shards != 1
-SHARDS_UNSUPPORTED = ("sharded execution (n_shards != 1) arrives with the "
-                      "multi-GPU slice (ROADMAP Queue A slice 13)")
 
 _MI_METHODS = ("es_mi", "es_mi_adapt")
 _SEARCH_METHODS = ("index", "es", "es_hws", "es_sws")
@@ -133,20 +138,31 @@ class JoinEngine:
     build_kw : kwargs forwarded to ``graph.build_index`` (``k``,
         ``degree``, ``style``, ...).
     default : the ``JoinConfig`` used when a call supplies none.
-    n_shards : must be 1 (multi-GPU is ROADMAP Queue A slice 13).
+    n_shards : > 1 splits Y into that many shards (the MI methods join
+        against one merged index per shard, ``nlj`` runs the mesh NLJ);
+        0 means one shard per device of ``mesh``, else per visible CUDA
+        device (one on the CPU). More shards than devices raise a clear
+        ``ValueError`` at the first sharded join.
+    mesh, shard_axes : a ``DeviceMesh`` to run the shards on (it wins over
+        the planned mesh; ``DeviceMesh.on_device("cpu", n)`` puts n
+        shards on the CPU) and the axis (or axes) the shards lie along.
     carry_window : how many completed queries the streaming path keeps
         as seed donors for later batches.
-    max_cached_indexes : LRU capacity for per-X merged indexes.
+    max_cached_indexes : LRU capacity for per-X artifacts (query index,
+        merged index, sharded index).
     metrics : an ``obs.Metrics`` registry to publish every join into.
-    device : where Y, the indexes and the joins live; ``None`` = the card.
+    device : where Y, the indexes and the joins live; ``None`` = the card
+        (the mesh's first device when a ``mesh`` is given).
     """
 
     def __init__(self, Y, *, build_kw: dict | None = None,
                  default: JoinConfig | None = None, n_shards: int = 1,
-                 carry_window: int = 4096, max_cached_indexes: int = 4,
+                 mesh: distributed.DeviceMesh | None = None,
+                 shard_axes=("data",), carry_window: int = 4096,
+                 max_cached_indexes: int = 4,
                  metrics: obs_metrics.Metrics | None = None, device=None):
-        if n_shards != 1:
-            raise NotImplementedError(SHARDS_UNSUPPORTED)
+        if device is None and mesh is not None:
+            device = mesh.devices[0]
         self.device = resolve_device(device)
         if isinstance(Y, torch.Tensor):
             self.Y = Y.to(device=self.device, dtype=torch.float32).contiguous()
@@ -155,19 +171,27 @@ class JoinEngine:
                                      device=self.device)
         self.build_kw = dict(build_kw or {})
         self.default = default or JoinConfig()
-        self.n_shards = 1
+        self._mesh = mesh
+        self._shard_axes = shard_axes
+        self.n_shards = int(n_shards) if n_shards else (
+            mesh.axis_size(shard_axes) if mesh is not None
+            else max(distributed.visible_devices(self.device), 1))
+        self._plans: dict[bool, distributed.MeshPlan] = {}
+        self._nlj_steps: dict = {}       # the mesh NLJ's step and Y blocks
         self.carry_window = int(carry_window)
         self.metrics = metrics if metrics is not None else \
             obs_metrics.metrics()
         self._index_y: GraphIndex | None = None
         self._index_x = _LRU(max_cached_indexes)
         self._merged = _LRU(max_cached_indexes)
-        # compressed tier stores mirror the index artifacts they compress,
-        # keyed by (tier name, artifact kind[, X fingerprint])
+        self._sharded = _LRU(max_cached_indexes)
+        # compressed tier stores mirror the index artifacts they compress
+        # (one store a shard for the sharded index), keyed by (tier name,
+        # artifact kind[, X fingerprint])
         self._tier_stores = _LRU(4 * max_cached_indexes)
         self.build_counts: dict[str, int] = {
-            "index_y": 0, "index_x": 0, "merged": 0, "quant": 0,
-            "sketch": 0, "pdx": 0}
+            "index_y": 0, "index_x": 0, "merged": 0, "sharded": 0,
+            "quant": 0, "sketch": 0, "pdx": 0}
         self.build_seconds = 0.0
         self.serve_stats: dict[str, int] = {
             "joins": 0, "batches": 0, "queries": 0, "pairs": 0}
@@ -263,11 +287,33 @@ class JoinEngine:
             self._merged.put(fp, hit)
         return hit
 
+    def sharded_index(self, X) -> distributed.ShardedMergedIndex:
+        """Per-shard merged indexes G_{X∪Y_s}, shard s built on its mesh
+        device (counted in ``build_counts["sharded"]``)."""
+        fp = _fingerprint(X)
+        hit = self._sharded.touch(fp)
+        self._cache_event("sharded", hit is not None)
+        if hit is None:
+            mesh, axes, _ = self._traversal_mesh()
+            t0 = time.perf_counter()
+            hit = distributed.build_sharded_merged_index(
+                self.Y, self._as_x(X), self.n_shards,
+                devices=mesh.shard_devices(axes), **self.build_kw)
+            for dev in set(hit.devices):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            self.build_seconds += time.perf_counter() - t0
+            self.build_counts["sharded"] += 1
+            self._sharded.put(fp, hit)
+        return hit
+
     def tier_store(self, key: tuple, tier_name: str, vecs):
         """The compressed store behind one cascade tier of one index
         artifact (built once, LRU'd). ``key`` names the artifact
-        (``("y",)``, ``("index_y",)``, ``("index_x", fp)`` or
-        ``("merged", fp)``); ``vecs`` is its f32 table."""
+        (``("y",)``, ``("index_y",)``, ``("index_x", fp)``,
+        ``("merged", fp)`` or ``("sharded", fp)``); ``vecs`` is its f32
+        table, or for the sharded key the ``ShardedMergedIndex`` whose
+        shards each get their own store (per-shard grids)."""
         from repro_torch.quant.cascade import build_tier_store, tier_class
 
         ck = (tier_name,) + key
@@ -275,7 +321,11 @@ class JoinEngine:
         self._cache_event("tier_store", hit is not None)
         if hit is None:
             t0 = time.perf_counter()
-            hit = build_tier_store(tier_name, vecs)
+            if key[0] == "sharded":
+                hit = distributed.build_sharded_tier(
+                    tier_name, vecs, n_data=int(self.Y.shape[0]))
+            else:
+                hit = build_tier_store(tier_name, vecs)
             self.build_seconds += time.perf_counter() - t0
             self.build_counts[tier_class(tier_name).build_counter] += 1
             self._tier_stores.put(ck, hit)
@@ -283,16 +333,21 @@ class JoinEngine:
 
     def cascade_for(self, key: tuple, vecs, cfg: JoinConfig,
                     stats: JoinStats):
-        """The ``FilterCascade`` of one index artifact under ``cfg.quant``
-        (None for quant off); ``stats.quant_bytes`` adds what is
-        resident."""
+        """The ``FilterCascade`` (``ShardedCascade`` for the sharded key)
+        of one index artifact under ``cfg.quant`` (None for quant off);
+        ``stats.quant_bytes`` adds what is resident."""
         from repro_torch.quant.cascade import TIERS_BY_MODE, make_cascade
 
         if cfg.quant == "off":
             return None
         names = TIERS_BY_MODE[cfg.quant]
-        casc = make_cascade([(n, self.tier_store(key, n, vecs))
-                             for n in names])
+        stores = [(n, self.tier_store(key, n, vecs)) for n in names]
+        if key[0] == "sharded":
+            casc = distributed.ShardedCascade(
+                names=tuple(n for n, _ in stores),
+                stores=tuple(st for _, st in stores))
+        else:
+            casc = make_cascade(stores)
         stats.quant_bytes += casc.nbytes
         return casc
 
@@ -307,6 +362,8 @@ class JoinEngine:
             return
         if cfg.method == "nlj":
             key, vecs = ("y",), self.Y
+        elif self.n_shards > 1:
+            key, vecs = ("sharded", _fingerprint(X)), self.sharded_index(X)
         elif cfg.method in _MI_METHODS:
             key, vecs = ("merged", _fingerprint(X)), self.merged_index(X).vecs
         else:
@@ -320,29 +377,39 @@ class JoinEngine:
         self._index_y = None
         self._index_x.clear()
         self._merged.clear()
+        self._sharded.clear()
         self._tier_stores.clear()
+        self._nlj_steps.clear()    # the mesh NLJ's device-resident Y blocks
+        self._plans.clear()
 
     def adopt(self, *, index_y: GraphIndex | None = None, X=None,
               index_x: GraphIndex | None = None,
               index_merged: GraphIndex | None = None,
+              index_sharded: distributed.ShardedMergedIndex | None = None,
               tier_stores: dict | None = None) -> None:
-        """Install prebuilt indexes (G_Y; G_X and the merged index of
-        ``X``) and prebuilt tier stores (``{tier name: store}``, for
-        example carried across from the reference with
-        ``quant.*_store_from_numpy``): over the merged index of ``X`` when
+        """Install prebuilt indexes (G_Y; G_X, the merged index and the
+        per-shard merged indexes of ``X``) and prebuilt tier stores
+        (``{tier name: store}``, for example carried across from the
+        reference with ``quant.*_store_from_numpy``, or per shard as a
+        ``distributed.ShardedTierStore``): over the sharded index of ``X``
+        when one is adopted, else over the merged index of ``X`` when
         ``X`` is given, else over Y (the NLJ's artifact). Nothing adopted
         counts as a build."""
         if index_y is not None:
             self._index_y = index_y
         for name, index in (("index_x", index_x),
-                            ("index_merged", index_merged)):
+                            ("index_merged", index_merged),
+                            ("index_sharded", index_sharded)):
             if index is not None and X is None:
                 raise ValueError(f"adopting {name} requires X")
         if index_x is not None:
             self._index_x.put(_fingerprint(X), index_x)
         if index_merged is not None:
             self._merged.put(_fingerprint(X), index_merged)
-        key = ("merged", _fingerprint(X)) if X is not None else ("y",)
+        if index_sharded is not None:
+            self._sharded.put(_fingerprint(X), index_sharded)
+        key = (("sharded" if index_sharded is not None else "merged",
+                _fingerprint(X)) if X is not None else ("y",))
         for name, store in (tier_stores or {}).items():
             self._tier_stores.put((name,) + key, store)
 
@@ -357,6 +424,31 @@ class JoinEngine:
         if theta is not None:
             rep["theta"] = float(theta)
         return dataclasses.replace(cfg, **rep) if rep else cfg
+
+    def _mesh_plan(self, *, traversal: bool) -> distributed.MeshPlan:
+        """The engine's ``MeshPlan`` for (N_y, d, n_shards): vector
+        partitioning for graph traversal, hybrid-eligible for the exact
+        NLJ, over the devices of the engine's mesh (else the visible CUDA
+        devices, one on the CPU). Raises the clear error when the shards
+        outnumber them."""
+        plan = self._plans.get(traversal)
+        if plan is None:
+            devices = (self._mesh.size if self._mesh is not None
+                       else distributed.visible_devices(self.device))
+            plan = distributed.MeshPlan.plan(
+                int(self.Y.shape[0]), int(self.Y.shape[1]), self.n_shards,
+                devices=devices, traversal=traversal)
+            self._plans[traversal] = plan
+        return plan
+
+    def _traversal_mesh(self):
+        """``(mesh, shard_axes, plan)`` of the sharded MI join: the
+        caller's mesh when given (``plan`` None: all_gather combine), else
+        the traversal plan's mesh over the visible CUDA devices."""
+        if self._mesh is not None:
+            return self._mesh, self._shard_axes, None
+        plan = self._mesh_plan(traversal=True)
+        return plan.make_mesh(), plan.data_axis, plan
 
     # -- one-shot joins -----------------------------------------------------
 
@@ -378,7 +470,12 @@ class JoinEngine:
                        index_merged=index_merged)
 
         if cfg.method == "nlj":
+            if self.n_shards > 1:
+                return self._done(self._join_sharded_nlj(Xd, cfg, stats),
+                                  Xd, cfg)
             return self._done(self._join_nlj(Xd, cfg, stats), Xd, cfg)
+        if self.n_shards > 1:
+            return self._done(self._join_sharded(X, cfg, stats), Xd, cfg)
 
         all_pairs: list[np.ndarray] = []
         t0 = time.perf_counter()
@@ -423,6 +520,71 @@ class JoinEngine:
         return [self.join(X, cfg, method=method, theta=float(t))
                 for t in thetas]
 
+    def _join_sharded(self, X, cfg: JoinConfig,
+                      stats: JoinStats) -> JoinResult:
+        """The mesh MI join: Y split over the shards, waves replicated,
+        the pair pools band-compacted and combined on the devices (one
+        fused assembly transfer a wave). es_mi_adapt runs the hybrid BBFS
+        for every query, as the reference does: a sound superset of the
+        per-query split (per-shard OOD flags would need per-shard side
+        tables)."""
+        if cfg.method not in _MI_METHODS:
+            raise NotImplementedError(
+                f"sharded execution supports {_MI_METHODS} and 'nlj', not "
+                f"{cfg.method!r} (work-sharing caches are per-device)")
+        mesh, axes, plan = self._traversal_mesh()
+        smi = self.sharded_index(X)
+        casc = self.cascade_for(("sharded", _fingerprint(X)), smi, cfg,
+                                stats)
+        # the merge cap's seed: the LSH estimate of the per-shard band
+        # (advisory; the driver's retry loop owns correctness). The re-rank
+        # cap keeps its configured cold start, as in the reference.
+        mcap0 = self.estimate_merge_cap(_host(X), cfg,
+                                        limit=int(cfg.traversal.pool_cap))
+        t0 = time.perf_counter()
+        pairs, dstats = distributed.distributed_mi_join(
+            self._as_x(X), smi, mesh, axes, theta=cfg.theta,
+            cfg=cfg.traversal, wave_size=cfg.wave_size,
+            hybrid=cfg.method == "es_mi_adapt", cascade=casc,
+            n_data=int(self.Y.shape[0]), overlap=W.overlap_enabled(cfg),
+            plan=plan, merge_cap=mcap0)
+        # the driver times its fetches and assembly; the rest of its wall
+        # clock (the host-stepped traversal) is expansion
+        stats.expand_seconds += max(
+            0.0, time.perf_counter() - t0
+            - dstats.wait_seconds - dstats.other_seconds)
+        stats = stats.merge(dstats)
+        pairs = pairs[pairs[:, 1] < self.Y.shape[0]]   # sentinel rows
+        return JoinResult(pairs=pairs, stats=stats)
+
+    def _join_sharded_nlj(self, Xd: torch.Tensor, cfg: JoinConfig,
+                          stats: JoinStats, offset: int = 0) -> JoinResult:
+        """The mesh exact NLJ: the ``MeshPlan`` may move devices from the
+        row axis to the dimension axis (hybrid partitioning, ``psum``
+        combine). Distances are exact f32, so the pairs are the
+        single-device NLJ's under every quant mode. The step, Y's blocks
+        and the merge cap persist across calls (``_nlj_steps``): θ is a
+        runtime argument, so streamed batches and sweeps reuse them."""
+        plan = self._mesh_plan(traversal=False)
+        # the merged pool holds exact-θ pairs: seed its cap from the
+        # sampled true in-range counts, not the sketch-band superset
+        mcap0 = self.estimate_merge_cap(_host(Xd), cfg,
+                                        limit=int(self.Y.shape[0]),
+                                        exact=True)
+        t0 = time.perf_counter()
+        pairs, dstats = distributed.distributed_nlj_join(
+            Xd, self.Y, plan, theta=cfg.theta, wave_size=cfg.wave_size,
+            step_cache=self._nlj_steps, merge_cap=mcap0, mesh=self._mesh,
+            impl=cfg.traversal.dist_impl)
+        stats.expand_seconds += max(
+            0.0, time.perf_counter() - t0
+            - dstats.wait_seconds - dstats.other_seconds)
+        stats = stats.merge(dstats)
+        if offset:
+            pairs = pairs.copy()
+            pairs[:, 0] += offset
+        return JoinResult(pairs=pairs, stats=stats)
+
     # -- streaming ----------------------------------------------------------
 
     @property
@@ -454,12 +616,22 @@ class JoinEngine:
         its own queries; under a filtering quant mode its band capacity is
         seeded from the LSH estimate (``estimate_rerank_cap``)."""
         cfg = self._resolve(cfg, method, theta)
+        if self.n_shards > 1 and cfg.method in _SEARCH_METHODS:
+            raise NotImplementedError(
+                "sharded streaming supports 'nlj' and the merged-index "
+                "methods; the work-sharing-cache methods "
+                f"{_SEARCH_METHODS} run single-device (n_shards=1)")
         Xd = self._as_x(X_batch)
         nb = int(Xd.shape[0])
         offset = self._stream_n
         stats = JoinStats()
 
-        if cfg.method == "nlj":
+        if cfg.method == "nlj" and self.n_shards > 1:
+            result = self._join_sharded_nlj(Xd, cfg, stats, offset)
+        elif cfg.method in _MI_METHODS and self.n_shards > 1:
+            result = self._join_sharded(X_batch, cfg, stats)
+            result.pairs[:, 0] += offset
+        elif cfg.method == "nlj":
             result = self._join_nlj(Xd, cfg, stats)
             result.pairs[:, 0] += offset
         elif cfg.method in _MI_METHODS:
@@ -512,7 +684,7 @@ class JoinEngine:
         while i < len(resolved):
             X, cfg = resolved[i]
             if not (cfg.method in _SEARCH_METHODS
-                    and W.overlap_enabled(cfg)):
+                    and W.overlap_enabled(cfg) and self.n_shards == 1):
                 results.append(self.submit(X, cfg))
                 i += 1
                 continue
@@ -702,6 +874,32 @@ class JoinEngine:
                            init_cap=self.estimate_rerank_cap(_host(X_batch),
                                                              cfg))
 
+    def estimate_merge_cap(self, X_batch, cfg: JoinConfig, *, limit: int,
+                           exact: bool = False) -> int:
+        """LSH-sample seed of the sharded drivers' merged-pool cap: the
+        predicted worst per-(query, shard) occupancy with headroom, sticky
+        per (θ, shards, limit, exact). ``exact`` sizes it from the sampled
+        true in-range counts (the mesh NLJ's pool holds only exact-θ
+        pairs) instead of the sketch-band superset. Advisory: the drivers
+        check for overflow and retry, so a low seed costs retries, never
+        pairs."""
+        key = (round(float(cfg.theta), 6), "merge", self.n_shards,
+               int(limit), bool(exact))
+        cached = self._cap_estimates.get(key)
+        if cached is not None:
+            return cached
+        t0 = time.perf_counter()
+        est = self.estimator.estimate(X_batch, float(cfg.theta),
+                                      n_shards=self.n_shards)
+        cap = est.merge_cap(int(limit), exact=exact)
+        self._cap_estimates[key] = cap
+        self.metrics.gauge(
+            "engine.merge_cap_estimate",
+            help="LSH-sampled sharded merge capacity (last estimate)"
+        ).set(cap)
+        self.build_seconds += time.perf_counter() - t0
+        return cap
+
     # -- planning (plan.JoinPlanner) -----------------------------------------
 
     def plan_config(self, X_batch, cfg: JoinConfig | None = None, *,
@@ -719,8 +917,12 @@ class JoinEngine:
         base = self._resolve(cfg, method, theta)
         if quant is not None:
             base = dataclasses.replace(base, quant=quant)
-        methods = ("nlj",) + _SEARCH_METHODS + _MI_METHODS
-        default_method = base.method if base.method != "nlj" else None
+        if self.n_shards > 1:
+            methods = ("nlj",) + _MI_METHODS
+            default_method = "es_mi_adapt"
+        else:
+            methods = ("nlj",) + _SEARCH_METHODS + _MI_METHODS
+            default_method = base.method if base.method != "nlj" else None
         p = self.planner.plan(
             _host(X_batch), theta=float(base.theta),
             pool_cap=int(base.traversal.pool_cap),
@@ -743,15 +945,19 @@ class JoinEngine:
         """Per-request (method, quant) for the serving admission path,
         from the cost table alone: planning a request never samples the
         estimator or touches the device. Before any calibration, the
-        servable default (es_sws) and the engine's default quant."""
-        servable = ("nlj",) + _SEARCH_METHODS
+        servable default (es_sws; nlj on a sharded engine) and the
+        engine's default quant."""
+        if self.n_shards > 1:
+            servable, fallback = ("nlj",) + _MI_METHODS, "nlj"
+        else:
+            servable, fallback = ("nlj",) + _SEARCH_METHODS, "es_sws"
         methods = (method,) if method else servable
         quants = (quant,) if quant else (self.default.quant,)
         choice = self.planner.choose(int(n_queries), methods=methods,
                                      quants=quants)
         if choice is not None:
             return choice[0], choice[1]
-        return (method or "es_sws"), (quant or self.default.quant)
+        return (method or fallback), (quant or self.default.quant)
 
     # -- the carry window -----------------------------------------------------
 

@@ -356,11 +356,15 @@ def assemble_wave(h: WaveHandles, stats: JoinStats, *,
 def _mi_probe(merged: GraphIndex, x: torch.Tensor, qids: torch.Tensor,
               lane_valid: torch.Tensor, *, traverse_nondata: bool,
               dist_impl: str | None, cascade=None, qc=None,
-              esc_th2: float | None = None):
-    """Probe each query's own neighborhood row in the merged index."""
+              esc_th2: float | None = None,
+              visited: torch.Tensor | None = None):
+    """Probe each query's own neighborhood row in the merged index
+    (``visited``: a bitmap to start from, updated in place; empty if
+    omitted)."""
     B = x.shape[0]
-    W = traversal.bitmap_words(merged.n_nodes)
-    visited = torch.zeros((B, W), dtype=torch.int32, device=x.device)
+    if visited is None:
+        visited = torch.zeros((B, traversal.bitmap_words(merged.n_nodes)),
+                              dtype=torch.int32, device=x.device)
     # mark the query's own node visited so traversal never loops back
     visited.scatter_add_(1, (qids >> 5).long()[:, None],
                          traversal.bit_of(qids)[:, None])
@@ -596,6 +600,20 @@ def launch_search_wave(index_y: GraphIndex, xw: torch.Tensor,
         seeds_max=tcfg.seeds_max, early_exit=ee, span=dspan)
     _count_band(h, stats)
     return h
+
+
+def run_search_wave(index_y: GraphIndex, xw: torch.Tensor, qids: np.ndarray,
+                    lane_valid: np.ndarray, cfg: JoinConfig,
+                    stats: JoinStats, *, seeds: np.ndarray,
+                    seeds_valid: np.ndarray, cascade=None,
+                    qc=None) -> WaveOutput:
+    """One padded search wave run in sequence (launch, then fetch, then
+    assemble): the single-wave unit the pipelined runners are built
+    from."""
+    h = launch_search_wave(index_y, xw, qids, lane_valid, cfg, stats,
+                           seeds=seeds, seeds_valid=seeds_valid,
+                           cascade=cascade, qc=qc, sync=True)
+    return assemble_wave(h, stats)
 
 
 def update_sws_cache(cache: dict[int, np.ndarray], out: WaveOutput,

@@ -1,6 +1,6 @@
-"""Vector-join launcher (port of ``repro.launch.join``, the single-device
-subset: every method and every quant mode, streaming, sweeps, planned
-operating points, traces and metric dumps; no shards).
+"""Vector-join launcher (port of ``repro.launch.join``: every method and
+every quant mode, shards, streaming, sweeps, planned operating points,
+traces and metric dumps).
 
 Runs one of the paper's methods (the exact ``nlj``; the search path
 ``index``, ``es``, ``es_hws``, ``es_sws``; the merged-index ``es_mi``,
@@ -16,8 +16,13 @@ engine's registry in the Prometheus text format:
   PYTHONPATH=src python -m repro_torch.launch.join --method es_mi_adapt \\
       --regime ood --n-data 20000 --n-query 500 --theta-q 2 --quant pdx8
 
-``--device cpu`` runs the plain PyTorch versions instead of the kernels.
-All f32 matrix products are full IEEE f32 (TF32 off).
+``--shards N`` splits the data side into N shards (the MI methods and
+nlj), one a device of ``--device`` when it lists several (``--device
+cpu,cpu --shards 2``: two shards on the CPU; ``cuda:0,cuda:0``: two on one
+card), else one a visible CUDA device; ``--distributed`` (or ``--shards
+auto``) takes one shard a device. ``--device cpu`` runs the plain PyTorch
+versions instead of the kernels. All f32 matrix products are full IEEE
+f32 (TF32 off).
 """
 from __future__ import annotations
 
@@ -30,10 +35,43 @@ import numpy as np
 from repro_torch.configs.vectorjoin import (ENGINE_PRESETS, make_engine,
                                            preset)
 from repro_torch.core import exact_join_pairs
+from repro_torch.core.distributed import DeviceMesh, visible_devices
 from repro_torch.core.types import (METHODS, QUANT_MODES, pair_keys,
                                     resolve_device)
 from repro_torch.data.vectors import make_dataset, thresholds
 from repro_torch.obs import trace as obs_trace
+
+
+def shards_arg(v: str) -> int:
+    """``--shards``: ``auto`` = one shard a device (0, the engine's auto
+    sentinel), otherwise a positive int."""
+    if v.strip().lower() == "auto":
+        return 0
+    return int(v)
+
+
+def devices_arg(spec: str | None):
+    """``--device``: one torch device (``None`` = the card), or a
+    comma-separated list that becomes a ``DeviceMesh`` over them. Returns
+    ``(device, mesh or None)``; the device is the list's first."""
+    if spec is None or "," not in spec:
+        return resolve_device(spec), None
+    mesh = DeviceMesh.of([resolve_device(d.strip())
+                          for d in spec.split(",") if d.strip()])
+    return mesh.devices[0], mesh
+
+
+def check_shards(ap: argparse.ArgumentParser, n_shards: int, device,
+                 mesh: DeviceMesh | None) -> None:
+    """Fail at the launcher with a clear message when more shards are
+    asked for than there are devices (the ``--device`` list's, else the
+    visible CUDA devices, one on the CPU)."""
+    nd = mesh.size if mesh is not None else visible_devices(device)
+    if n_shards > nd:
+        ap.error(f"--shards {n_shards}: only {nd} device(s) visible; use "
+                 f"--shards auto, or list one device per shard with "
+                 f"--device (for example --device cpu,cpu or "
+                 f"cuda:0,cuda:0; several shards may share a device)")
 
 
 def main(argv=None) -> int:
@@ -79,6 +117,14 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--engine-spec", default="default",
                     help="EngineSpec preset (default|ci|serving_sketch8)")
+    ap.add_argument("--shards", type=shards_arg, default=1,
+                    help="shard the data side over N devices (MI and nlj "
+                         "methods); 'auto' (or 0) = one shard per device. "
+                         "The MeshPlan may re-split shards over a second "
+                         "dimension axis for nlj (hybrid dimension+vector "
+                         "partitioning)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="alias for --shards 0 (every device)")
     ap.add_argument("--stream", type=int, default=0, metavar="B",
                     help="submit queries as streaming batches of B")
     ap.add_argument("--sweep", action="store_true",
@@ -95,10 +141,13 @@ def main(argv=None) -> int:
                     help="print the engine's metrics registry in "
                          "Prometheus exposition format after the run")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the CUDA card)")
+                    help="torch device (default: the CUDA card), or a "
+                         "comma-separated list of devices, one a shard")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
+    device, mesh = devices_arg(args.device)
+    n_shards = 0 if args.distributed else args.shards
+    check_shards(ap, n_shards, device, mesh)
     ds = make_dataset(args.regime, n_data=args.n_data, n_query=args.n_query,
                       dim=args.dim, seed=args.seed)
     grid = [float(t) for t in thresholds(ds, 7)]
@@ -112,7 +161,7 @@ def main(argv=None) -> int:
     cfg = dataclasses.replace(cfg, wave_size=args.wave, quant=quant,
                               overlap=not args.no_overlap)
     eng = make_engine(ds.Y, args.engine_spec, default=cfg, device=device,
-                      quant_build=quant_build)
+                      mesh=mesh, n_shards=n_shards, quant_build=quant_build)
     if args.plan == "auto":
         # the planner picks method/quant/wave from the LSH estimate (the
         # cost table is empty on a cold launcher, so the selectivity
@@ -129,6 +178,10 @@ def main(argv=None) -> int:
               f"merge_cap={plan.merge_cap} mesh={plan.mesh_kind} "
               f"predicted_pairs={plan.predicted_join_size:.0f} "
               f"source={plan.source}")
+    if (args.stream and eng.n_shards > 1
+            and cfg.method not in ("nlj", "es_mi", "es_mi_adapt")):
+        ap.error(f"--stream with --shards supports nlj/es_mi/es_mi_adapt, "
+                 f"not {cfg.method}")
 
     trace_path = args.trace or (
         (obs_trace.env_trace_path() or "trace.json")
@@ -137,7 +190,8 @@ def main(argv=None) -> int:
         tracer = obs_trace.enable()
     print(f"[join] {args.regime} |X|={args.n_query} |Y|={args.n_data} "
           f"dim={args.dim} θ={theta:.4f} method={cfg.method} "
-          f"device={device} quant={quant} quant_build={quant_build} "
+          f"device={device} shards={eng.n_shards} quant={quant} "
+          f"quant_build={quant_build} "
           f"overlap={'off' if args.no_overlap else 'on'}")
 
     t0 = time.perf_counter()

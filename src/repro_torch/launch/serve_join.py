@@ -11,7 +11,9 @@ against the exact NLJ of every request:
   PYTHONPATH=src python -m repro_torch.launch.serve_join --tenants 2 \\
       --requests 24 --quants off,sq8 --metrics-json serve_metrics.json
 
-``--device cpu`` runs the plain PyTorch versions instead of the kernels.
+``--device cpu`` runs the plain PyTorch versions instead of the kernels;
+``--shards N --method nlj`` shards every tenant (``--device cpu,cpu
+--shards 2``: two shards on the CPU).
 The exit code is 0 when every tenant's pairs are sound and no kernel
 build happened while serving.
 """
@@ -25,9 +27,9 @@ import numpy as np
 
 from repro_torch.configs.vectorjoin import preset
 from repro_torch.core import exact_join_pairs
-from repro_torch.core.types import QUANT_MODES, resolve_device
+from repro_torch.core.types import QUANT_MODES
 from repro_torch.data.vectors import make_dataset, thresholds
-from repro_torch.engine.engine import SHARDS_UNSUPPORTED
+from repro_torch.launch.join import check_shards, devices_arg, shards_arg
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serve import JoinRequest, JoinService, ServiceConfig
@@ -61,8 +63,10 @@ def main(argv=None) -> int:
                          "to operating points the warmup already ran")
     ap.add_argument("--max-request", type=int, default=192,
                     help="request sizes are drawn from [1, max-request]")
-    ap.add_argument("--shards", default="1",
-                    help="shard every tenant's data side (only 1 here)")
+    ap.add_argument("--shards", type=shards_arg, default=1,
+                    help="shard every tenant's data side over N devices "
+                         "('auto' = one shard per device; see --device); "
+                         "sharded serving requires --method nlj")
     ap.add_argument("--max-queue", type=int, default=1024)
     ap.add_argument("--max-tenants", type=int, default=8)
     ap.add_argument("--no-interleave", action="store_true",
@@ -85,7 +89,8 @@ def main(argv=None) -> int:
                     help="TraceKit span capture of the serving rounds "
                          "(load at ui.perfetto.dev)")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the CUDA card)")
+                    help="torch device (default: the CUDA card), or a "
+                         "comma-separated list of devices, one a shard")
     args = ap.parse_args(argv)
 
     quants = tuple(q.strip() for q in args.quants.split(",") if q.strip())
@@ -93,9 +98,14 @@ def main(argv=None) -> int:
         if q not in QUANT_MODES:
             ap.error(f"unknown quant mode {q!r}")
     buckets = tuple(int(b) for b in args.buckets.split(","))
-    if args.shards.strip() != "1":
-        ap.error(f"--shards {args.shards}: {SHARDS_UNSUPPORTED}")
-    engine_kw = {"device": resolve_device(args.device)}
+    device, mesh = devices_arg(args.device)
+    check_shards(ap, args.shards, device, mesh)
+    if args.shards != 1 and args.method != "nlj":
+        ap.error("--shards: sharded serving supports --method nlj only "
+                 "(search methods need the whole graph resident)")
+    engine_kw = {"device": device}
+    if args.shards != 1:
+        engine_kw.update(n_shards=args.shards, mesh=mesh)
 
     trace_path = args.trace or (
         (obs_trace.env_trace_path() or "trace.json")

@@ -52,8 +52,11 @@ class BandEstimate:
     esc_sketch: float
     esc_band: float
     ood_frac: float
-    shard_occ: tuple[float, ...]
-    shard_true_occ: tuple[float, ...]
+    shard_occ: tuple[float, ...]       # per shard: scaled max per-(query,
+    #                                    shard) band occupancy over the
+    #                                    sharded drivers' contiguous shards
+    shard_true_occ: tuple[float, ...]  # the same from exact in-range counts
+    #                                    (what the mesh NLJ's pool holds)
 
     HEADROOM = 1.25
 
@@ -61,6 +64,15 @@ class BandEstimate:
     def selectivity(self) -> float:
         denom = self.n_queries * self.n_data
         return self.join_size / denom if denom > 0 else 0.0
+
+    @property
+    def shard_imbalance(self) -> float:
+        """Max over mean of the non-empty shards' band occupancy."""
+        occ = [s for s in self.shard_occ if s > 0]
+        if not occ:
+            return 1.0
+        mean = sum(occ) / len(occ)
+        return max(occ) / mean if mean > 0 else 1.0
 
     def rerank_cap(self, pool_cap: int) -> int:
         """Power-of-two band capacity covering the predicted max
@@ -104,6 +116,7 @@ class LshEstimator:
         self.sample_y = sample_y or self.SAMPLE_Y
         self._store: SK.SketchStore | None = None
         self._rows: np.ndarray | None = None   # raw sampled data rows
+        self._y_idx: np.ndarray | None = None
         self._scale = 1.0
         self.n_data = int(Y.shape[0])
 
@@ -116,17 +129,14 @@ class LshEstimator:
         rows = self._Y[torch.as_tensor(y_idx, device=self._Y.device)]
         self._store = SK.build_sketch(rows)
         self._rows = rows.float().cpu().numpy()
+        self._y_idx = np.asarray(y_idx)
         self._scale = N / len(y_idx)
 
     def estimate(self, X_batch, theta: float, *,
                  n_shards: int = 1) -> BandEstimate:
         """One (θ, X-batch) estimate: a query encode + Hamming/bound pass
         on the cached sample plus an exact numpy distance block on the
-        raw rows. One shard only (the port's engine runs unsharded)."""
-        if n_shards != 1:
-            raise NotImplementedError(
-                "per-shard estimates (n_shards != 1) arrive with the "
-                "multi-GPU slice (ROADMAP Queue A slice 13)")
+        raw rows; the occupancies also per shard of ``n_shards``."""
         if isinstance(X_batch, torch.Tensor):
             X_batch = X_batch.detach().cpu().numpy()
         X = np.asarray(X_batch, np.float32)
@@ -166,6 +176,27 @@ class LshEstimator:
             scale=self._scale, occ_max=occ_max, occ_quantiles=occ_q,
             join_size=join_size, esc_sketch=esc_sketch,
             esc_band=esc_band, ood_frac=ood_frac,
-            # one shard: the port's engine runs unsharded
-            shard_occ=(occ_max,),
-            shard_true_occ=(float(true_counts.max()) * self._scale,))
+            shard_occ=self._shard_occ(surv, n_shards),
+            shard_true_occ=self._shard_occ(true, n_shards))
+
+    def _shard_occ(self, surv: np.ndarray, n_shards: int
+                   ) -> tuple[float, ...]:
+        """Scaled max per-(query, shard) survivor count, the sampled rows
+        mapped to the contiguous row shards of the sharded drivers (⌈N/S⌉
+        rows a shard), each scaled by its true rows over its samples."""
+        S = max(int(n_shards), 1)
+        if S == 1:
+            return (float(surv.sum(axis=1).max()) * self._scale,)
+        rows_per = -(-self.n_data // S)
+        shard_of = self._y_idx // rows_per
+        occ = []
+        for s in range(S):
+            cols = shard_of == s
+            n_cols = int(cols.sum())
+            if n_cols == 0:
+                occ.append(0.0)
+                continue
+            true_rows = min(rows_per, self.n_data - s * rows_per)
+            per_q = surv[:, cols].sum(axis=1)
+            occ.append(float(per_q.max()) * (true_rows / n_cols))
+        return tuple(occ)

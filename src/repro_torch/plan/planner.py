@@ -23,8 +23,9 @@ Cost model (first-order, the reference's):
 Plans are cached per (θ, method, quant, wave bucket, shards, pool_cap),
 so repeated batches of one profile reuse the plan. Every number a plan
 carries is a *seed*: caps stay overflow-checked and retried by the wave
-drivers, so a bad estimate costs retry time, never pairs. One shard only:
-the mesh hint and the per-shard estimate arrive with the multi-GPU slice.
+drivers, so a bad estimate costs retry time, never pairs. A sharded
+engine plans with its shard count: the estimate's per-shard occupancy
+seeds the merge cap, and the mesh hint mirrors ``MeshPlan``'s rule.
 """
 from __future__ import annotations
 
@@ -205,13 +206,20 @@ class JoinPlanner:
     @staticmethod
     def _mesh_hint(method: str, est: BandEstimate, n_shards: int,
                    dim: int | None) -> str | None:
-        """The sharded mesh's partitioning hint: None for one shard (the
-        only case the port runs)."""
+        """Informational mirror of ``MeshPlan``'s rule (rows a shard below
+        the hybrid floor with ≥ 2 whole slabs → dimension+vector hybrid);
+        the engine's ``_mesh_plan``, which also knows the devices,
+        decides."""
         if n_shards <= 1:
             return None
-        raise NotImplementedError(
-            "mesh hints (n_shards != 1) arrive with the multi-GPU slice "
-            "(ROADMAP Queue A slice 13)")
+        if method != "nlj":
+            return "vector"          # traversal keeps whole vectors
+        from repro_torch.core.distributed import HYBRID_ROW_FLOOR
+        from repro_torch.quant.pdx import DEFAULT_SLAB
+        rows = -(-est.n_data // max(n_shards, 1))
+        if rows < HYBRID_ROW_FLOOR and dim and dim >= 2 * DEFAULT_SLAB:
+            return "hybrid"
+        return "vector"
 
     def _count(self, name: str) -> None:
         if self.metrics is not None:

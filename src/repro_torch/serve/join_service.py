@@ -35,8 +35,9 @@ Backpressure surfaces through the registry (``_MetricsDict`` over
 ``serve_join.*`` gauges, admission-latency and occupancy histograms,
 TraceKit spans per round and tenant batch); a full queue or an invalid
 request is recorded as failed through ``RequestRejected`` — admission
-never raises into the serving loop. One shard only: the sharded
-tenants' rules arrive with the multi-GPU slice.
+never raises into the serving loop. A sharded tenant serves ``nlj``
+(a planned merged-index method becomes ``nlj`` there); a search method
+on it is rejected, for the search path runs on one device.
 """
 from __future__ import annotations
 
@@ -59,6 +60,8 @@ _BUDGET_STEPS = (0.25, 0.5, 0.75, 1.0)
 # Not servable through the streaming front end: merged-index methods
 # rebuild their index per batch.
 _UNSERVABLE = ("es_mi", "es_mi_adapt")
+# No sharded submit path: the search methods run on one device.
+_SINGLE_DEVICE = ("index", "es", "es_hws", "es_sws")
 
 
 def snap_budget(budget: float) -> float:
@@ -231,7 +234,7 @@ class JoinService:
                 len(req.X), theta=float(req.theta),
                 method=method, quant=quant)
             if method in _UNSERVABLE:
-                method = "es_sws"
+                method = "nlj" if eng.n_shards > 1 else "es_sws"
         wave = (int(req.wave) if req.wave is not None
                 else self.bucket_for(len(req.X)))
         if wave not in self.cfg.buckets:
@@ -275,6 +278,12 @@ class JoinService:
                     f"uid={req.uid}: merged-index methods rebuild per "
                     "batch and are not servable through the streaming "
                     "front end")
+            n_shards = self._tenants[req.tenant].n_shards
+            if req.method in _SINGLE_DEVICE and n_shards > 1:
+                raise RequestRejected(
+                    f"uid={req.uid}: method {req.method!r} has no "
+                    "sharded submit path and is not servable on a "
+                    f"{n_shards}-shard tenant")
         if req.quant is not None and req.quant not in QUANT_MODES:
             raise RequestRejected(
                 f"uid={req.uid}: unknown quant mode {req.quant!r}")

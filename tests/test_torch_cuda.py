@@ -45,7 +45,9 @@ sq8, sketch8, pdx8 and sketchpdx8, and the search path's caching methods;
 and the streaming engine's int8 parents through #6 (bit for bit its own
 arithmetic on the padded carry window; the CPU engine's parents but for
 near-ties) and ``sketch_survivors`` through #8 (the plain Hamming
-counts' masks).
+counts' masks); and the sharded joins on a ``DeviceMesh`` of the card
+twice (the mesh MI join in f32 and sq8, the mesh NLJ) against the same
+calls on a CPU mesh.
 """
 import dataclasses
 import zlib
@@ -1258,3 +1260,55 @@ def test_service_on_the_card_equals_its_direct_replay(dev):
             for f in ("n_dist", "n_iters", "n_rerank", "cache_hits",
                       "cache_evictions", "cache_tombstones"):
                 assert getattr(direct.stats, f) == getattr(sj.stats, f), f
+
+
+def test_sharded_joins_on_the_card_match_the_cpu(dev):
+    """Two shards on ``cuda:0`` (a ``DeviceMesh`` of one card twice): the
+    mesh MI join in f32 and under sq8, on the CPU mesh's per-shard indexes
+    copied to the card, and the mesh NLJ give the CPU mesh's pairs and
+    counters; the NLJ also the card's single-device exact NLJ exactly (both
+    run #1). The MI join launched #3 (f32) and #7′ (sq8), the NLJ #1."""
+    from repro_torch.core import distributed as D
+    from repro_torch.obs.metrics import Metrics
+
+    ds = make_dataset("manifold", n_data=1501, n_query=96, dim=32, seed=3)
+    d2 = np.sort(((ds.X.astype(np.float64)[:, None]
+                   - ds.Y.astype(np.float64)[None]) ** 2).sum(-1), axis=None)
+    theta = float(thresholds(ds, 3)[1])
+    i = np.searchsorted(d2, theta ** 2)
+    theta = float(np.sqrt(0.5 * (d2[i - 1] + d2[i])))   # mid-gap: no ties
+    cpu = torch.device("cpu")
+    smi = D.build_sharded_merged_index(ds.Y, ds.X, 2, devices=(cpu, cpu),
+                                       k=24, degree=12)
+    card = D.ShardedMergedIndex(
+        shards=tuple(_to(g, dev) for g in smi.shards),
+        shard_size=smi.shard_size, n_query=smi.n_query)
+    engines = {}
+    for name, mesh, index in (("cpu", D.DeviceMesh.on_device(cpu, 2), smi),
+                              ("card", D.DeviceMesh.on_device(dev, 2),
+                               card)):
+        eng = JoinEngine(ds.Y, n_shards=2, mesh=mesh, metrics=Metrics())
+        eng.adopt(X=ds.X, index_sharded=index)
+        engines[name] = eng
+    for quant, kernel in (("off", "gather_sq_dists"),
+                          ("sq8", "gather_bounds_int8")):
+        cfg = JoinConfig(theta=theta, wave_size=32, quant=quant)
+        want = engines["cpu"].join(ds.X, cfg)
+        ops.reset_launch_counts()
+        got = engines["card"].join(ds.X, cfg)
+        assert ops.launch_counts()[kernel] > 0, kernel
+        np.testing.assert_array_equal(pair_keys(got.pairs, 1501),
+                                      pair_keys(want.pairs, 1501))
+        for f in ("n_dist", "n_rerank", "overflow_retries", "n_iters",
+                  "band_occ_per_shard", "bytes_allgather"):
+            assert getattr(got.stats, f) == getattr(want.stats, f), f
+        assert len(got.pairs) > 100
+    cfg = JoinConfig(method="nlj", theta=theta, wave_size=32)
+    want = engines["cpu"].join(ds.X, cfg)
+    ops.reset_launch_counts()
+    got = engines["card"].join(ds.X, cfg)
+    assert ops.launch_counts()["pairwise_sq_dists"] > 0
+    single = exact_join_pairs(ds.X, torch.as_tensor(ds.Y, device=dev), theta)
+    for other in (want.pairs, single):
+        np.testing.assert_array_equal(pair_keys(got.pairs, 1501),
+                                      pair_keys(other, 1501))

@@ -52,7 +52,8 @@ def test_every_module_imports_without_jax_or_repro():
     assert {"repro_torch.quant.sketch", "repro_torch.quant.pdx",
             "repro_torch.quant.cascade", "repro_torch.core.ordering",
             "repro_torch.serve.join_service",
-            "repro_torch.plan.planner"} <= set(MODULES)
+            "repro_torch.plan.planner",
+            "repro_torch.core.distributed"} <= set(MODULES)
 
 
 @pytest.fixture

@@ -162,8 +162,10 @@ def test_merged_index_cached_and_sweep(ds_manifold, theta_mid):
 @pytest.mark.parametrize("bad", [dict(method="es_sws"),
                                  dict(method="es_mi_adapt")])
 def test_unported_paths_raise(ds_manifold, bad):
-    """Sharding is not ported yet; streaming (``submit``) is: on the tiny
-    engine a batch gives sound pairs under global query ids."""
+    """Streaming (``submit``): on the tiny engine a batch gives sound pairs
+    under global query ids. Two shards on the one CPU device are refused
+    with the clear error at the first join (a ``DeviceMesh`` can hold
+    them; ``tests/test_torch_distributed.py``)."""
     Y, X = ds_manifold.Y[:50], ds_manifold.X[:8]
     eng = JoinEngine(Y, device=CPU, build_kw=dict(k=8, degree=4))
     theta = float(thresholds(ds_manifold, 3)[2])
@@ -175,8 +177,8 @@ def test_unported_paths_raise(ds_manifold, bad):
     got = pair_keys(res.pairs, 50)
     assert got.size and np.all(res.pairs[:, 0] >= 4)
     assert np.setdiff1d(got, pair_keys(truth, 50)).size == 0     # sound
-    with pytest.raises(NotImplementedError, match="slice 13"):
-        JoinEngine(Y, device=CPU, n_shards=2)
+    with pytest.raises(ValueError, match="device"):
+        JoinEngine(Y, device=CPU, n_shards=2).join(X, cfg, method="nlj")
 
 
 def test_configs_and_stats_mirror_jax():

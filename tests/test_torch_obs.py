@@ -296,12 +296,18 @@ def test_launcher_trace_and_metrics_dump_match_jax(capsys, tmp_path,
             "--quant", "sq8", "--metrics-dump"]
     monkeypatch.setattr(obs_metrics, "_DEFAULT", obs_metrics.Metrics())
     monkeypatch.setattr(jmetrics, "_DEFAULT", jmetrics.Metrics())
+    # a JAX JoinService built earlier in this process (another test file
+    # of the same worker) leaves its XLA-compile listener installed, and
+    # it counts the JAX launcher's compiles as jax_compiles; the launcher
+    # itself registers no such metric
+    listener = jmetrics._compile_listener_installed
     assert launch.main(["--device", "cpu", *argv, "--trace",
                         str(tmp_path / "p.json")]) == 0
     got = capsys.readouterr().out
     assert jlaunch.main(argv + ["--trace", str(tmp_path / "j.json")]) == 0
     want = capsys.readouterr().out
-    assert _metric_names(got) == _metric_names(want)
+    assert _metric_names(got) == (_metric_names(want)
+                                  - ({"jax_compiles"} if listener else set()))
     assert {"join_n_dist", "engine_joins", "wave_pairs_bucket"} <= \
         _metric_names(got)
     assert _trace_summary(tmp_path / "p.json") == \

@@ -571,8 +571,8 @@ def test_golden_identical_pair_set_across_modes():
             cfg = JoinConfig(method=method, theta=theta, traversal=GOLDEN_TC,
                              wave_size=64, quant=quant)
             assert eng.join(ds.X, cfg).pair_set() == truth, (method, quant)
-    assert eng.build_counts == {"index_y": 0, "index_x": 0,
-                                "merged": 1, "quant": 2, "sketch": 2,
+    assert eng.build_counts == {"index_y": 0, "index_x": 0, "merged": 1,
+                                "sharded": 0, "quant": 2, "sketch": 2,
                                 "pdx": 2}
 
 
@@ -588,8 +588,8 @@ def test_stores_are_shared_across_modes(ds_manifold):
     for mode in ("sketch8", "sq8", "pdx8", "sketchpdx8"):
         r = eng.join(X, JoinConfig(theta=theta, quant=mode))
         assert np.setdiff1d(pair_keys(r.pairs, 500), truth).size == 0
-    assert eng.build_counts == {"index_y": 0, "index_x": 0,
-                                "merged": 1, "quant": 1, "sketch": 1,
+    assert eng.build_counts == {"index_y": 0, "index_x": 0, "merged": 1,
+                                "sharded": 0, "quant": 1, "sketch": 1,
                                 "pdx": 1}
     f32 = JoinEngine(Y, build_kw=dict(k=12, degree=8), device=CPU)
     pd = JoinEngine(Y, build_kw=dict(k=12, degree=8, quant="pdx8"),

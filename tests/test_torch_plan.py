@@ -184,12 +184,18 @@ def test_band_estimate_selectivity_and_merge_cap_match_jax(ds, grid,
 
 
 def test_more_than_one_shard_is_refused(ds, grid):
+    """More shards than devices are refused by the mesh plan; the
+    estimator and the planner take a shard count (their per-shard
+    numbers are held to the reference in test_torch_distributed.py)."""
+    from repro_torch.core.distributed import MeshPlan
     est = LshEstimator(torch.from_numpy(ds.Y))
-    with pytest.raises(NotImplementedError, match="slice 13"):
-        est.estimate(ds.X, grid[2], n_shards=2)
+    assert len(est.estimate(ds.X, grid[2], n_shards=2).shard_occ) == 2
     planner = JoinPlanner(est, CostTable())
-    with pytest.raises(NotImplementedError, match="slice 13"):
-        planner.plan(ds.X, theta=grid[2], pool_cap=1024, n_shards=2)
+    assert planner.plan(ds.X, theta=grid[2], pool_cap=1024, n_shards=2,
+                        method="nlj", dim=16).mesh_kind in ("vector",
+                                                            "hybrid")
+    with pytest.raises(ValueError, match="device"):
+        MeshPlan.plan(len(ds.Y), 16, 2, devices=1)
 
 
 def _engines(ds, calibrated: bool):

@@ -143,7 +143,8 @@ def test_sq8_search_join_identical_to_jax(ds_manifold, port_indexes, theta,
     eng, got = _port_join(ds_manifold, port_indexes,
                           _cfg(method, theta, "sq8", overlap))
     assert eng.build_counts == {"index_y": 0, "index_x": 0, "merged": 0,
-                                "quant": 1, "sketch": 0, "pdx": 0}
+                                "sharded": 0, "quant": 1, "sketch": 0,
+                                "pdx": 0}
     fields = ("n_dist", "n_iters", "n_rerank", "n_overflow",
               "quant_bytes") + CACHE_FIELDS
     if not overlap:
@@ -163,7 +164,8 @@ def test_build_counts_per_method(ds_manifold):
     for m in ("index", "es"):
         eng.join(X, JoinConfig(method=m, theta=theta))
     assert eng.build_counts == {"index_y": 1, "index_x": 0, "merged": 0,
-                                "quant": 0, "sketch": 0, "pdx": 0}
+                                "sharded": 0, "quant": 0, "sketch": 0,
+                                "pdx": 0}
     for m in ("es_hws", "es_sws", "es_hws"):
         eng.join(X, JoinConfig(method=m, theta=theta))
     assert (eng.build_counts["index_y"], eng.build_counts["index_x"]) == (1, 1)
@@ -171,7 +173,8 @@ def test_build_counts_per_method(ds_manifold):
     assert eng.build_counts["index_x"] == 2         # another query set
     eng.join(X, JoinConfig(method="es_mi", theta=theta))
     assert eng.build_counts == {"index_y": 1, "index_x": 2, "merged": 1,
-                                "quant": 0, "sketch": 0, "pdx": 0}
+                                "sharded": 0, "quant": 0, "sketch": 0,
+                                "pdx": 0}
 
 
 def test_sweep_builds_one_index(ds_manifold):

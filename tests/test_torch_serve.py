@@ -481,7 +481,12 @@ def _launch_lines(out: str) -> list[str]:
 
 @pytest.mark.parametrize("extra", [["--quants", "off,sq8"],
                                    ["--plan", "auto", "--no-interleave"]])
-def test_launcher_matches_jax(capsys, tmp_path, extra):
+def test_launcher_matches_jax(capsys, tmp_path, monkeypatch, extra):
+    # each launcher on a fresh default registry: its occupancy histogram
+    # would otherwise hold every earlier default-registry service of the
+    # process
+    monkeypatch.setattr(obs_metrics, "_DEFAULT", obs_metrics.Metrics())
+    monkeypatch.setattr(jmetrics, "_DEFAULT", jmetrics.Metrics())
     argv = ["--n-data", "500", "--dim", "16", "--requests", "8",
             "--max-request", "40", "--buckets", "16,32", *extra]
     assert launch.main(["--device", "cpu", *argv,
@@ -499,4 +504,4 @@ def test_launcher_refuses_shards(capsys):
     with pytest.raises(SystemExit) as e:
         launch.main(["--device", "cpu", "--shards", "2"])
     assert e.value.code == 2
-    assert "multi-GPU slice" in capsys.readouterr().err
+    assert "only 1 device(s) visible" in capsys.readouterr().err

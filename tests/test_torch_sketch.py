@@ -375,8 +375,8 @@ def test_sketch8_mi_join_identical_to_jax(case, method):
     eng.adopt(X=ds.X, index_merged=port_index(jidx),
               tier_stores=carried_stores("sketch8", np.asarray(jidx.vecs)))
     got = eng.join(ds.X)
-    assert eng.build_counts == {"index_y": 0, "index_x": 0,
-                                "merged": 0, "quant": 0, "sketch": 0,
+    assert eng.build_counts == {"index_y": 0, "index_x": 0, "merged": 0,
+                                "sharded": 0, "quant": 0, "sketch": 0,
                                 "pdx": 0}
     n = ds.Y.shape[0]
     np.testing.assert_array_equal(pair_keys(got.pairs, n),

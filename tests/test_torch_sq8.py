@@ -122,8 +122,8 @@ def test_sq8_mi_join_identical_to_jax(cases, jax_results, name, method,
     want = jax_results[name, method]
     eng = JoinEngine(ds.Y, default=_cfg(method, theta, overlap), device=CPU)
     got = eng.join(ds.X, index_merged=_port_index(jidx))
-    assert eng.build_counts == {"index_y": 0, "index_x": 0,
-                                "merged": 0, "quant": 1, "sketch": 0,
+    assert eng.build_counts == {"index_y": 0, "index_x": 0, "merged": 0,
+                                "sharded": 0, "quant": 1, "sketch": 0,
                                 "pdx": 0}
     n = ds.Y.shape[0]
     np.testing.assert_array_equal(pair_keys(got.pairs, n),
@@ -213,8 +213,8 @@ def test_sq8_engine_builds_through_the_cascade(ds_manifold):
     assert eng.default.quant == "sq8"
     r1 = eng.join(X, theta=theta)
     r2 = eng.join(X, theta=theta * 1.1)
-    assert eng.build_counts == {"index_y": 0, "index_x": 0,
-                                "merged": 1, "quant": 1, "sketch": 0,
+    assert eng.build_counts == {"index_y": 0, "index_x": 0, "merged": 1,
+                                "sharded": 0, "quant": 1, "sketch": 0,
                                 "pdx": 0}
     f32 = make_engine(Y, "default", k=16, degree=8, device=CPU)
     assert torch.equal(eng.merged_index(X).nbrs, f32.merged_index(X).nbrs)
