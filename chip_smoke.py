@@ -100,6 +100,25 @@ Phases (each raises on failure, so the script exits non-zero):
      (5c) es_mi_adapt under sq8 streamed in two batches of 1,000, each
      building its own merged index, each equal to ``join`` of its queries
      shifted by its offset;
+  5d. the LM serving path, in a process of its own (``--lm-only`` runs
+     it alone): gemma2-9b at its published width and depth (42 layers,
+     d 3,584, vocab 256,000, local window 4,096) in bf16 with random
+     weights from a seeded generator on the card; prefill and one decode
+     step against the full forward on a 4,200-token prompt (past the
+     window: the local layers' rings wrap) and a short one (within
+     LM_TOL, every logit finite); ``ServeEngine`` with LM_SLOTS slots and
+     s_max LM_S_MAX serving LM_REQUESTS prompts of 16-512 tokens and the
+     4,200-token one, LM_MAX_NEW new tokens each (prefill ms, the median
+     decode step at four lanes beside its HBM bound over the lanes' valid
+     K/V and over the whole cache, tokens/s, peak memory; the share of
+     each request's tokens equal to its solo run), then the first four
+     sampled at LM_TEMPERATURE and greedy again (step ms and the token
+     choice's ms of each);
+     then every decodable smoke config in f32 (decode = forward within
+     LM_SMOKE_TOL; two-slot batches = solo runs but for counted flips at
+     near-ties; hubert's engine raises ValueError), and ``python -m
+     repro_torch.launch.serve --arch gemma2_9b`` in a process of its own.
+     It launches none of the eleven kernels;
   6. time each kernel at the main paths' shapes, the gathers also at the
      NLJ's pair block (4,194,304 pairs over a 512-query block), #10 and
      #10′ with early exit on and off, #9′ and #11′ beside the eager
@@ -160,8 +179,10 @@ SEARCH_CUT = 2_000
 # 3b) run on the first MST_CUT queries, over their own G_X, built by the
 # first of them: an MST-order join's iterations fall slowly with its
 # queries (on an H100, PERF.md: 44,320 for 10,000, 19,844 for 2,000, 7,005
-# for 500), and on all 10,000 each of these joins took 70-121 s
-MST_CUT = 500
+# for 500), and on all 10,000 each of these joins took 70-121 s; on 500
+# they took 14.3-16.3 s each in a smoke of 944.2 s with the LM phase 5d
+# (past the 900 s that PERF.md keeps as this script's budget)
+MST_CUT = 250
 SEARCH_RECALL_FLOORS = {"index": 0.935, "es": 0.935, "es_hws": 0.937,
                         "es_sws": 0.937, "es_sws/sq8": 0.912}
 # the profiled OOD join runs on the first PROFILE_QUERIES queries
@@ -3047,6 +3068,362 @@ def run_sharded(torch, ops, run: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5d: the LM serving path (gemma2-9b at full width), in a process of
+# its own (``--lm-only``)
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "gemma2_9b"
+LM_SLOTS, LM_S_MAX = 4, 4_608
+LM_REQUESTS, LM_PROMPTS, LM_MAX_NEW = 8, (16, 512), 32
+# one prompt past the local layers' 4,096-token window: their rings wrap
+LM_LONG = 4_200
+# |prefill or decode logits − forward logits| allowed in bf16 at 42
+# layers: five times the largest reading of the first H100 run (0.0103,
+# decode on the long prompt; PERF.md); the reference allows 2e-2 / 3e-2
+# at 4 layers
+LM_TOL = 0.05
+# the smoke configs in f32: decode = forward within LM_SMOKE_TOL; a
+# batched request's greedy token may differ from its solo run's only where
+# the top two logits lie within LM_TIE (counted)
+LM_SMOKE_TOL = 1e-4
+LM_TIE = 1e-4
+LM_SMOKE_LENGTHS = (3, 24, 9, 17, 5)
+LM_SMOKE_MAX_NEW = 12
+# the temperature of phase 5d's one sampled run
+LM_TEMPERATURE = 0.8
+
+
+def lm_positions(torch, mc, n: int, start: int = 0):
+    p = torch.arange(start, start + n, dtype=torch.int32, device=DEV)[None]
+    return torch.stack([p] * mc.pos_dims, -1) if mc.pos_dims > 1 else p
+
+
+def lm_prompt(mc, rng, n: int) -> np.ndarray:
+    if mc.input_kind == "embeddings":
+        return rng.normal(size=(n, mc.frontend_dim)).astype(np.float32)
+    return rng.integers(0, mc.vocab, n).astype(np.int32)
+
+
+def lm_forward_logits(torch, M, model, mc, parts, n_last: int):
+    """The full forward's f32 logits at the last ``n_last`` positions of
+    the sequence ``parts`` (token ids or frames, (1, n, ...) tensors)
+    embedded and concatenated: qwen2-vl's frames then its text tokens."""
+    h = torch.cat([M._embed_inputs(model, p) for p in parts], 1)
+    pos = lm_positions(torch, mc, h.shape[1])
+    with torch.inference_mode():
+        for blk in model.layers:
+            h = blk(h, pos, exact_moe=True)
+    h = M.rms_norm(h[:, -n_last:], model.final_norm)
+    return M.logits_fn(model, h)[0]
+
+
+def lm_decode_vs_forward(torch, M, model, mc, prompt, tok, s_max: int
+                         ) -> tuple[float, float, float]:
+    """Prefill ``prompt`` (1, S, ...), decode ``tok`` (1, 1): max |logit −
+    forward logit| at the last prompt position and at the next one, and
+    the prefill's seconds (synchronized). Every logit must be finite."""
+    S = prompt.shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, caches = M.prefill(model, prompt, lm_positions(torch, mc, S), s_max)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    lg2, _ = M.decode_step(model, tok, lm_positions(torch, mc, 1, S),
+                           caches, torch.tensor([S], device=DEV))
+    want = lm_forward_logits(torch, M, model, mc, (prompt, tok), 2)
+    for got in (lg, lg2, want):
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{mc.name}: non-finite logits")
+    return (float((lg[0] - want[0]).abs().max()),
+            float((lg2[0] - want[1]).abs().max()), sec)
+
+
+def lm_flips(torch, M, model, mc, req, got: list, alone: list) -> int:
+    """Where a request's batched tokens leave its solo run's: 0 if they
+    agree, 1 if they first part where the solo run's top two logits lie
+    within LM_TIE (a near-tie the batch shape may round either way);
+    otherwise the run is wrong."""
+    j = next((i for i, (a, b) in enumerate(zip(got, alone)) if a != b), None)
+    if j is None and len(got) == len(alone):
+        return 0
+    if j is None:
+        raise AssertionError(f"{mc.name} uid {req.uid}: {len(got)} tokens "
+                             f"against {len(alone)} alone")
+    prompt = torch.from_numpy(np.asarray(req.prompt)).to(DEV)[None]
+    toks = torch.tensor([alone[:j]], dtype=torch.int32, device=DEV)
+    top2 = torch.topk(lm_forward_logits(torch, M, model, mc,
+                                        (prompt, toks), 1)[0], 2).values
+    gap = float(top2[0] - top2[1])
+    if gap > LM_TIE:
+        raise AssertionError(
+            f"{mc.name} uid {req.uid}: batched token {j} = {got[j]}, alone "
+            f"{alone[j]}, top-two gap {gap:.3g} > {LM_TIE}")
+    return 1
+
+
+def lm_quartiles(steps, field: int) -> str:
+    """'median (q1-q3)' of one field of ``lm_serve_timed``'s steps."""
+    q1, q2, q3 = statistics.quantiles([st[field] for st in steps], n=4)
+    return f"{q2:.3f} ({q1:.3f}-{q3:.3f})"
+
+
+def lm_serve_timed(torch, mc, eng, reqs):
+    """``eng.run(reqs)`` timed (synchronized), each decode step timed with
+    its active lanes, the K/V bytes of their valid positions (a global
+    layer's first length + 1 rows, a ring layer's at most its window) and
+    the ms of its token choice (``_pick``, timed from a synchronize after
+    the step's logits). Every request must come back whole."""
+    steps, picks = [], []
+    step, pick = eng.step, eng._pick
+
+    def timed_pick(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = pick(*a)
+        picks.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def timed_step():
+        lanes = [i for i, sl in enumerate(eng.slots) if sl.active]
+        kv = sum(min(int(eng.lengths[i]) + 1, c["k"].shape[1])
+                 * (c["k"][0, 0].nbytes + c["v"][0, 0].nbytes)
+                 for c in eng.caches for i in lanes)
+        picks.clear()
+        t = time.perf_counter()
+        step()
+        steps.append((len(lanes), (time.perf_counter() - t) * 1e3, kv,
+                      sum(picks)))
+    eng.step, eng._pick = timed_step, timed_pick
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    # the wrappers close over eng: unset them, so that dropping the engine
+    # frees its caches at once, not at the next garbage collection
+    del eng.step, eng._pick
+    if sorted(done) != [r.uid for r in reqs] or eng.failed or any(
+            len(done[r.uid]) != r.max_new for r in reqs):
+        raise AssertionError(f"{mc.name}: served {sorted(done)}, failed "
+                             f"{eng.failed}")
+    return eng, done, serve_s, steps
+
+
+def lm_smoke_archs(torch) -> None:
+    """Every decodable smoke config in f32 on the card: prefill and decode
+    = the forward within LM_SMOKE_TOL, and a 2-slot engine gives each
+    request its solo run's greedy tokens (near-tie flips counted);
+    hubert's engine raises ValueError."""
+    from repro_torch.configs import ARCH_IDS, get
+    from repro_torch.models import model as M
+    from repro_torch.obs.metrics import Metrics
+    from repro_torch.serve import Request, ServeEngine
+
+    rng = np.random.default_rng(31)
+    for arch in ARCH_IDS:
+        mc = get(arch).smoke.with_overrides(dtype=torch.float32)
+        model = M.init_params(mc, device=DEV, generator=torch.Generator(
+            device=DEV).manual_seed(2))
+        if mc.encoder_only:
+            try:
+                ServeEngine(mc, model, n_slots=2, s_max=32, device=DEV)
+            except ValueError:
+                log(f"[lm/smoke] {arch}: encoder-only, ServeEngine raised "
+                    f"ValueError")
+                continue
+            raise AssertionError(f"{arch}: ServeEngine did not refuse an "
+                                 f"encoder-only model")
+        prompt = torch.from_numpy(lm_prompt(mc, rng, 20)).to(DEV)[None]
+        tok = torch.from_numpy(rng.integers(0, mc.vocab, (1, 1)).astype(
+            np.int32)).to(DEV)
+        e_pre, e_dec, _ = lm_decode_vs_forward(torch, M, model, mc, prompt,
+                                               tok, 32)
+        if max(e_pre, e_dec) > LM_SMOKE_TOL:
+            raise AssertionError(f"{arch}: prefill/decode vs forward "
+                                 f"{e_pre:.3g} / {e_dec:.3g} > "
+                                 f"{LM_SMOKE_TOL}")
+        reqs = [Request(uid=i, prompt=lm_prompt(mc, rng, n),
+                        max_new=LM_SMOKE_MAX_NEW)
+                for i, n in enumerate(LM_SMOKE_LENGTHS)]
+        eng = ServeEngine(mc, model, n_slots=2, s_max=48, metrics=Metrics(),
+                          device=DEV)
+        done = eng.run(reqs)
+        if sorted(done) != list(range(len(reqs))) or eng.failed:
+            raise AssertionError(f"{arch}: served {sorted(done)}, failed "
+                                 f"{eng.failed}")
+        flips = sum(lm_flips(torch, M, model, mc, r, done[r.uid], ServeEngine(
+            mc, model, n_slots=2, s_max=48, metrics=Metrics(),
+            device=DEV).run([r])[r.uid]) for r in reqs)
+        log(f"[lm/smoke] {arch}: prefill/decode vs forward {e_pre:.3g} / "
+            f"{e_dec:.3g}; {len(reqs)} requests batched = alone, near-tie "
+            f"flips {flips}; occupancy "
+            f"{eng.stats['occupancy_sum'] / eng.stats['decode_steps']:.4f}")
+
+
+def run_lm(torch, smi: str) -> None:
+    """gemma2-9b at its published width and depth, bf16, random weights
+    from a seeded generator on the card, served by ``ServeEngine``; then
+    the smoke configs in f32, then ``launch.serve`` in a process of its
+    own."""
+    from repro_torch.configs import get
+    from repro_torch.models import model as M
+    from repro_torch.obs.metrics import Metrics
+    from repro_torch.serve import Request, ServeEngine
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mc = get(LM_ARCH).model
+    n_params = M.param_count(mc)
+    t0 = time.perf_counter()
+    model = M.init_params(mc, device=DEV, generator=torch.Generator(
+        device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"[lm] {mc.name}: {mc.n_layers} layers, d {mc.d_model}, "
+        f"{n_params} parameters, {w_bytes / 1e9:.3f} GB of weights, drawn "
+        f"in {time.perf_counter() - t0:.2f}s ({smi})")
+
+    rng = np.random.default_rng(23)
+    prompts = [lm_prompt(mc, rng, int(rng.integers(LM_PROMPTS[0],
+                                                   LM_PROMPTS[1] + 1)))
+               for _ in range(LM_REQUESTS)]
+    prompts.append(lm_prompt(mc, rng, LM_LONG))
+    # decode vs forward: the long prompt (through the ring) and a short one
+    errs = {}
+    for name, pr in (("long", prompts[-1]), ("short", prompts[0])):
+        x = torch.from_numpy(pr).to(DEV)[None]
+        tok = torch.from_numpy(rng.integers(0, mc.vocab, (1, 1)).astype(
+            np.int32)).to(DEV)
+        lm_decode_vs_forward(torch, M, model, mc, x, tok, LM_S_MAX)  # warm
+        e_pre, e_dec, sec = errs[name] = lm_decode_vs_forward(
+            torch, M, model, mc, x, tok, LM_S_MAX)
+        log(f"[lm] {name} prompt ({len(pr)} tokens): |prefill - forward| "
+            f"{e_pre:.6f}, |decode - forward| {e_dec:.6f} (tolerance "
+            f"{LM_TOL}); prefill {sec * 1e3:.3f} ms ({smi})")
+        if max(e_pre, e_dec) > LM_TOL:
+            raise AssertionError(f"{mc.name}: {name} prompt's logits differ "
+                                 f"from the forward's by {max(e_pre, e_dec)}")
+
+    reqs = [Request(uid=i, prompt=p, max_new=LM_MAX_NEW)
+            for i, p in enumerate(prompts)]
+    eng, done, serve_s, steps = lm_serve_timed(
+        torch, mc, ServeEngine(mc, model, n_slots=LM_SLOTS, s_max=LM_S_MAX,
+                               metrics=Metrics(), device=DEV), reqs)
+    full = [st for st in steps if st[0] == LM_SLOTS]
+    step_ms = statistics.median(st[1] for st in full)
+    # the HBM bound of a step: the weights, plus the K/V rows of each
+    # active lane's valid positions (what the step needs), or of every
+    # slot of every cache (what decode_attend reads now)
+    bound = statistics.median((w_bytes + st[2]) / PEAK_BYTES * 1e3
+                              for st in full)
+    kv_whole = sum(c[k].numel() * c[k].element_size()
+                   for c in eng.caches for k in ("k", "v"))
+    bound_whole = (w_bytes + kv_whole) / PEAK_BYTES * 1e3
+    occ = eng.stats["occupancy_sum"] / eng.stats["decode_steps"]
+    tok_s = eng.stats["generated"] / serve_s
+    log(f"[lm] served {len(done)} requests ({eng.stats['generated']} tokens, "
+        f"prompts {min(map(len, prompts))}-{max(map(len, prompts))}) in "
+        f"{serve_s:.3f}s = {tok_s:.1f} tokens/s; "
+        f"{eng.stats['decode_steps']} decode steps, occupancy {occ:.4f}; "
+        f"decode step at {LM_SLOTS} lanes {lm_quartiles(full, 1)} ms over "
+        f"{len(full)} steps against its HBM bound {bound:.3f} ms (median of "
+        f"the steps': weights {w_bytes / 1e9:.3f} GB + the valid K/V, "
+        f"{statistics.median(st[2] for st in full) / 1e9:.3f} GB at the "
+        f"median, at {PEAK_BYTES / 1e12:.2f} TB/s); with the whole cache "
+        f"that decode_attend reads ({kv_whole / 1e9:.3f} GB) "
+        f"{bound_whole:.3f} ms; token choice {lm_quartiles(full, 3)} ms a "
+        f"step ({smi})")
+    del eng
+    # one sampled run over the first LM_SLOTS requests, one full wave
+    # (temperature LM_TEMPERATURE: Gumbel noise drawn on the card, one
+    # argmax over the lanes)
+    eng, sampled, _, steps2 = lm_serve_timed(
+        torch, mc, ServeEngine(mc, model, n_slots=LM_SLOTS, s_max=LM_S_MAX,
+                               temperature=LM_TEMPERATURE, seed=5,
+                               metrics=Metrics(), device=DEV),
+        reqs[:LM_SLOTS])
+    full2 = [st for st in steps2 if st[0] == LM_SLOTS]
+    step_ms2 = statistics.median(st[1] for st in full2)
+    if not all(0 <= t < mc.vocab for t in sum(sampled.values(), [])):
+        raise AssertionError(f"{mc.name}: a sampled token outside the vocab")
+    as_greedy = sum(a == b for u, out in sampled.items()
+                    for a, b in zip(out, done[u]))
+    log(f"[lm] sampled (temperature {LM_TEMPERATURE}), the first "
+        f"{LM_SLOTS} requests: decode step at {LM_SLOTS} lanes "
+        f"{lm_quartiles(full2, 1)} ms over {len(full2)} steps, token choice "
+        f"{lm_quartiles(full2, 3)} ms a step; share of tokens equal to "
+        f"greedy {as_greedy / (LM_SLOTS * LM_MAX_NEW):.4f} ({smi})")
+    del eng
+    # the same wave greedy again, right after: the like-for-like greedy
+    # step beside the sampled one
+    eng, again, _, steps3 = lm_serve_timed(
+        torch, mc, ServeEngine(mc, model, n_slots=LM_SLOTS, s_max=LM_S_MAX,
+                               metrics=Metrics(), device=DEV),
+        reqs[:LM_SLOTS])
+    full3 = [st for st in steps3 if st[0] == LM_SLOTS]
+    step_ms3 = statistics.median(st[1] for st in full3)
+    as_before = sum(a == b for u, out in again.items()
+                    for a, b in zip(out, done[u]))
+    log(f"[lm] greedy again, the first {LM_SLOTS} requests: decode step at "
+        f"{LM_SLOTS} lanes {lm_quartiles(full3, 1)} ms over {len(full3)} "
+        f"steps, token choice {lm_quartiles(full3, 3)} ms a step; share of "
+        f"tokens equal to the first greedy run "
+        f"{as_before / (LM_SLOTS * LM_MAX_NEW):.4f} ({smi})")
+    del eng
+    same = []
+    for r in reqs:
+        alone = ServeEngine(mc, model, n_slots=LM_SLOTS, s_max=LM_S_MAX,
+                            metrics=Metrics(), device=DEV).run([r])[r.uid]
+        same.append(sum(a == b for a, b in zip(done[r.uid], alone))
+                    / LM_MAX_NEW)
+    log(f"[lm] share of each request's greedy tokens equal to its solo "
+        f"run: {[round(x, 4) for x in same]}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[lm] peak device memory {peak:.3f} GB; gemma2-9b part "
+        f"{time.perf_counter() - t_phase:.1f}s ({smi})")
+    print("[lm] " + json.dumps(dict(
+        arch=LM_ARCH, params=n_params, weight_gb=w_bytes / 1e9,
+        peak_gb=peak, prefill_ms_long=errs["long"][2] * 1e3,
+        decode_ms_median=step_ms, decode_bound_ms=bound,
+        decode_bound_whole_cache_ms=bound_whole, tokens_per_s=tok_s,
+        decode_steps=len(steps), decode_ms_median_sampled=step_ms2,
+        decode_ms_median_greedy_again=step_ms3,
+        pick_ms_median=statistics.median(st[3] for st in full),
+        pick_ms_median_sampled=statistics.median(st[3] for st in full2),
+        token_share_alone=same)), flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    lm_smoke_archs(torch)
+    log(f"[lm/smoke] nine smoke configs in {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         LM_ARCH], capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(SRC)))
+    for line in out.stdout.splitlines():
+        log(f"[lm/cli] {line}")
+    if out.returncode != 0 or not out.stdout.startswith("[serve] "):
+        raise AssertionError(f"launch.serve exited {out.returncode}:\n"
+                             f"{out.stderr[-4000:]}")
+    log(f"[lm/cli] exit 0 in {time.perf_counter() - t0:.1f}s")
+    log(f"[lm] phase 5d {time.perf_counter() - t_phase:.1f}s")
+
+
+def run_lm_process() -> None:
+    """Phase 5d in a process of its own, so the join phases' memory and
+    profiler do not touch it; its failure fails the smoke."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--lm-only"], timeout=900)
+    if out.returncode != 0:
+        raise AssertionError(f"the LM phase exited {out.returncode}")
+    log(f"[lm] process done in {time.perf_counter() - t0:.1f}s")
+
+
 def check_launched(run: dict, kernels) -> None:
     """Every kernel of the path was launched during its join (build
     included)."""
@@ -3167,6 +3544,10 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} card {smi}")
 
+    if "--lm-only" in sys.argv[1:]:
+        run_lm(torch, smi)                   # phase 5d alone: no kernels
+        log(f"[done] LM only, {time.perf_counter() - t_all:.1f}s")
+        return 0                             # no contract line: not the run
     t0 = time.perf_counter()
     _build.load()
     log(f"[build] kernels ready in {time.perf_counter() - t0:.2f}s "
@@ -3242,6 +3623,8 @@ def main() -> int:
                     nlj_kernels=SKETCHPDX8_NLJ_KERNELS)
     stream_mi = run_stream_mi(torch, ops, ood8)
     del ood8["eng"]
+    torch.cuda.empty_cache()
+    run_lm_process()
 
     table = time_kernels(torch, ops, ref, pd8["band_frac"])
     trace_pair_block(torch)

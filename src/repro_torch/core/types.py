@@ -28,9 +28,11 @@ def resolve_device(device=None) -> torch.device:
 
     Raises when ``None`` is given and no CUDA device is visible, so nothing
     quietly runs on the CPU; tests pass ``device="cpu"`` explicitly. Also
-    pins f32 matrix products to full IEEE f32 (TF32 off)."""
+    pins f32 matrix products to full IEEE f32 (TF32 off) and bf16 products
+    to f32 sums throughout (no reduced-precision split-K reduction)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -1,1 +1,1 @@
-"""Launchers: the join command line."""
+"""Launchers: the join, join-serving and LM-serving command lines."""

@@ -1,0 +1,110 @@
+"""Memory-bounded attention for the 10-arch zoo (port of
+``repro.models.attention``), in plain torch.
+
+``chunked_attend`` is online-softmax attention over (q_blk, kv_blk) tiles,
+so logits never grow past one tile; ``decode_attend`` is one unchunked
+pass for a single query position against a whole cache. Both take GQA
+(grouped, no KV repetition), causal or bidirectional masks, sliding
+windows and logit soft-capping, and mask on *absolute* positions (kv
+position −1 marks an empty cache slot). No library attention: SDPA has
+neither the soft-cap nor masks from absolute positions.
+
+Everything is computed in f32 as the reference does: q is scaled in f32
+before the product, masked logits are −1e30, and the normaliser is
+floored at 1e-30 for padded rows that every key masks.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_NEG = -1e30
+
+
+def _block_mask(qp: torch.Tensor, kp: torch.Tensor, *, causal: bool,
+                window: int | None) -> torch.Tensor:
+    """(B, q_blk, kv_blk) bool mask from (B, q_blk), (B, kv_blk) positions."""
+    kp, qp = kp[:, None, :], qp[:, :, None]
+    m = kp >= 0
+    if causal:
+        m = m & (kp <= qp)
+    if window is not None:
+        m = m & (kp > qp - window)
+    return m
+
+
+def _softcap(logits: torch.Tensor, softcap: float | None) -> torch.Tensor:
+    return softcap * torch.tanh(logits / softcap) if softcap else logits
+
+
+def chunked_attend(q, k, v, q_pos, kv_pos, *, causal: bool = True,
+                   window: int | None = None, softcap: float | None = None,
+                   q_blk: int = 512, kv_blk: int = 1024,
+                   scale: float | None = None) -> torch.Tensor:
+    """Online-softmax attention.
+
+    q: (B, Sq, H, hd); k: (B, Skv, K, hd); v: (B, Skv, K, hd_v), H % K == 0;
+    q_pos (B, Sq), kv_pos (B, Skv) absolute positions (−1: empty slot).
+    Returns (B, Sq, H, hd_v) in q's dtype.
+    """
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    hd_v = v.shape[-1]
+    G = H // K
+    scale = scale if scale is not None else 1.0 / np.sqrt(hd)
+    q_blk, kv_blk = min(q_blk, Sq), min(kv_blk, Skv)
+    qpad, kpad = (-Sq) % q_blk, (-Skv) % kv_blk
+    pad = lambda t, n, val=0: torch.nn.functional.pad(
+        t, (0, 0) * (t.dim() - 2) + (0, n), value=val) if n else t
+    qf = pad(q, qpad)
+    qp = pad(q_pos, qpad, -(2**30))
+    kf, vf, kp = pad(k, kpad), pad(v, kpad), pad(kv_pos, kpad, -1)
+    nq, nk = qf.shape[1] // q_blk, kf.shape[1] // kv_blk
+    qt = qf.reshape(B, nq * q_blk, K, G, hd).float() * scale
+    outs = []
+    for i in range(nq):
+        qs = slice(i * q_blk, (i + 1) * q_blk)
+        qb, qpb = qt[:, qs], qp[:, qs]
+        m_run = torch.full((B, K, G, q_blk), _NEG, device=q.device)
+        l_run = torch.zeros((B, K, G, q_blk), device=q.device)
+        acc = torch.zeros((B, K, G, q_blk, hd_v), device=q.device)
+        for j in range(nk):
+            ks = slice(j * kv_blk, (j + 1) * kv_blk)
+            logits = _softcap(torch.einsum("bqkgh,bskh->bkgqs", qb,
+                                           kf[:, ks].float()), softcap)
+            mask = _block_mask(qpb, kp[:, ks], causal=causal, window=window)
+            logits = torch.where(mask[:, None, None], logits, _NEG)
+            m_new = torch.maximum(m_run, logits.amax(-1))
+            alpha = torch.exp(m_run - m_new)
+            p = torch.exp(logits - m_new[..., None])
+            l_run = l_run * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqs,bskh->bkgqh", p, vf[:, ks].float())
+            m_run = m_new
+        out = acc / l_run[..., None].clamp_min(1e-30)     # (B,K,G,q_blk,hd_v)
+        outs.append(out.permute(0, 3, 1, 2, 4))
+    out = torch.cat(outs, 1).reshape(B, nq * q_blk, H, hd_v)
+    return out[:, :Sq].to(q.dtype)
+
+
+def decode_attend(q, k, v, q_pos, kv_pos, *, window: int | None = None,
+                  softcap: float | None = None,
+                  scale: float | None = None) -> torch.Tensor:
+    """Decode attention (Sq == 1) against a whole KV cache, in one pass:
+    the logits are (B, H, Skv)."""
+    B, Sq, H, hd = q.shape
+    K = k.shape[2]
+    hd_v = v.shape[-1]
+    G = H // K
+    scale = scale if scale is not None else 1.0 / np.sqrt(hd)
+    qf = q.reshape(B, Sq, K, G, hd).float() * scale
+    logits = _softcap(torch.einsum("bqkgh,bskh->bkgqs", qf, k.float()),
+                      softcap)
+    kp, qp = kv_pos[:, None, :], q_pos[:, :, None]
+    mask = (kp >= 0) & (kp <= qp)
+    if window is not None:
+        mask = mask & (kp > qp - window)
+    logits = torch.where(mask[:, None, None], logits, _NEG)
+    probs = torch.softmax(logits, -1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v.float())
+    return out.reshape(B, Sq, H, hd_v).to(q.dtype)

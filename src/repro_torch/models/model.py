@@ -1,0 +1,243 @@
+"""Unified language model over the block zoo (port of ``repro.models.model``).
+
+A model is: input embedding (token table, or a stub frontend projection
+for the [audio]/[vlm] archs) → ``n_layers`` blocks, G repetitions of a
+*period* of ``BlockCfg``s → final RMS-norm → output head.
+
+The reference stacks each period member's parameters on a leading group
+axis and scans over the groups; the port holds the layers unstacked in a
+``ModuleList``, layer ``g·P + m`` being group g's period member m, and
+loops over them. Caches are one dict per layer in that order. Parameters
+keep the reference's ``(in, out)`` layout, so carrying its weights
+(``params_from_numpy``) only unstacks the group axis.
+
+Entry points run on the card unless the caller names a device:
+``init_params`` and ``params_from_numpy`` with ``device=None`` raise
+without one.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.core.types import resolve_device
+from repro_torch.models import blocks as B
+from repro_torch.models.layers import ParamInit, dot_f32, rms_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    vocab: int
+    period: tuple[B.BlockCfg, ...]
+    dtype: torch.dtype = torch.bfloat16
+    input_kind: str = "tokens"        # tokens | embeddings (stub frontend)
+    frontend_dim: int | None = None   # raw frame/patch embedding width
+    encoder_only: bool = False        # hubert: no decode path
+    tie_embeddings: bool = False
+    final_softcap: float | None = None  # gemma2 final-logit soft-capping
+    emb_scale: bool = False             # gemma2 scales embeddings by √d
+    remat: str = "full"                 # training only: no effect here
+    pos_dims: int = 1                   # 3 ⇒ M-RoPE (t, h, w) position ids
+
+    @property
+    def n_groups(self) -> int:
+        assert self.n_layers % len(self.period) == 0, (
+            self.n_layers, len(self.period))
+        return self.n_layers // len(self.period)
+
+    def with_overrides(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def block_cfg(self, layer: int) -> B.BlockCfg:
+        return self.period[layer % len(self.period)]
+
+
+class Model(nn.Module):
+    """The model's parameters: ``embed`` (vocab, d), ``in_proj`` (frontend
+    archs), ``layers`` (n_layers ``Block``s), ``final_norm`` and ``head``
+    (untied archs)."""
+
+    def __init__(self, cfg: ModelConfig, init: ParamInit):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = init.dense((cfg.vocab, cfg.d_model), cfg.dtype)
+        if cfg.input_kind == "embeddings":
+            self.in_proj = init.dense((cfg.frontend_dim, cfg.d_model),
+                                      cfg.dtype)
+        self.layers = nn.ModuleList(
+            B.Block(cfg.block_cfg(i), cfg.dtype, init)
+            for i in range(cfg.n_layers))
+        self.final_norm = init.zeros((cfg.d_model,))
+        if not cfg.tie_embeddings:
+            self.head = init.dense((cfg.d_model, cfg.vocab), cfg.dtype)
+
+    def forward(self, inputs, positions, *, exact_moe: bool = False):
+        return forward(self, inputs, positions, exact_moe=exact_moe)
+
+
+# ---------------------------------------------------------------------------
+# init / weight carry / counts
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, *, device=None,
+                generator: torch.Generator | None = None) -> Model:
+    """A model with random weights drawn on ``device`` (``None``: the
+    card) from ``generator`` (a generator on that device; seed 0 if
+    none)."""
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    return Model(cfg, ParamInit(device, generator))
+
+
+def params_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> Model:
+    """The reference's ``init_params`` pytree, as numpy arrays, carried
+    into a ``Model`` on ``device`` (``None``: the card) computing the same
+    function. ``tree["layers"]`` is a tuple of P dicts with (G, ...)
+    leaves; layer ``g·P + m`` takes ``tree["layers"][m][...][g]``. bf16
+    leaves (ml_dtypes) are carried through f32, which is lossless."""
+    device = resolve_device(device)
+    model = Model(cfg, ParamInit("meta")).to_empty(device=device)
+    P = len(cfg.period)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            path = name.split(".")
+            if path[0] == "layers":
+                i = int(path[1])
+                leaf = tree["layers"][i % P]
+                for key in path[2:]:
+                    leaf = leaf[key]
+                leaf = np.asarray(leaf)[i // P]
+            else:
+                leaf = np.asarray(tree[name])
+            if (tuple(leaf.shape), leaf.dtype.name) != (
+                    tuple(p.shape), str(p.dtype).removeprefix("torch.")):
+                raise ValueError(f"{name}: {leaf.dtype}{leaf.shape} is not "
+                                 f"the port's {p.dtype}{tuple(p.shape)}")
+            if leaf.dtype.name == "bfloat16":
+                leaf = leaf.astype(np.float32)
+            p.copy_(torch.from_numpy(np.array(leaf)))
+    return model
+
+
+def _shapes(cfg: ModelConfig):
+    """(name, shape) of every parameter, allocating nothing."""
+    return [(n, p.shape) for n, p in
+            Model(cfg, ParamInit("meta")).named_parameters()]
+
+
+def param_count(cfg: ModelConfig) -> int:
+    return sum(int(np.prod(s)) for _, s in _shapes(cfg))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: top_k of the routed experts):
+    a layer tensor whose leading axis is the expert axis counts k/E of
+    itself, the reference's rule on its (G, E, ...) stacked leaves."""
+    moe = next((bc.moe for bc in cfg.period if bc.moe is not None), None)
+    total = 0
+    for name, shape in _shapes(cfg):
+        n = int(np.prod(shape))
+        if (moe is not None and name.startswith("layers.")
+                and len(shape) >= 2 and shape[0] == moe.n_experts):
+            n = n // moe.n_experts * moe.top_k
+        total += n
+    return total
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _embed_inputs(model: Model, inputs: torch.Tensor) -> torch.Tensor:
+    """Token ids → table lookup; float frame/patch embeddings → the stub
+    frontend projection. Dispatch on dtype, so [vlm]/[audio] archs take
+    embeddings at prefill and text tokens at decode."""
+    cfg = model.cfg
+    if inputs.dtype.is_floating_point:
+        h = torch.matmul(inputs.to(cfg.dtype), model.in_proj)
+    else:
+        h = model.embed[inputs.long()]
+    if cfg.emb_scale:
+        h = (h.float() * np.sqrt(cfg.d_model)).to(cfg.dtype)
+    return h
+
+
+@torch.inference_mode()
+def forward(model: Model, inputs, positions, *, exact_moe: bool = False
+            ) -> torch.Tensor:
+    """Full-sequence forward → final-normed hidden states (B, S, d).
+    ``exact_moe``: capacity = T in MoE dispatch (no drops), the inference
+    semantics."""
+    h = _embed_inputs(model, inputs)
+    for blk in model.layers:
+        h = blk(h, positions, exact_moe=exact_moe)
+    return rms_norm(h, model.final_norm)
+
+
+@torch.inference_mode()
+def logits_fn(model: Model, h: torch.Tensor) -> torch.Tensor:
+    """f32 logits (not rounded to the model's dtype), soft-capped for
+    gemma2."""
+    cfg = model.cfg
+    w = model.embed.t() if cfg.tie_embeddings else model.head
+    out = dot_f32(h, w)
+    if cfg.final_softcap:
+        out = cfg.final_softcap * torch.tanh(out / cfg.final_softcap)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# prefill / decode
+# ---------------------------------------------------------------------------
+
+def init_caches(cfg: ModelConfig, batch: int, s_max: int, device
+                ) -> list[dict]:
+    """Empty decode caches, one dict per layer."""
+    return [B.block_init_cache(cfg.block_cfg(i), batch, s_max, cfg.dtype,
+                               device) for i in range(cfg.n_layers)]
+
+
+@torch.inference_mode()
+def prefill(model: Model, inputs, positions, s_max: int
+            ) -> tuple[torch.Tensor, list[dict]]:
+    """Consume a prompt; return (last-position logits (B, V) f32, caches)."""
+    h = _embed_inputs(model, inputs)
+    caches = []
+    for blk in model.layers:
+        h, c = blk.prefill(h, positions, s_max)
+        caches.append(c)
+    h = rms_norm(h[:, -1:], model.final_norm)
+    return logits_fn(model, h)[:, 0], caches
+
+
+@torch.inference_mode()
+def decode_step(model: Model, tokens, positions, caches: list[dict],
+                cache_index) -> tuple[torch.Tensor, list[dict]]:
+    """One decode step. tokens (B, 1) int (or (B, 1, fd) embeddings);
+    positions (B, 1) (or (B, 1, 3)); cache_index (B,) = tokens so far per
+    lane (ragged: continuous batching). Attention and latent caches are
+    updated in place. Returns (logits (B, V) f32, the caches)."""
+    h = _embed_inputs(model, tokens)
+    new = []
+    for blk, c in zip(model.layers, caches):
+        h, c = blk.decode(h, positions, c, cache_index)
+        new.append(c)
+    h = rms_norm(h[:, -1:], model.final_norm)
+    return logits_fn(model, h)[:, 0], new
+
+
+@torch.inference_mode()
+def embed_sequence(model: Model, inputs, positions, *, pool: str = "last"
+                   ) -> torch.Tensor:
+    """Final hidden states pooled to one f32 vector per sequence."""
+    h = forward(model, inputs, positions)
+    if pool == "mean":
+        return h.float().mean(1)
+    return h[:, -1, :].float()

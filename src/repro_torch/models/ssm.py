@@ -1,0 +1,210 @@
+"""Linear-recurrence mixers (port of ``repro.models.ssm``): RWKV6 (Finch)
+and Mamba-1 (Jamba's SSM), each over a full sequence or with its state
+carried from a previous call (one-token decode).
+
+RWKV6 runs the reference's chunked closed form: within a chunk only
+*differences* of cumulative log-decays are exponentiated, and the
+sequence is padded to a chunk multiple with zero decay, so the chunk
+boundaries (and hence the rounding) are the reference's. Mamba's
+selective scan is sequential per token; the reference's chunking only
+bounds its backward memory, and its padded steps leave the state as it
+is, so the port scans the S real tokens.
+
+JAX names: ``rwkv6_init``/``rwkv6_apply`` are ``RWKV6``/``RWKV6.forward``;
+``mamba_init``/``mamba_apply`` are ``Mamba``/``Mamba.forward``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from repro_torch.models.layers import ParamInit, rms_norm
+
+
+# ---------------------------------------------------------------------------
+# RWKV6
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RWKV6Config:
+    d_model: int
+    n_heads: int               # head_dim = d_model // n_heads
+    decay_lora: int = 64       # low-rank data-dependent decay
+    chunk: int = 64
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+
+def _rwkv6_chunk(r, k, v, logw, u, state):
+    """One chunk of the wkv recurrence.
+
+    r/k/v: (B,H,Q,hd); logw: (B,H,Q,hd) per-channel log-decay (≤ 0);
+    u: (H,hd) bonus; state: (B,H,hd,hd) [k-dim × v-dim].
+    S_t = diag(a_t) S_{t-1} + k_tᵀ v_t, a_t = exp(logw_t);
+    y_t = r_t·S_{t-1} + (r_t·(u ⊙ k_t)) v_t.
+    """
+    Q = r.shape[2]
+    L = torch.cumsum(logw, dim=2)                         # inclusive
+    Lprev = L - logw                                      # exclusive
+    y = torch.einsum("bhqc,bhcv->bhqv", r * torch.exp(Lprev), state)
+    diff = Lprev[:, :, :, None, :] - L[:, :, None, :, :]  # (B,H,Q,Q,hd)
+    ar = torch.arange(Q, device=r.device)
+    tri = (ar[:, None] > ar[None, :])[None, None, :, :, None]
+    D = torch.where(tri, torch.exp(diff), 0.0)
+    scores = (r[:, :, :, None, :] * k[:, :, None, :, :] * D).sum(-1)
+    y = y + torch.einsum("bhts,bhsv->bhtv", scores, v)
+    y = y + (r * (u[None, :, None, :] * k)).sum(-1)[..., None] * v
+    Lq = L[:, :, -1:, :]                                  # (B,H,1,hd)
+    k_scaled = k * torch.exp(Lq - L)
+    state = state * torch.exp(Lq[:, :, 0, :, None]) + torch.einsum(
+        "bhsc,bhsv->bhcv", k_scaled, v)
+    return y, state
+
+
+class RWKV6(nn.Module):
+    def __init__(self, cfg: RWKV6Config, dtype, init: ParamInit):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.head_dim
+        self.cfg = cfg
+        self.mix = init.uniform((5, d), dtype)
+        self.r = init.dense((d, d), dtype)
+        self.k = init.dense((d, d), dtype)
+        self.v = init.dense((d, d), dtype)
+        self.g = init.dense((d, d), dtype)
+        self.o = init.dense((d, d), dtype)
+        self.w_base = init.normal((d,), torch.float32, -5.0, 0.1)
+        self.w_a = init.dense((d, cfg.decay_lora), dtype)
+        self.w_b = init.dense((cfg.decay_lora, d), dtype,
+                              fan_in=cfg.decay_lora)
+        self.u = init.normal((cfg.n_heads, hd), torch.float32, 0.0, 0.3)
+        self.ln = init.zeros((d,))
+
+    def forward(self, x: torch.Tensor, state: dict | None = None):
+        """state: dict(s=(B,H,hd,hd) f32, shift=(B,d) the last token).
+        Returns (y, new_state)."""
+        cfg = self.cfg
+        B, S, d = x.shape
+        H, hd = cfg.n_heads, cfg.head_dim
+        prev = (torch.zeros((B, 1, d), dtype=x.dtype, device=x.device)
+                if state is None else state["shift"][:, None, :].to(x.dtype))
+        xs = torch.cat([prev, x[:, :-1]], 1)
+        mix = self.mix.float()
+
+        def mixed(i):
+            m = mix[i]
+            return (x.float() * m + xs.float() * (1 - m)).to(x.dtype)
+
+        heads = lambda t: t.reshape(B, S, H, hd).transpose(1, 2)
+        r = heads(torch.matmul(mixed(0), self.r))
+        k = heads(torch.matmul(mixed(1), self.k))
+        v = heads(torch.matmul(mixed(2), self.v))
+        g = torch.matmul(mixed(3), self.g)
+        w = self.w_base.float() + torch.matmul(torch.matmul(mixed(4), self.w_a),
+                                         self.w_b).float()
+        logw = heads(-torch.exp(w))                         # ≤ 0
+        u = self.u.float()
+        s = (torch.zeros((B, H, hd, hd), device=x.device) if state is None
+             else state["s"])
+        Q = min(cfg.chunk, S)
+        pad = (-S) % Q                 # zero decay: pads change nothing
+        zpad = lambda t: F.pad(t, (0, 0, 0, pad)) if pad else t
+        r, k, v, logw = zpad(r), zpad(k), zpad(v), zpad(logw)
+        ys = []
+        for c in range(r.shape[2] // Q):
+            cs = slice(c * Q, (c + 1) * Q)
+            y, s = _rwkv6_chunk(r[:, :, cs].float(), k[:, :, cs].float(),
+                                v[:, :, cs].float(), logw[:, :, cs], u, s)
+            ys.append(y)
+        y = torch.cat(ys, 2)[:, :, :S].transpose(1, 2).reshape(B, S, d)
+        y = rms_norm(y.to(x.dtype), self.ln)
+        y = (F.silu(g.float()) * y.float()).to(x.dtype)
+        return torch.matmul(y, self.o), dict(s=s, shift=x[:, -1, :])
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 (Jamba's SSM mixer)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MambaConfig:
+    d_model: int
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int | None = None
+    chunk: int = 64
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def rank(self) -> int:
+        return self.dt_rank or max(self.d_model // 16, 1)
+
+
+def _mamba_inner_scan(h, dt, B_in, C_in, xin, A):
+    """Sequential selective scan. h: (B, di, n); dt/xin: (B, S, di);
+    B_in/C_in: (B, S, n); A: (di, n). Returns (h, y (B, S, di))."""
+    ys = []
+    for t in range(dt.shape[1]):
+        da = torch.exp(dt[:, t, :, None] * A[None])
+        h = da * h + (dt[:, t] * xin[:, t])[:, :, None] * B_in[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, C_in[:, t]))
+    return h, torch.stack(ys, 1)
+
+
+class Mamba(nn.Module):
+    def __init__(self, cfg: MambaConfig, dtype, init: ParamInit):
+        super().__init__()
+        d, di, n, r = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.rank
+        self.cfg = cfg
+        self.in_proj = init.dense((d, 2 * di), dtype)
+        self.conv = init.dense((cfg.d_conv, di), dtype, fan_in=cfg.d_conv)
+        self.conv_b = init.zeros((di,))
+        self.x_proj = init.dense((di, r + 2 * n), dtype)
+        self.dt_proj = init.dense((r, di), dtype, fan_in=r)
+        lo, hi = np.log(0.001), np.log(0.1)
+        self.dt_bias = init.param(
+            (di,), torch.float32, lambda t: t.uniform_(
+                0, 1, generator=init.generator).mul_(hi - lo).add_(lo)
+            .exp_().expm1_().log_())
+        self.A_log = init.const(np.log(np.tile(
+            np.arange(1, n + 1, dtype=np.float32)[None, :], (di, 1))))
+        self.D = init.const(np.ones((di,), np.float32))
+        self.out_proj = init.dense((di, d), dtype, fan_in=di)
+
+    def forward(self, x: torch.Tensor, state: dict | None = None):
+        """state: dict(h=(B,di,n) f32, conv=(B,d_conv-1,di)). Returns
+        (y, new_state)."""
+        cfg = self.cfg
+        B, S, d = x.shape
+        di, n = cfg.d_inner, cfg.d_state
+        xi, z = torch.matmul(x, self.in_proj).chunk(2, dim=-1)
+        prev = (torch.zeros((B, cfg.d_conv - 1, di), dtype=xi.dtype,
+                            device=x.device)
+                if state is None else state["conv"].to(xi.dtype))
+        xc = torch.cat([prev, xi], 1)
+        conv_w = self.conv.float()
+        xi = sum(xc[:, i:i + S].float() * conv_w[i]
+                 for i in range(cfg.d_conv))
+        xi = F.silu(xi + self.conv_b).to(x.dtype)
+        new_conv = xc[:, S:]
+        proj = torch.matmul(xi, self.x_proj).float()
+        dt_low, B_in, C_in = proj.split([cfg.rank, n, n], dim=-1)
+        dt = F.softplus(torch.matmul(dt_low.to(x.dtype), self.dt_proj).float()
+                        + self.dt_bias)
+        A = -torch.exp(self.A_log)
+        h = (torch.zeros((B, di, n), device=x.device) if state is None
+             else state["h"])
+        xf = xi.float()
+        h, y = _mamba_inner_scan(h, dt, B_in, C_in, xf, A)
+        y = y + xf * self.D
+        y = (y * F.silu(z.float())).to(x.dtype)
+        return torch.matmul(y, self.out_proj), dict(h=h, conv=new_conv)

@@ -47,8 +47,12 @@ arithmetic on the padded carry window; the CPU engine's parents but for
 near-ties) and ``sketch_survivors`` through #8 (the plain Hamming
 counts' masks); and the sharded joins on a ``DeviceMesh`` of the card
 twice (the mesh MI join in f32 and sq8, the mesh NLJ) against the same
-calls on a CPU mesh.
+calls on a CPU mesh. The LM serving path: every smoke config's forward,
+prefill and ragged decode in f32 on the card against the CPU within
+rtol = atol = 1e-4, and ``ServeEngine`` on the card giving the CPU's
+greedy tokens.
 """
+import copy
 import dataclasses
 import zlib
 
@@ -56,12 +60,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import ARCH_IDS
+from repro_torch.configs import get as arch_spec
 from repro_torch.core import JoinConfig, build_index, exact_join_pairs
 from repro_torch.core.graph import BuildStats
 from repro_torch.core.types import GraphIndex, pair_keys
 from repro_torch.data.vectors import make_dataset, thresholds
 from repro_torch.engine import JoinEngine
 from repro_torch.kernels import ops, ref
+from repro_torch.models import model as LM
 from repro_torch.quant import build_store, dequantize, quantize_queries
 from repro_torch.quant.cascade import MATMUL_GUARD, Int8Queries, Int8Tier
 
@@ -1312,3 +1319,118 @@ def test_sharded_joins_on_the_card_match_the_cpu(dev):
     for other in (want.pairs, single):
         np.testing.assert_array_equal(pair_keys(got.pairs, 1501),
                                       pair_keys(other, 1501))
+
+
+def _lm_inputs(mc, rng, b: int, s: int, start=0):
+    """Inputs (tokens or frames) and positions ((b, s), or three M-RoPE
+    streams) of the LM tests."""
+    x = (rng.normal(size=(b, s, mc.frontend_dim)).astype(np.float32)
+         if mc.input_kind == "embeddings"
+         else rng.integers(0, mc.vocab, (b, s)).astype(np.int32))
+    t = np.arange(s, dtype=np.int32) + np.asarray(start, np.int32).reshape(
+        -1, 1)
+    t = np.broadcast_to(t, (b, s)).copy()
+    p = np.stack([t, t // 2, t % 3], -1) if mc.pos_dims == 3 else t
+    return torch.from_numpy(x), torch.from_numpy(p)
+
+
+def _lm_pair(arch: str, dev):
+    """An arch's smoke config in f32 and one set of random weights on the
+    CPU and on the card."""
+    mc = arch_spec(arch).smoke.with_overrides(dtype=torch.float32)
+    cpu = LM.init_params(mc, device="cpu",
+                         generator=torch.Generator().manual_seed(1))
+    return mc, cpu, copy.deepcopy(cpu).to(dev)
+
+
+def _lm_close(got, want):
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_lm_on_the_card_matches_the_cpu(dev, arch):
+    """Forward (and logits), then for decodable archs prefill of a 7- and a
+    20-token prompt into two lanes (20 passes the smoke window of 16) and
+    four decode steps at their ragged lengths: logits and every cache leaf
+    on the card = the CPU's within 1e-4."""
+    mc, cpu, card = _lm_pair(arch, dev)
+    rng = np.random.default_rng(zlib.crc32(arch.encode()))
+    x, p = _lm_inputs(mc, rng, 2, 12)
+    h = LM.forward(card, x.to(dev), p.to(dev))
+    h_cpu = LM.forward(cpu, x, p)
+    _lm_close(h, h_cpu)
+    _lm_close(LM.logits_fn(card, h), LM.logits_fn(cpu, h_cpu))
+    if mc.encoder_only:
+        return
+    lens = np.array([7, 20], np.int32)
+    caches = {d: LM.init_caches(mc, 2, 32, d) for d in ("cpu", dev)}
+    models = {"cpu": cpu, dev: card}
+    for lane, n in enumerate(lens):
+        x, p = _lm_inputs(mc, rng, 1, int(n))
+        out = {d: LM.prefill(m, x.to(d), p.to(d), 32)
+               for d, m in models.items()}
+        _lm_close(out[dev][0], out["cpu"][0])
+        for d, (_, one) in out.items():
+            for c, c1 in zip(caches[d], one):
+                for k in c:
+                    c[k][lane] = c1[k][0]
+    for i in range(4):
+        tok = torch.from_numpy(rng.integers(0, mc.vocab, (2, 1)).astype(
+            np.int32))
+        _, p = _lm_inputs(mc, rng, 2, 1, lens + i)
+        ci = torch.from_numpy(lens + i)
+        out = {d: LM.decode_step(m, tok.to(d), p.to(d), caches[d], ci.to(d))
+               for d, m in models.items()}
+        _lm_close(out[dev][0], out["cpu"][0])
+    for a, b in zip(caches[dev], caches["cpu"]):
+        for k in a:
+            _lm_close(a[k], b[k])
+
+
+@pytest.mark.parametrize("arch", ["tinyllama_1_1b", "gemma2_9b",
+                                  "deepseek_v2_236b", "jamba_1_5_large_398b",
+                                  "qwen2_vl_72b"])
+def test_serve_engine_on_the_card_matches_the_cpu(dev, arch):
+    """Two slots, seven requests (prompts of 3 to 24 tokens, 12 new each):
+    the card's greedy tokens and stats = the CPU's."""
+    from repro_torch.obs.metrics import Metrics
+    from repro_torch.serve import Request, ServeEngine
+
+    mc, cpu, card = _lm_pair(arch, dev)
+    rng = np.random.default_rng(8)
+    reqs = [Request(uid=i, prompt=_lm_inputs(mc, rng, 1, n)[0][0].numpy(),
+                    max_new=12)
+            for i, n in enumerate((3, 24, 9, 17, 5, 24, 11))]
+    runs = {d: ServeEngine(mc, m, n_slots=2, s_max=40, metrics=Metrics(),
+                           device=d) for d, m in (("cpu", cpu), (dev, card))}
+    done = {d: eng.run(reqs) for d, eng in runs.items()}
+    assert done[dev] == done["cpu"] and len(done["cpu"]) == len(reqs)
+    assert dict(runs[dev].stats) == dict(runs["cpu"].stats)
+
+
+def test_sampled_decoding_on_the_card_is_deterministic_and_lane_independent(
+        dev):
+    """Sampled decoding with the noise drawn on the card: a rerun gives the
+    same tokens, and a request's tokens do not depend on the other lane."""
+    from repro_torch.obs.metrics import Metrics
+    from repro_torch.serve import Request, ServeEngine
+
+    mc, _, card = _lm_pair("tinyllama_1_1b", dev)
+    rng = np.random.default_rng(13)
+    prompts = [_lm_inputs(mc, rng, 1, n)[0][0].numpy() for n in (5, 9, 14)]
+
+    def run(prs, slots):
+        eng = ServeEngine(mc, card, n_slots=slots, s_max=40, temperature=0.8,
+                          seed=9, metrics=Metrics(), device=dev)
+        return eng.run([Request(uid=i, prompt=p, max_new=12)
+                        for i, p in enumerate(prs)])
+
+    both = run(prompts, 2)
+    assert both == run(prompts, 2)
+    assert both[0] == run(prompts[:1], 1)[0]
+    assert both[2] == run([np.zeros(0, np.int32)] * 2 + prompts[2:], 2)[2]
+    greedy = ServeEngine(mc, card, n_slots=2, s_max=40, metrics=Metrics(),
+                         device=dev).run([Request(uid=i, prompt=p, max_new=12)
+                                          for i, p in enumerate(prompts)])
+    assert greedy != both

@@ -15,8 +15,11 @@ import repro_torch
 from repro_torch.configs.vectorjoin import make_engine
 from repro_torch.engine import JoinEngine
 from repro_torch.launch import join as launch_join
+from repro_torch.configs import get
+from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import serve_join as launch_serve_join
-from repro_torch.serve import JoinService
+from repro_torch.models import model as M
+from repro_torch.serve import JoinService, ServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 MODULES = sorted(m.name for m in pkgutil.walk_packages(
@@ -53,7 +56,12 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.quant.cascade", "repro_torch.core.ordering",
             "repro_torch.serve.join_service",
             "repro_torch.plan.planner",
-            "repro_torch.core.distributed"} <= set(MODULES)
+            "repro_torch.core.distributed",
+            "repro_torch.models.layers", "repro_torch.models.attention",
+            "repro_torch.models.ssm", "repro_torch.models.blocks",
+            "repro_torch.models.model", "repro_torch.configs.registry",
+            "repro_torch.configs.gemma2_9b", "repro_torch.launch.serve",
+            "repro_torch.serve.engine"} <= set(MODULES)
 
 
 @pytest.fixture
@@ -81,6 +89,22 @@ def test_entry_points_refuse_the_cpu_by_default(no_cuda):
     eng = JoinEngine(Y, device="cpu")                 # named: allowed
     assert eng.Y.device.type == "cpu"
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_lm_entry_points_refuse_the_cpu_by_default(no_cuda):
+    mc = get("tinyllama_1_1b").smoke
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        M.init_params(mc)
+    model = M.init_params(mc, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        M.params_from_numpy(mc, {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(mc, model, n_slots=1, s_max=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_serve.main(["--arch", "tinyllama_1_1b", "--smoke"])
+    assert ServeEngine(mc, model, n_slots=1, s_max=8,
+                       device="cpu").device.type == "cpu"   # named: allowed
+    assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
 
 
 def test_launcher_on_cpu_reports_recall(capsys):
