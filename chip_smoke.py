@@ -40,8 +40,9 @@ Phases (each raises on failure, so the script exits non-zero):
      ``JoinConfig()`` (es_mi_adapt, quant off, overlap on) — on sift-like
      data (d = 128) at |Y| = 1,000,000, |X| = 10,000; check that every
      pair is sound in float64, that recall against the exact NLJ on the
-     card meets the floor, that its kernels were launched, and that
-     overlap off gives the same pairs;
+     card meets the floor, and that its kernels were launched (its
+     overlap-off rerun is cut for time: the OOD path, the search path, the
+     streams and the sharded join hold overlap on = off);
   3b. on the same engine: ``ops.nlj_count`` over all 10,000 queries in
      one launch against the exact NLJ's per-query pair counts; then the
      search path — es_sws (building G_Y and G_X), es and index on the
@@ -91,12 +92,13 @@ Phases (each raises on failure, so the script exits non-zero):
      build (its kNN lists must equal the f32 build's but for ties at the
      k-th distance; its mean ms per bound block is logged), the join on
      certified int8 bounds with the exact re-rank of the ambiguous band
-     (sound, the same pairs with overlap on and off, recall against the
-     f32 NLJ), and ``method="nlj"`` under sq8
+     (sound, recall against the f32 NLJ; no overlap-off rerun, as in 3),
+     and ``method="nlj"`` under sq8
      (the f32 NLJ's pairs but for counted pairs within 16 f32 ulps of θ);
   5. the OOD path: laion-like data (d = 64), |Y| = 200,000, |X| = 2,000,
-     where the hybrid BBFS must run (n_ood > 0), with the same checks, in
-     f32 and under sq8; then sketchpdx8 on the sq8 engine's index, and
+     where the hybrid BBFS must run (n_ood > 0), with the same checks and
+     overlap off = on, in f32 and under sq8; then sketchpdx8 on the sq8
+     engine's index (overlap and early exit off = on), and
      (5c) es_mi_adapt under sq8 streamed in two batches of 1,000, each
      building its own merged index, each equal to ``join`` of its queries
      shifted by its offset;
@@ -111,7 +113,8 @@ Phases (each raises on failure, so the script exits non-zero):
      4,200-token one, LM_MAX_NEW new tokens each (prefill ms, the median
      decode step at four lanes beside its HBM bound over the lanes' valid
      K/V and over the whole cache, tokens/s, peak memory; the share of
-     each request's tokens equal to its solo run), then the first four
+     the first four requests' tokens equal to their solo runs), then the
+     first four
      sampled at LM_TEMPERATURE and greedy again (step ms and the token
      choice's ms of each);
      then every decodable smoke config in f32 (decode = forward within
@@ -119,6 +122,20 @@ Phases (each raises on failure, so the script exits non-zero):
      near-ties; hubert's engine raises ValueError), and ``python -m
      repro_torch.launch.serve --arch gemma2_9b`` in a process of its own.
      It launches none of the eleven kernels;
+  5e. the LM training path, in a process of its own (``--train-only``
+     runs it alone): ``dot_f32``'s backward on the card = the CPU
+     route's; tinyllama-1.1b at its published width and depth (22 layers,
+     d 2,048, vocab 32,000) in bf16, random weights from a seeded
+     generator on the card, TRAIN_STEPS steps of TRAIN_BATCH × TRAIN_SEQ
+     ``SyntheticLM`` tokens in TRAIN_MICRO micro-batches through
+     ``Trainer`` (AdamW with bf16 moments, warmup-cosine): every loss
+     finite, the last below the first; step ms, tokens/s, peak memory and
+     the step's bound (``train_bound_ms``) logged; one more step under
+     torch.profiler; then one step of every smoke config in f32 on the card
+     = the same step on the CPU (loss, aux, grad norm), and ``python -m
+     repro_torch.launch.train --smoke`` twice in processes of their own,
+     the second resuming from the first one's checkpoint. It launches
+     none of the eleven kernels;
   6. time each kernel at the main paths' shapes, the gathers also at the
      NLJ's pair block (4,194,304 pairs over a 512-query block), #10 and
      #10′ with early exit on and off, #9′ and #11′ beside the eager
@@ -1708,14 +1725,15 @@ def sync_us(torch, n: int = 1000) -> float:
 
 
 def run_join(torch, ops, name: str, n_data: int, n_query: int,
-             theta_idx: int, *, spec="default", base: dict | None = None
-             ) -> dict:
+             theta_idx: int, *, spec="default", base: dict | None = None,
+             overlap_off: bool = True) -> dict:
     """Drive one path through ``make_engine(Y, spec).join`` with the
     default ``JoinConfig`` at θ = thresholds(ds, 7)[theta_idx]: build and
     join with the launch counts reset just before and read just after,
-    soundness in float64, recall against the f32 exact NLJ, and overlap
-    off on the cached index with identical pairs. ``base`` is the f32 run
-    of the same data: its dataset and exact pairs are reused."""
+    soundness in float64, recall against the f32 exact NLJ, and (with
+    ``overlap_off``) overlap off on the cached index with identical
+    pairs. ``base`` is the f32 run of the same data: its dataset and exact
+    pairs are reused."""
     from repro_torch.configs.vectorjoin import make_engine
     from repro_torch.core import JoinConfig, exact_join_pairs
     from repro_torch.core.graph import BuildStats
@@ -1805,16 +1823,17 @@ def run_join(torch, ops, name: str, n_data: int, n_query: int,
 
     # the same join with overlap off, on the cached index: identical pairs
     seq_cfg = dataclasses.replace(cfg, overlap=False)
-    t0 = time.perf_counter()
-    seq = eng.join(ds.X, seq_cfg)
-    torch.cuda.synchronize()
-    seq_s = time.perf_counter() - t0
-    if not torch.equal(card_keys(torch, seq.pairs, n_data),
-                       card_keys(torch, res.pairs, n_data)):
-        raise AssertionError(f"{tag}: overlap on/off pair sets differ")
-    log(f"[{tag}] overlap on join_s={join_s:.2f} off join_s={seq_s:.2f} "
-        f"(identical pairs) ms_per_iter on {ms_iter:.3f} off "
-        f"{seq_s / max(seq.stats.n_iters, 1) * 1e3:.3f}")
+    if overlap_off:
+        t0 = time.perf_counter()
+        seq = eng.join(ds.X, seq_cfg)
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+        if not torch.equal(card_keys(torch, seq.pairs, n_data),
+                           card_keys(torch, res.pairs, n_data)):
+            raise AssertionError(f"{tag}: overlap on/off pair sets differ")
+        log(f"[{tag}] overlap on join_s={join_s:.2f} off join_s={seq_s:.2f} "
+            f"(identical pairs) ms_per_iter on {ms_iter:.3f} off "
+            f"{seq_s / max(seq.stats.n_iters, 1) * 1e3:.3f}")
     merged = eng.merged_index(ds.X)
     return dict(recall=rec, launches=launches, n_ood=st.n_ood, pairs=pairs,
                 n_dist=st.n_dist, n_iters=st.n_iters,
@@ -1916,14 +1935,15 @@ def check_nlj(torch, ops, run: dict, kernels, *, mode: str | None = None,
 
 
 def run_mode(torch, ops, run: dict, mode: str, *, floor: float, kernels,
-             nlj_kernels) -> dict:
+             nlj_kernels, overlap_off: bool = True) -> dict:
     """Phases 4b/5b: the merged-index join and the NLJ under ``mode`` on
     the engine and merged index of an earlier sq8 run (no second index
     build; the int8 store is shared, the sketch/PDX stores are built once).
     Checks: the launch counts of ``kernels`` (reset just before, read just
     after), every pair sound in float64, recall against the f32 NLJ at
     least ``floor``, escalations under a sketch tier; then the same pairs
-    with overlap off and (PDX) with early exit off; and the NLJ (PDX tier
+    (with ``overlap_off``) with overlap off and (PDX) with early exit off;
+    and the NLJ (PDX tier
     0: on and off, the same pairs and n_rerank, and fewer dimensions
     scanned than a full scan)."""
     from repro_torch.quant.cascade import TIERS_BY_MODE
@@ -1980,7 +2000,8 @@ def run_mode(torch, ops, run: dict, mode: str, *, floor: float, kernels,
         raise AssertionError(f"{tag} join launched the bare {bare}")
 
     want = card_keys(torch, pairs, n_data)
-    variants = [("overlap off", dataclasses.replace(cfg, overlap=False))]
+    variants = ([("overlap off", dataclasses.replace(cfg, overlap=False))]
+                if overlap_off else [])
     if "pdx" in names:
         variants.append(("early exit off", dataclasses.replace(
             cfg, traversal=dataclasses.replace(cfg.traversal,
@@ -3372,13 +3393,13 @@ def run_lm(torch, smi: str) -> None:
         f"{as_before / (LM_SLOTS * LM_MAX_NEW):.4f} ({smi})")
     del eng
     same = []
-    for r in reqs:
+    for r in reqs[:LM_SLOTS]:             # the smoke's time limit
         alone = ServeEngine(mc, model, n_slots=LM_SLOTS, s_max=LM_S_MAX,
                             metrics=Metrics(), device=DEV).run([r])[r.uid]
         same.append(sum(a == b for a, b in zip(done[r.uid], alone))
                     / LM_MAX_NEW)
-    log(f"[lm] share of each request's greedy tokens equal to its solo "
-        f"run: {[round(x, 4) for x in same]}")
+    log(f"[lm] share of the first {LM_SLOTS} requests' greedy tokens equal "
+        f"to their solo runs: {[round(x, 4) for x in same]}")
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"[lm] peak device memory {peak:.3f} GB; gemma2-9b part "
         f"{time.perf_counter() - t_phase:.1f}s ({smi})")
@@ -3422,6 +3443,239 @@ def run_lm_process() -> None:
     if out.returncode != 0:
         raise AssertionError(f"the LM phase exited {out.returncode}")
     log(f"[lm] process done in {time.perf_counter() - t0:.1f}s")
+
+
+# ---------------------------------------------------------------------------
+# phase 5e: the LM training path (tinyllama-1.1b at full width), in a
+# process of its own (``--train-only``)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "tinyllama_1_1b"
+# 8 sequences of the model's published 2,048-token context a step, in two
+# micro-batches of 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 2_048, 2, 8
+# peak lr: on an H100 (PERF.md) 1e-3 diverged after the 2-step
+# warmup (10.76 → 12.99) and 2e-4 spiked (8.73 → 12.30) before falling
+TRAIN_LR, TRAIN_WARMUP = 5e-5, 2
+# H100 SXM dense bf16 peak on the tensor cores (NVIDIA data sheet)
+PEAK_BF16_FLOPS = 989e12
+# the smoke configs in f32: one step's loss, aux and grad norm on the card
+# = the CPU's within TRAIN_SMOKE_RTOL (relative; sums in another order)
+TRAIN_SMOKE_RTOL = 1e-4
+# |dot_f32's grads on the card − the CPU route's|, relative to the largest
+# grad: both round an f32 sum to bf16, so within a bf16 ulp (2^-8)
+DOT_BWD_RTOL = 2.0**-8
+
+
+def train_bound_ms(mc, M, tokens: int, seqs: int, seq: int
+                   ) -> tuple[float, float]:
+    """The least time of one training step on one H100: 6 × (parameters
+    that enter a product: all but the token table of an untied model) ×
+    tokens at the bf16 peak, plus the attention products a causal model
+    needs at the f32 peak (they run in f32, TF32 off): QKᵀ and PV, 2
+    flops a multiply-add over the S²/2 causal pairs, H heads of hd, and
+    the backward's four products twice the forward's two, so 3 · 2 · 2 ·
+    S²/2 · H · hd = 6 · S² · H · hd a layer and sequence. Returns (bound
+    ms, its bf16 part ms)."""
+    n = M.param_count(mc) - (0 if mc.tie_embeddings else mc.vocab * mc.d_model)
+    mm_ms = 6 * n * tokens / PEAK_BF16_FLOPS * 1e3
+    attn = sum(6 * seq * seq * bc.attn.n_heads * bc.attn.head_dim
+               for bc in mc.period if bc.mixer == "attn") * mc.n_groups * seqs
+    return mm_ms + attn / PEAK_F32_FLOPS * 1e3, mm_ms
+
+
+def train_smoke_archs(torch) -> None:
+    """Every arch's smoke config in f32 takes one training step (AdamW,
+    f32 moments) from the same weights and batch on the card and on the
+    CPU: loss, aux and grad norm within TRAIN_SMOKE_RTOL."""
+    from repro_torch.configs import ARCH_IDS, get
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+
+    rng = np.random.default_rng(41)
+    for arch in ARCH_IDS:
+        mc = get(arch).smoke.with_overrides(dtype=torch.float32)
+        data = SyntheticLM(vocab=mc.vocab, seq_len=16, global_batch=4,
+                           seed=7, pos_dims=mc.pos_dims).batch_at(0)
+        if mc.input_kind == "embeddings":
+            # frames drawn here: SyntheticLM's frontend frames raise, in the
+            # reference as in the port (ROADMAP Queue C)
+            data["inputs"] = rng.normal(size=(4, 16, mc.frontend_dim)
+                                        ).astype(np.float32)
+        cpu = M.init_params(mc, device="cpu", generator=torch.Generator(
+            ).manual_seed(3))
+        out = {}
+        for dev in ("cpu", DEV):
+            model = M.params_from_numpy(mc, M.params_to_numpy(mc, cpu), dev)
+            opt = adamw()
+            params = dict(model.named_parameters())
+            step = make_train_step(mc, opt, lambda s: 1e-3, microbatches=2)
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+            _, _, m = step(model, opt.init(params), batch, 0)
+            out[dev] = {k: float(m[k]) for k in ("loss", "aux", "grad_norm")}
+        errs = {k: abs(out[DEV][k] - out["cpu"][k])
+                / max(abs(out["cpu"][k]), 1e-12) for k in out["cpu"]}
+        log(f"[train/smoke] {arch}: card {out[DEV]} cpu {out['cpu']}; "
+            f"relative errors {max(errs.values()):.3g}")
+        if not all(np.isfinite(v) for v in out[DEV].values()) or max(
+                errs.values()) > TRAIN_SMOKE_RTOL:
+            raise AssertionError(f"{arch}: the card's step {out[DEV]} is not "
+                                 f"the CPU's {out['cpu']}")
+
+
+def check_dot_f32_backward(torch) -> None:
+    """``dot_f32``'s card route (bf16 operands, ``torch.mm`` with an f32
+    output, which has no derivative of its own: ``layers._MmF32``) under
+    autograd: its grads = the CPU route's (the operands upcast, the f32
+    cotangents rounded to bf16, as the reference's ``dot_general``
+    transposes give them) within DOT_BWD_RTOL."""
+    from repro_torch.models.layers import dot_f32
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn(2, 64, 256, generator=gen).bfloat16()
+    w = (torch.randn(256, 1000, generator=gen) / 16).bfloat16()
+    r = torch.randn(2, 64, 1000, generator=gen)
+    grads = {}
+    for dev in ("cpu", DEV):
+        xd = x.to(dev, copy=True).requires_grad_(True)
+        wd = w.to(dev, copy=True).requires_grad_(True)
+        out = dot_f32(xd, wd)
+        if out.dtype != torch.float32:
+            raise AssertionError(f"dot_f32 returned {out.dtype} on {dev}")
+        (out * r.to(dev)).sum().backward()
+        grads[dev] = (xd.grad.float().cpu(), wd.grad.float().cpu())
+    for name, a, b in zip(("x", "w"), grads["cpu"], grads[DEV]):
+        err = float((a - b).abs().max() / a.abs().max())
+        log(f"[train/dot_f32] grad of {name} on the card vs the CPU route: "
+            f"{err:.3g} of the largest (tolerance {DOT_BWD_RTOL:.3g})")
+        if err > DOT_BWD_RTOL:
+            raise AssertionError(f"dot_f32's backward on the card: {name} "
+                                 f"off by {err}")
+
+
+def profile_train_step(torch, step_fn, state, batch, step: int) -> None:
+    """One more training step under torch.profiler: the device's busy
+    time against the wall time of the step, and the device ops that take
+    the most time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step_fn(state.params, state.opt_state, batch, step)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in rows) / 1e6
+    log(f"[train/profile] one step: device busy {busy:.3f}s of a profiled "
+        f"wall {wall:.3f}s (share {busy / wall:.3f}); "
+        f"{sum(e.count for e in rows)} device ops")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"[train/profile]   {e.self_device_time_total / 1e6:8.3f}s "
+            f"x{e.count:<6d} {e.key[:100]}")
+
+
+def run_train(torch, smi: str) -> None:
+    """tinyllama-1.1b at its published width and depth, bf16, random
+    weights from a seeded generator on the card, trained TRAIN_STEPS steps
+    of TRAIN_BATCH × TRAIN_SEQ tokens through ``Trainer`` (AdamW with bf16
+    moments, warmup-cosine, ``SyntheticLM``); then one step of every smoke
+    config in f32 on the card against the CPU, ``dot_f32``'s backward, and
+    ``launch.train`` in a process of its own, run twice: the second
+    resumes from the first one's checkpoint."""
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import Trainer, TrainState, make_train_step
+
+    t_phase = time.perf_counter()
+    check_dot_f32_backward(torch)
+    torch.cuda.reset_peak_memory_stats()
+    mc = get(TRAIN_ARCH).model
+    model = M.init_params(mc, device=DEV, generator=torch.Generator(
+        device=DEV).manual_seed(0))
+    n_params = M.param_count(mc)
+    opt = adamw(moment_dtype=torch.bfloat16)
+    lr = warmup_cosine(peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                       total_steps=TRAIN_STEPS)
+    step_fn = make_train_step(mc, opt, lr, microbatches=TRAIN_MICRO)
+    src = SyntheticLM(vocab=mc.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=0)
+    state = TrainState(params=model,
+                       opt_state=opt.init(dict(model.named_parameters())))
+    lines = []
+    trainer = Trainer(step_fn=step_fn, source=src, log_every=1,
+                      log=lines.append, device=DEV)
+    state, hist = trainer.run(state, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    for ln in lines:
+        log(f"[train] {ln}")
+    losses = [h["loss"] for h in hist]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{mc.name}: losses {losses}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_ms = statistics.median(h["seconds"] for h in hist[1:]) * 1e3
+    bound, mm_ms = train_bound_ms(mc, M, tokens, TRAIN_BATCH, TRAIN_SEQ)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[train] {mc.name}: {mc.n_layers} layers, d {mc.d_model}, "
+        f"{n_params} parameters; {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens in {TRAIN_MICRO} micro-batches, remat "
+        f"{mc.remat}; losses {[round(x, 4) for x in losses]}; grad norms "
+        f"{[round(h['grad_norm'], 4) for h in hist]}; first step "
+        f"{hist[0]['seconds'] * 1e3:.1f} ms, median of the rest "
+        f"{step_ms:.1f} ms = {tokens / step_ms * 1e3:.1f} tokens/s against a "
+        f"bound of {bound:.1f} ms ({mm_ms:.1f} ms of bf16 products at "
+        f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, {bound - mm_ms:.1f} ms of f32 "
+        f"attention products at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s; share "
+        f"{bound / step_ms:.4f}); peak device memory {peak:.3f} GB ({smi})")
+    print("[train] " + json.dumps(dict(
+        arch=TRAIN_ARCH, params=n_params, losses=losses,
+        grad_norms=[h["grad_norm"] for h in hist],
+        step_ms=[h["seconds"] * 1e3 for h in hist],
+        step_ms_median=step_ms, tokens_per_s=tokens / step_ms * 1e3,
+        bound_ms=bound, bound_matmul_ms=mm_ms, peak_gb=peak)), flush=True)
+    profile_train_step(torch, step_fn, state, trainer._batch(TRAIN_STEPS),
+                       TRAIN_STEPS)
+    del state, trainer, model
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    train_smoke_archs(torch)
+    log(f"[train/smoke] ten smoke configs in {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckpt:
+        for steps, want in ((20, None), (30, f"[trainer] restored step 20 "
+                                             f"from {ckpt}")):
+            out = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                 TRAIN_ARCH, "--smoke", "--steps", str(steps),
+                 "--ckpt-every", "10", "--ckpt-dir", ckpt],
+                capture_output=True, text=True, timeout=300,
+                env=dict(os.environ, PYTHONPATH=str(SRC)))
+            for line in out.stdout.splitlines():
+                log(f"[train/cli] {line}")
+            last = out.stdout.splitlines()[-1:] or [""]
+            if out.returncode != 0 or not last[0].startswith(
+                    f"[train] done at step {steps}; loss ") or (
+                    want is not None and want not in out.stdout.splitlines()):
+                raise AssertionError(f"launch.train --steps {steps} exited "
+                                     f"{out.returncode}:\n"
+                                     f"{out.stderr[-4000:]}")
+    log(f"[train/cli] ran and resumed in {time.perf_counter() - t0:.1f}s")
+    log(f"[train] phase 5e {time.perf_counter() - t_phase:.1f}s")
+
+
+def run_train_process() -> None:
+    """Phase 5e in a process of its own; its failure fails the smoke."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--train-only"], timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"the training phase exited {out.returncode}")
+    log(f"[train] process done in {time.perf_counter() - t0:.1f}s")
 
 
 def check_launched(run: dict, kernels) -> None:
@@ -3548,6 +3802,10 @@ def main() -> int:
         run_lm(torch, smi)                   # phase 5d alone: no kernels
         log(f"[done] LM only, {time.perf_counter() - t_all:.1f}s")
         return 0                             # no contract line: not the run
+    if "--train-only" in sys.argv[1:]:
+        run_train(torch, smi)                # phase 5e alone: no kernels
+        log(f"[done] training only, {time.perf_counter() - t_all:.1f}s")
+        return 0                             # no contract line: not the run
     t0 = time.perf_counter()
     _build.load()
     log(f"[build] kernels ready in {time.perf_counter() - t0:.2f}s "
@@ -3571,7 +3829,11 @@ def main() -> int:
     log(f"[sync] one loop check (reduce + device→host bool) "
         f"{sync_us(torch):.1f} µs")
 
-    main_run = run_join(torch, ops, "sift-like", MAIN_N_DATA, MAIN_N_QUERY, 1)
+    # the 1M-row joins skip their overlap-off reruns (19-27 s each), the
+    # smoke's time limit (PERF.md §7); the OOD joins, the search path, the
+    # streams and the sharded join still hold overlap on = off
+    main_run = run_join(torch, ops, "sift-like", MAIN_N_DATA, MAIN_N_QUERY, 1,
+                        overlap_off=False)
     if main_run["recall"] < MAIN_RECALL_FLOOR:
         raise AssertionError(f"main path recall {main_run['recall']} below "
                              f"the floor {MAIN_RECALL_FLOOR}")
@@ -3585,7 +3847,7 @@ def main() -> int:
 
     sq8 = EngineSpec(quant="sq8", quant_build="sq8")
     sq8_run = run_join(torch, ops, "sift-like", MAIN_N_DATA, MAIN_N_QUERY, 1,
-                       spec=sq8, base=main_run)
+                       spec=sq8, base=main_run, overlap_off=False)
     check_launched(sq8_run, SQ8_KERNELS)
     check_knn_ties(sq8_run, main_run)
     log(f"[sift-like] recall f32 {main_run['recall']:.6f} sq8 "
@@ -3595,11 +3857,14 @@ def main() -> int:
     del main_run["knn"], sq8_run["knn"]
     # phase 4b: sketch8 (= serving_sketch8: its quant_build is sq8 too)
     # and pdx8 on the sq8 engine's merged index
+    # the 1M-row sketch8 and pdx8 joins skip their overlap-off reruns
+    # too; the OOD sketchpdx8 join keeps it
     sk8 = run_mode(torch, ops, sq8_run, "sketch8",
                    floor=SKETCH8_RECALL_FLOOR, kernels=SKETCH8_KERNELS,
-                   nlj_kernels=SKETCH8_NLJ_KERNELS)
+                   nlj_kernels=SKETCH8_NLJ_KERNELS, overlap_off=False)
     pd8 = run_mode(torch, ops, sq8_run, "pdx8", floor=PDX8_RECALL_FLOOR,
-                   kernels=PDX8_KERNELS, nlj_kernels=PDX8_NLJ_KERNELS)
+                   kernels=PDX8_KERNELS, nlj_kernels=PDX8_NLJ_KERNELS,
+                   overlap_off=False)
     log(f"[sift-like] recall sq8 {sq8_run['recall']:.6f} sketch8 "
         f"{sk8['recall']:.6f} pdx8 {pd8['recall']:.6f}")
     del sq8_run["eng"]
@@ -3625,6 +3890,7 @@ def main() -> int:
     del ood8["eng"]
     torch.cuda.empty_cache()
     run_lm_process()
+    run_train_process()
 
     table = time_kernels(torch, ops, ref, pd8["band_frac"])
     trace_pair_block(torch)

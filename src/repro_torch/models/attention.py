@@ -15,8 +15,12 @@ floored at 1e-30 for padded rows that every key masks.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+
+from repro_torch.models.layers import call, recompute
 
 _NEG = -1e30
 
@@ -37,6 +41,38 @@ def _softcap(logits: torch.Tensor, softcap: float | None) -> torch.Tensor:
     return softcap * torch.tanh(logits / softcap) if softcap else logits
 
 
+def _kv_step(m_run, l_run, acc, qb, qpb, kb, vb, kpb, *, causal: bool,
+             window: int | None, softcap: float | None):
+    """One (q_blk, kv_blk) tile of the online softmax: the running max,
+    normaliser and accumulator after the tile."""
+    logits = _softcap(torch.einsum("bqkgh,bskh->bkgqs", qb, kb.float()),
+                      softcap)
+    mask = _block_mask(qpb, kpb, causal=causal, window=window)
+    logits = torch.where(mask[:, None, None], logits, _NEG)
+    m_new = torch.maximum(m_run, logits.amax(-1))
+    alpha = torch.exp(m_run - m_new)
+    p = torch.exp(logits - m_new[..., None])
+    l_new = l_run * alpha + p.sum(-1)
+    acc = acc * alpha[..., None] + torch.einsum("bkgqs,bskh->bkgqh", p,
+                                                vb.float())
+    return m_new, l_new, acc
+
+
+def _q_step(qb, qpb, kf, vf, kp, *, kv_blk: int, hd_v: int, remat, **kw):
+    """One query block against every KV block → (B, q_blk, K, G, hd_v)."""
+    B, q_blk, K, G, _ = qb.shape
+    m_run = torch.full((B, K, G, q_blk), _NEG, device=qb.device)
+    l_run = torch.zeros((B, K, G, q_blk), device=qb.device)
+    acc = torch.zeros((B, K, G, q_blk, hd_v), device=qb.device)
+    for j in range(kf.shape[1] // kv_blk):
+        ks = slice(j * kv_blk, (j + 1) * kv_blk)
+        m_run, l_run, acc = remat(functools.partial(_kv_step, **kw), m_run,
+                                  l_run, acc, qb, qpb, kf[:, ks], vf[:, ks],
+                                  kp[:, ks])
+    out = acc / l_run[..., None].clamp_min(1e-30)     # (B,K,G,q_blk,hd_v)
+    return out.permute(0, 3, 1, 2, 4)
+
+
 def chunked_attend(q, k, v, q_pos, kv_pos, *, causal: bool = True,
                    window: int | None = None, softcap: float | None = None,
                    q_blk: int = 512, kv_blk: int = 1024,
@@ -46,6 +82,12 @@ def chunked_attend(q, k, v, q_pos, kv_pos, *, causal: bool = True,
     q: (B, Sq, H, hd); k: (B, Skv, K, hd); v: (B, Skv, K, hd_v), H % K == 0;
     q_pos (B, Sq), kv_pos (B, Skv) absolute positions (−1: empty slot).
     Returns (B, Sq, H, hd_v) in q's dtype.
+
+    Under autograd each KV tile and each query block is checkpointed, as
+    the reference's ``jax.checkpoint`` of ``kv_step`` and ``q_step``: the
+    backward pass recomputes the (q_blk, kv_blk) f32 probability tiles
+    instead of keeping them (at tinyllama's width a micro-batch of 4 ×
+    2,048 makes each tile 268 MB, eight a layer).
     """
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
@@ -59,30 +101,14 @@ def chunked_attend(q, k, v, q_pos, kv_pos, *, causal: bool = True,
     qf = pad(q, qpad)
     qp = pad(q_pos, qpad, -(2**30))
     kf, vf, kp = pad(k, kpad), pad(v, kpad), pad(kv_pos, kpad, -1)
-    nq, nk = qf.shape[1] // q_blk, kf.shape[1] // kv_blk
+    nq = qf.shape[1] // q_blk
     qt = qf.reshape(B, nq * q_blk, K, G, hd).float() * scale
-    outs = []
-    for i in range(nq):
-        qs = slice(i * q_blk, (i + 1) * q_blk)
-        qb, qpb = qt[:, qs], qp[:, qs]
-        m_run = torch.full((B, K, G, q_blk), _NEG, device=q.device)
-        l_run = torch.zeros((B, K, G, q_blk), device=q.device)
-        acc = torch.zeros((B, K, G, q_blk, hd_v), device=q.device)
-        for j in range(nk):
-            ks = slice(j * kv_blk, (j + 1) * kv_blk)
-            logits = _softcap(torch.einsum("bqkgh,bskh->bkgqs", qb,
-                                           kf[:, ks].float()), softcap)
-            mask = _block_mask(qpb, kp[:, ks], causal=causal, window=window)
-            logits = torch.where(mask[:, None, None], logits, _NEG)
-            m_new = torch.maximum(m_run, logits.amax(-1))
-            alpha = torch.exp(m_run - m_new)
-            p = torch.exp(logits - m_new[..., None])
-            l_run = l_run * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bkgqs,bskh->bkgqh", p, vf[:, ks].float())
-            m_run = m_new
-        out = acc / l_run[..., None].clamp_min(1e-30)     # (B,K,G,q_blk,hd_v)
-        outs.append(out.permute(0, 3, 1, 2, 4))
+    remat = recompute if torch.is_grad_enabled() else call
+    step = functools.partial(_q_step, kv_blk=kv_blk, hd_v=hd_v, remat=remat,
+                             causal=causal, window=window, softcap=softcap)
+    outs = [remat(step, qt[:, i * q_blk:(i + 1) * q_blk],
+                  qp[:, i * q_blk:(i + 1) * q_blk], kf, vf, kp)
+            for i in range(nq)]
     out = torch.cat(outs, 1).reshape(B, nq * q_blk, H, hd_v)
     return out[:, :Sq].to(q.dtype)
 

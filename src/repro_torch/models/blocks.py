@@ -36,7 +36,7 @@ from repro_torch.models import ssm
 from repro_torch.models.attention import chunked_attend, decode_attend
 from repro_torch.models.layers import (MLP, AttnConfig, MoE, MoEConfig,
                                        ParamInit, apply_mrope, apply_rope,
-                                       rms_norm)
+                                       moe_aux_loss, rms_norm)
 
 
 # ---------------------------------------------------------------------------
@@ -284,30 +284,45 @@ class Block(nn.Module):
             if cfg.ffn != "none":
                 self.post2 = init.zeros((d,))
 
-    def _ffn(self, h, *, exact_moe: bool):
+    def _ffn(self, h, *, exact_moe: bool, with_aux: bool = False):
+        """The FFN residual branch → (h, aux): aux is the MoE
+        load-balancing loss of this block when asked for, else None."""
         cfg = self.cfg
         if cfg.ffn == "none":
-            return h
+            return h, None
         y = rms_norm(h, self.norm2)
-        y = (self.ffn(y, exact=exact_moe) if cfg.ffn == "moe"
-             else self.ffn(y, act=cfg.act))
+        aux = None
+        if cfg.ffn == "moe":
+            if with_aux:
+                aux = moe_aux_loss(self.ffn, y)
+            y = self.ffn(y, exact=exact_moe)
+        else:
+            y = self.ffn(y, act=cfg.act)
         if cfg.post_norm:
             y = rms_norm(y, self.post2)
-        return h + y
+        return h + y, aux
 
     def _mix_out(self, h, y):
         if self.cfg.post_norm:
             y = rms_norm(y, self.post1)
         return h + y
 
-    def forward(self, h, positions, *, exact_moe: bool = False):
-        """Full-sequence application (``block_apply_full``)."""
+    def forward(self, h, positions, *, exact_moe: bool = False,
+                with_aux: bool = False):
+        """Full-sequence application (``block_apply_full``). With
+        ``with_aux`` (the training path) it returns (h, aux), aux the MoE
+        load-balancing loss (an f32 0 for a dense block)."""
         y = rms_norm(h, self.norm1)
         if self.cfg.mixer in ("attn", "mla"):
             y = self.mixer.attend_full(y, positions)
         else:
             y, _ = self.mixer(y)
-        return self._ffn(self._mix_out(h, y), exact_moe=exact_moe)
+        h, aux = self._ffn(self._mix_out(h, y), exact_moe=exact_moe,
+                           with_aux=with_aux)
+        if not with_aux:
+            return h
+        return h, (aux if aux is not None
+                   else torch.zeros((), device=h.device))
 
     def prefill(self, h, positions, s_max: int):
         """Full-sequence application that also returns the decode cache."""
@@ -317,7 +332,7 @@ class Block(nn.Module):
             y = self.mixer.attend_full(y, positions)
         else:
             y, cache = self.mixer(y)
-        return self._ffn(self._mix_out(h, y), exact_moe=True), cache
+        return self._ffn(self._mix_out(h, y), exact_moe=True)[0], cache
 
     def decode(self, h, positions, cache: dict, cache_index):
         """One-token decode with cache update."""
@@ -327,7 +342,7 @@ class Block(nn.Module):
                                                 cache_index)
         else:
             y, cache = self.mixer(y, state=cache)
-        return self._ffn(self._mix_out(h, y), exact_moe=True), cache
+        return self._ffn(self._mix_out(h, y), exact_moe=True)[0], cache
 
 
 def block_init_cache(cfg: BlockCfg, batch: int, s_max: int, dtype,

@@ -10,7 +10,8 @@ does, and ``dot_f32`` returns the f32 sum itself.
 
 JAX names: ``dense_init`` is ``ParamInit.dense``; ``matmul`` is
 ``torch.matmul``; ``mlp_init``/``mlp_apply`` are ``MLP``/``MLP.forward``;
-``moe_init``/``moe_apply`` are ``MoE``/``MoE.forward``. ``attn_init``/``attn_apply`` have no counterpart:
+``moe_init``/``moe_apply`` are ``MoE``/``MoE.forward``; ``moe_aux_loss``
+takes the ``MoE`` itself. ``attn_init``/``attn_apply`` have no counterpart:
 the blocks use ``blocks.GQA`` and ``attention.py``.
 """
 from __future__ import annotations
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 # ---------------------------------------------------------------------------
@@ -79,19 +81,55 @@ class ParamInit:
         return self.param(shape, dtype, lambda t: t.zero_())
 
 
+class _MmF32(torch.autograd.Function):
+    """``torch.mm(x, w, out_dtype=f32)`` of 2-D bf16 operands with a
+    backward: that op has no derivative. The cotangents are the
+    reference's ``dot_general`` transposes: the f32 cotangent times the
+    other operand (upcast, so the product is exact) summed in f32, then
+    rounded to the operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.mm(g, w.t().float()).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = torch.mm(x.t().float(), g).to(w.dtype)
+        return gx, gw
+
+
 def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` (batched over leading axes) accumulated and returned in
     f32, not rounded to the operands' dtype. On the card a 2-D bf16
     product runs as one ``torch.mm`` with an f32 output (no f32 copy of
-    ``w``: the tied 256,000-row table would be 3.7 GB); elsewhere the
-    operands are upcast, which is exact (a bf16 product is exact in f32)."""
+    ``w``: the tied 256,000-row table would be 3.7 GB), under autograd
+    through ``_MmF32``; elsewhere the operands are upcast, which is exact
+    (a bf16 product is exact in f32), and autograd's cotangents are the
+    same as ``_MmF32``'s."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return torch.matmul(x, w)
     if x.is_cuda and w.dim() == 2:
-        return torch.mm(x.reshape(-1, x.shape[-1]), w,
-                        out_dtype=torch.float32
-                        ).reshape(*x.shape[:-1], w.shape[-1])
+        return _MmF32.apply(x.reshape(-1, x.shape[-1]), w
+                            ).reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), w.float())
+
+
+def recompute(fn, *args):
+    """``fn(*args)`` under autograd without keeping its intermediates: the
+    backward pass runs ``fn`` again (``jax.checkpoint``'s remat;
+    non-reentrant ``torch.utils.checkpoint``, which nests)."""
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def call(fn, *args):
+    """``fn(*args)``: ``recompute``'s stand-in where nothing is recomputed."""
+    return fn(*args)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -273,3 +311,18 @@ class MoE(nn.Module):
         if cfg.n_shared:
             y = y + self.shared(x)
         return y
+
+
+def moe_aux_loss(moe: MoE, x: torch.Tensor) -> torch.Tensor:
+    """Switch-style load-balancing loss of ``moe``'s router on x (B, S, d):
+    E · Σ_e (share of tokens routed to e) · (mean router probability of
+    e). Only the probabilities carry a gradient; the top-k is the stable
+    sort ``MoE.forward`` takes, so ties go to the lower expert as
+    ``lax.top_k`` sends them."""
+    cfg = moe.cfg
+    probs = torch.softmax(torch.matmul(x.reshape(-1, x.shape[-1]).float(),
+                                       moe.router), -1)
+    experts = torch.sort(probs.detach(), dim=-1, descending=True,
+                         stable=True).indices[:, :cfg.top_k]
+    onehot = F.one_hot(experts, cfg.n_experts).sum(1).float()   # (T, E)
+    return cfg.n_experts * (onehot.mean(0) * probs.mean(0)).sum()

@@ -11,6 +11,12 @@ loops over them. Caches are one dict per layer in that order. Parameters
 keep the reference's ``(in, out)`` layout, so carrying its weights
 (``params_from_numpy``) only unstacks the group axis.
 
+The serving entry points (``forward``, ``logits_fn``, ``prefill``,
+``decode_step``, ``embed_sequence``) run under ``torch.inference_mode``;
+the training path (``train_forward``, ``loss_fn``) runs under autograd
+with the reference's remat schedule (``ModelConfig.remat``): ``none``,
+``full`` (one checkpoint per layer group) or ``2level`` (√G-chunked).
+
 Entry points run on the card unless the caller names a device:
 ``init_params`` and ``params_from_numpy`` with ``device=None`` raise
 without one.
@@ -25,7 +31,8 @@ from torch import nn
 
 from repro_torch.core.types import resolve_device
 from repro_torch.models import blocks as B
-from repro_torch.models.layers import ParamInit, dot_f32, rms_norm
+from repro_torch.models.layers import (ParamInit, call, dot_f32, recompute,
+                                       rms_norm)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,8 +49,9 @@ class ModelConfig:
     tie_embeddings: bool = False
     final_softcap: float | None = None  # gemma2 final-logit soft-capping
     emb_scale: bool = False             # gemma2 scales embeddings by √d
-    remat: str = "full"                 # training only: no effect here
+    remat: str = "full"                 # none | full | 2level (training)
     pos_dims: int = 1                   # 3 ⇒ M-RoPE (t, h, w) position ids
+    moe_aux_weight: float = 0.01
 
     @property
     def n_groups(self) -> int:
@@ -126,6 +134,63 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> Model:
     return model
 
 
+def _to_numpy(t):
+    """A tensor (or a dict of them) on the host as numpy; bf16 as f32,
+    which is lossless."""
+    if isinstance(t, dict):
+        return {k: _to_numpy(v) for k, v in t.items()}
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _stack(leaves):
+    if isinstance(leaves[0], dict):
+        return {k: _stack([lf[k] for lf in leaves]) for k in leaves[0]}
+    return np.stack(leaves)
+
+
+def params_to_numpy(cfg: ModelConfig, named) -> dict:
+    """``params_from_numpy``'s inverse: a ``Model``'s parameters, or any
+    mapping from its parameter names to tensors (its grads, an optimizer
+    state's moments, Adafactor's ``{r, c}``/``{v}`` dicts), as the
+    reference's pytree of numpy arrays: ``layers`` a tuple of P dicts with
+    (G, ...) leaves stacked from layers m, P + m, 2P + m, ... bf16 comes
+    back as f32 (lossless)."""
+    if isinstance(named, nn.Module):
+        named = dict(named.named_parameters())
+    P = len(cfg.period)
+    tree: dict = {}
+    stacks: dict = {}
+    for name, t in named.items():
+        path = name.split(".")
+        if path[0] == "layers":
+            i = int(path[1])
+            stacks.setdefault((i % P, tuple(path[2:])),
+                              [None] * cfg.n_groups)[i // P] = _to_numpy(t)
+        else:
+            tree[name] = _to_numpy(t)
+    layers = [{} for _ in range(P)]
+    for (m, path), leaves in stacks.items():
+        node = layers[m]
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = _stack(leaves)
+    tree["layers"] = tuple(layers)
+    return tree
+
+
+def stacked_name(cfg: ModelConfig, name: str) -> str:
+    """The reference leaf a parameter belongs to: layer ``g·P + m`` is
+    slice g of the reference's (G, ...) leaf of period member m, so
+    ``layers.<i>.<rest>`` maps to ``layers.<i mod P>.<rest>``; other names
+    are their own leaf. (Adafactor clips by the RMS of a whole reference
+    leaf: ``adafactor(stack_of=...)``.)"""
+    path = name.split(".")
+    if path[0] == "layers":
+        path[1] = str(int(path[1]) % len(cfg.period))
+    return ".".join(path)
+
+
 def _shapes(cfg: ModelConfig):
     """(name, shape) of every parameter, allocating nothing."""
     return [(n, p.shape) for n, p in
@@ -181,16 +246,94 @@ def forward(model: Model, inputs, positions, *, exact_moe: bool = False
     return rms_norm(h, model.final_norm)
 
 
-@torch.inference_mode()
-def logits_fn(model: Model, h: torch.Tensor) -> torch.Tensor:
-    """f32 logits (not rounded to the model's dtype), soft-capped for
-    gemma2."""
+def _group(model: Model, g: int, h, positions):
+    """Layer group g (period members 0..P−1) → (h, the group's MoE aux),
+    with the capacity-bounded MoE dispatch of training."""
+    P = len(model.cfg.period)
+    aux = torch.zeros((), device=h.device)
+    for blk in model.layers[g * P:(g + 1) * P]:
+        h, a = blk(h, positions, exact_moe=False, with_aux=True)
+        aux = aux + a
+    return h, aux
+
+
+def train_forward(model: Model, inputs, positions
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training forward, under autograd → (final-normed hidden states
+    (B, S, d), total MoE aux loss). ``cfg.remat`` picks what the backward
+    pass recomputes, as in the reference: ``none`` keeps every layer's
+    activations, ``full`` checkpoints each layer group, and ``2level``
+    checkpoints chunks of c ≈ √G groups and each group within them (G/c + c
+    saved boundaries for about one extra forward)."""
+    cfg = model.cfg
+    h = _embed_inputs(model, inputs)
+    G = cfg.n_groups
+
+    def group(g):
+        return lambda h, positions: _group(model, g, h, positions)
+
+    if cfg.remat == "2level":
+        c = max(int(np.sqrt(G)), 1)
+        while G % c:
+            c -= 1
+
+        def chunk(k):
+            def run(h, positions):
+                auxs = []
+                for g in range(k * c, (k + 1) * c):
+                    h, a = recompute(group(g), h, positions)
+                    auxs.append(a)
+                return h, torch.stack(auxs).sum()
+            return run
+
+        auxs = []
+        for k in range(G // c):
+            h, a = recompute(chunk(k), h, positions)
+            auxs.append(a)
+    elif cfg.remat in ("full", "none"):
+        run = recompute if cfg.remat == "full" else call
+        auxs = []
+        for g in range(G):
+            h, a = run(group(g), h, positions)
+            auxs.append(a)
+    else:
+        raise ValueError(f"remat {cfg.remat!r}: none, full or 2level")
+    return rms_norm(h, model.final_norm), torch.stack(auxs).sum()
+
+
+def _logits(model: Model, h: torch.Tensor) -> torch.Tensor:
     cfg = model.cfg
     w = model.embed.t() if cfg.tie_embeddings else model.head
     out = dot_f32(h, w)
     if cfg.final_softcap:
         out = cfg.final_softcap * torch.tanh(out / cfg.final_softcap)
     return out
+
+
+@torch.inference_mode()
+def logits_fn(model: Model, h: torch.Tensor) -> torch.Tensor:
+    """f32 logits (not rounded to the model's dtype), soft-capped for
+    gemma2."""
+    return _logits(model, h)
+
+
+def loss_fn(model: Model, batch: dict) -> tuple[torch.Tensor, dict]:
+    """Cross-entropy plus ``moe_aux_weight`` × the MoE aux loss, under
+    autograd → (total, {loss, aux, ntok}). batch: ``inputs``, ``targets``
+    (B, S; −1 = padding, not counted), ``positions`` (B, S) or (B, S, 3)."""
+    cfg = model.cfg
+    h, aux = train_forward(model, batch["inputs"], batch["positions"])
+    logits = _logits(model, h)                            # (B, S, V) f32
+    targets = batch["targets"]
+    valid = targets >= 0
+    tgt = torch.where(valid, targets, 0).long()
+    logz = torch.logsumexp(logits, -1)
+    gold = logits.gather(-1, tgt[..., None])[..., 0]
+    nll = torch.where(valid, logz - gold, 0.0)
+    ntok = valid.sum().clamp_min(1)
+    loss = nll.sum() / ntok
+    total = loss + cfg.moe_aux_weight * aux
+    return total, dict(loss=loss, aux=aux, ntok=ntok)
 
 
 # ---------------------------------------------------------------------------

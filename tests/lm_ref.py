@@ -1,7 +1,10 @@
 """The JAX reference's side of the LM parity tests
-(``tests/test_torch_lm*.py``): for an arch's smoke config in f32 or bf16,
-the reference's weights, inputs made from a seed, and every output the
-tests compare, and the checks that hold the port to them.
+(``tests/test_torch_lm*.py``, ``tests/test_torch_train_grads*.py``): for
+an arch's smoke config in f32 or bf16, the reference's weights, inputs
+made from a seed, and every output the tests compare, and the checks that
+hold the port to them. For training: the reference's ``loss_fn`` and its
+``jax.grad`` at a remat schedule, and the port's grads carried back into
+the reference's layout (``models.model.params_to_numpy``).
 
 The reference runs compiled with XLA's excess precision off
 (``compiled``): on, XLA may keep a fused bf16 intermediate in f32 that the
@@ -206,3 +209,72 @@ def check_prefill_and_decode(ref):
     for got, want in zip(caches, ref["caches"]):
         for k in want:
             close(got[k], want[k], tol)
+
+
+# ---------------------------------------------------------------------------
+# training: loss_fn and jax.grad
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S = 2, 12
+
+
+def train_batch(mc, rng, b: int = TRAIN_B, s: int = TRAIN_S) -> dict:
+    """A batch for ``loss_fn``: inputs, targets with the last two of lane
+    0 padded (−1), positions."""
+    targets = rng.integers(0, mc.vocab, (b, s)).astype(np.int32)
+    targets[0, -2:] = -1
+    return dict(inputs=inputs(mc, rng, b, s), targets=targets,
+                positions=positions(mc, b, s))
+
+
+@functools.cache
+def train_reference(arch: str, remat: str) -> dict:
+    """The reference's ``value_and_grad`` of its ``loss_fn`` on the arch's
+    f32 smoke config at ``remat`` (compiled, excess precision off): total,
+    loss, aux, ntok and the grad tree, with the batch and weights."""
+    jc, pc = configs(arch, "f32")
+    jc, pc = jc.with_overrides(remat=remat), pc.with_overrides(remat=remat)
+    params = jax_params(arch, "f32")
+    batch = train_batch(jc, np.random.default_rng(
+        zlib.crc32(f"{arch}/train".encode())))
+    fn = compiled(lambda p, b: jax.value_and_grad(
+        lambda p: JM.loss_fn(p, jc, b), has_aux=True)(p), params, batch)
+    (total, m), grads = fn(params, batch)
+    return dict(pc=pc, tree=jax.tree.map(np.asarray, params), batch=batch,
+                total=float(total), loss=float(m["loss"]),
+                aux=float(m["aux"]), ntok=int(m["ntok"]),
+                grads=jax.tree.map(np.asarray, grads))
+
+
+def port_train(ref: dict) -> dict:
+    """The port's ``loss_fn`` and its grads (autograd) on the reference's
+    weights and batch; the grads in the reference's layout."""
+    pc = ref["pc"]
+    model = M.params_from_numpy(pc, ref["tree"], "cpu")
+    model.requires_grad_(True)
+    total, m = M.loss_fn(model, {k: t(v) for k, v in ref["batch"].items()})
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(total, list(model.parameters()),
+                                allow_unused=True, materialize_grads=True)
+    total, m = total.detach(), {k: v.detach() for k, v in m.items()}
+    return dict(total=float(total), loss=float(m["loss"]),
+                aux=float(m["aux"]), ntok=int(m["ntok"]),
+                grads=M.params_to_numpy(pc, dict(zip(names, grads))))
+
+
+def check_loss(ref: dict, got: dict, tol=F32_TOL) -> None:
+    assert got["ntok"] == ref["ntok"]
+    for k in ("total", "loss", "aux"):
+        close(got[k], ref[k], tol)
+
+
+def check_grads(ref: dict, got: dict, tol=F32_TOL) -> None:
+    """Leaf for leaf: the same tree, every grad within ``tol``."""
+    want, have = ref["grads"], got["grads"]
+    assert jax.tree.structure(want) == jax.tree.structure(have)
+    paths = jax.tree_util.tree_flatten_with_path(want)[0]
+    for (path, w), h in zip(paths, jax.tree.leaves(have)):
+        assert w.shape == h.shape, (jax.tree_util.keystr(path), w.shape,
+                                    h.shape)
+        np.testing.assert_allclose(h, np.asarray(w, np.float32), **tol,
+                                   err_msg=jax.tree_util.keystr(path))

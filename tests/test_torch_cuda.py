@@ -1434,3 +1434,91 @@ def test_sampled_decoding_on_the_card_is_deterministic_and_lane_independent(
                          device=dev).run([Request(uid=i, prompt=p, max_new=12)
                                           for i, p in enumerate(prompts)])
     assert greedy != both
+
+
+@pytest.mark.parametrize("arch", ["tinyllama_1_1b", "gemma2_9b",
+                                  "deepseek_v2_236b", "jamba_1_5_large_398b",
+                                  "qwen2_vl_72b", "rwkv6_7b"])
+def test_training_step_on_the_card_matches_the_cpu(dev, arch):
+    """One AdamW step (f32 moments, 2 micro-batches) of the f32 smoke
+    config from the same weights and batch: loss, aux, ntok and grad norm
+    on the card = the CPU's within 1e-5 relative, and every parameter
+    within 3e-5 (a first Adam step moves a parameter by about lr·sign(g),
+    lr = 1e-5, so a grad near 0 may step the other way: 2·lr apart)."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+
+    mc, cpu, card = _lm_pair(arch, dev)
+    rng = np.random.default_rng(zlib.crc32(f"{arch}/train".encode()))
+    x, p = _lm_inputs(mc, rng, 4, 16)
+    tg = torch.from_numpy(rng.integers(0, mc.vocab, (4, 16)).astype(np.int32))
+    tg[0, -3:] = -1
+    before = [q.detach().clone() for q in cpu.parameters()]
+    out = {}
+    for d, model in (("cpu", cpu), (dev, card)):
+        opt = adamw()
+        state = opt.init(dict(model.named_parameters()))
+        step = make_train_step(mc, opt, lambda s: 1e-5, microbatches=2)
+        batch = dict(inputs=x.to(d), targets=tg.to(d), positions=p.to(d))
+        _, _, m = step(model, state, batch, 0)
+        out[d] = {k: float(m[k]) for k in ("loss", "aux", "ntok",
+                                           "grad_norm")}
+    for k, v in out["cpu"].items():
+        assert abs(out[dev][k] - v) <= 1e-5 * max(abs(v), 1.0), (k, out)
+    moved = 0.0
+    for (n, a), b, b0 in zip(card.named_parameters(), cpu.parameters(),
+                             before):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0,
+                                   atol=3e-5, msg=n)
+        moved = max(moved, float((b.detach() - b0).abs().max()))
+    assert moved > 5e-6
+
+
+def test_dot_f32_backward_on_the_card_matches_the_cpu_route(dev):
+    """bf16 operands: the card's ``torch.mm(out_dtype=f32)`` under
+    ``_MmF32`` and the CPU route's upcast product give the same f32
+    output and, rounded to bf16, the same cotangents (within one bf16 ulp
+    of the largest)."""
+    from repro_torch.models.layers import dot_f32
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(3, 40, 96, generator=gen).bfloat16()
+    w = (torch.randn(96, 300, generator=gen) / 10).bfloat16()
+    r = torch.randn(3, 40, 300, generator=gen)
+    res = {}
+    for d in ("cpu", dev):
+        xd = x.to(d, copy=True).requires_grad_(True)
+        wd = w.to(d, copy=True).requires_grad_(True)
+        out = dot_f32(xd, wd)
+        (out * r.to(d)).sum().backward()
+        res[d] = [out.detach().cpu(), xd.grad.float().cpu(),
+                  wd.grad.float().cpu()]
+    assert res[dev][0].dtype == torch.float32
+    torch.testing.assert_close(res[dev][0], res["cpu"][0], rtol=1e-5,
+                               atol=1e-5)
+    for a, b in zip(res[dev][1:], res["cpu"][1:]):
+        assert float((a - b).abs().max()) <= 2.0**-8 * float(b.abs().max())
+
+
+def test_bf16_checkpoint_round_trip_from_the_card(dev, tmp_path):
+    """Card tensors (bf16 weights, f32 and int32 state) saved and restored
+    bit for bit, onto the card; a save holds the values it was given, not
+    an in-place update made after it returned."""
+    from repro_torch.checkpoint import CheckpointManager
+    gen = torch.Generator(device=dev).manual_seed(2)
+    tree = dict(params={"w": torch.randn(64, 33, generator=gen,
+                                         device=dev).bfloat16()},
+                opt_state=dict(mu={"w": torch.randn(64, 33, generator=gen,
+                                                    device=dev)},
+                               step=torch.tensor(3, dtype=torch.int32,
+                                                 device=dev)))
+    want = {"w": tree["params"]["w"].clone(),
+            "mu": tree["opt_state"]["mu"]["w"].clone()}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(3, tree)
+    tree["params"]["w"].mul_(2)
+    step, back = mgr.restore(tree, device=dev)
+    assert step == 3 and back["params"]["w"].device.type == "cuda"
+    assert back["params"]["w"].dtype == torch.bfloat16
+    assert torch.equal(back["params"]["w"], want["w"])
+    assert torch.equal(back["opt_state"]["mu"]["w"], want["mu"])
+    assert int(back["opt_state"]["step"]) == 3

@@ -18,8 +18,10 @@ from repro_torch.launch import join as launch_join
 from repro_torch.configs import get
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import serve_join as launch_serve_join
+from repro_torch.launch import train as launch_train
 from repro_torch.models import model as M
 from repro_torch.serve import JoinService, ServeEngine
+from repro_torch.train import Trainer
 
 ROOT = Path(__file__).resolve().parents[1]
 MODULES = sorted(m.name for m in pkgutil.walk_packages(
@@ -61,7 +63,11 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.models.ssm", "repro_torch.models.blocks",
             "repro_torch.models.model", "repro_torch.configs.registry",
             "repro_torch.configs.gemma2_9b", "repro_torch.launch.serve",
-            "repro_torch.serve.engine"} <= set(MODULES)
+            "repro_torch.serve.engine", "repro_torch.train.loop",
+            "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+            "repro_torch.optim.compress", "repro_torch.checkpoint.ckpt",
+            "repro_torch.data.pipeline", "repro_torch.launch.train"
+            } <= set(MODULES)
 
 
 @pytest.fixture
@@ -105,6 +111,15 @@ def test_lm_entry_points_refuse_the_cpu_by_default(no_cuda):
     assert ServeEngine(mc, model, n_slots=1, s_max=8,
                        device="cpu").device.type == "cpu"   # named: allowed
     assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+
+
+def test_training_entry_points_refuse_the_cpu_by_default(no_cuda):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(step_fn=None, source=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--arch", "tinyllama_1_1b", "--smoke"])
+    assert Trainer(step_fn=None, source=None,
+                   device="cpu").device.type == "cpu"       # named: allowed
 
 
 def test_launcher_on_cpu_reports_recall(capsys):
