@@ -130,12 +130,34 @@ Phases (each raises on failure, so the script exits non-zero):
      ``SyntheticLM`` tokens in TRAIN_MICRO micro-batches through
      ``Trainer`` (AdamW with bf16 moments, warmup-cosine): every loss
      finite, the last below the first; step ms, tokens/s, peak memory and
-     the step's bound (``train_bound_ms``) logged; one more step under
-     torch.profiler; then one step of every smoke config in f32 on the card
+     the step's bound (``train_bound_ms``) logged (the smoke's time limit
+     left out its profiled step: PERF.md §7); then one step of every smoke
+     config in f32 on the card
      = the same step on the CPU (loss, aux, grad norm), and ``python -m
      repro_torch.launch.train --smoke`` twice in processes of their own,
      the second resuming from the first one's checkpoint. It launches
      none of the eleven kernels;
+  5f. the LM dry run and the production-mesh training step, in a process
+     of its own (``--dryrun-only`` runs it alone): (a) DRYRUN_CELLS
+     (tinyllama-1.1b train_4k, prefill_32k, decode_32k and llama3-405b
+     train_4k) each through ``python -m repro_torch.launch.dryrun`` on the
+     single-pod (32, 8) H100 mesh over a fake 256-rank group, all four
+     processes at once (started before phase 5e, for the smoke's time
+     limit: they need only the host's CPU, which 5e's device-bound steps
+     barely use), each cell's GB per device against 80, its three
+     roofline terms, bottleneck, step_s / step_min_s and roofline
+     fraction logged (the model's predictions for the H100 spec); (b)
+     tinyllama-1.1b at its published width and depth in bf16, phase 5e's
+     shape and seed (8 x 2,048 tokens, 2 micro-batches, remat full, AdamW
+     with bf16 moments) through ``train.sharded_train_step`` on a (1, 1)
+     mesh of a one-rank NCCL group, two steps, each step's loss and grad
+     norm = two plain ``make_train_step`` steps' on a model from the same
+     seed within DRYRUN_STEP_RTOL (the gap logged); (c) the cost counter on
+     (b)'s second step against the fake-tensor dry run of the same cell on
+     a (1, 1) mesh: FLOPs equal exactly, the dry run's peak within
+     DRYRUN_PEAK_TOL of the first step's ``max_memory_allocated``, the
+     measured step ms beside the model's step_min_s. It launches none of
+     the eleven kernels;
   6. time each kernel at the main paths' shapes, the gathers also at the
      NLJ's pair block (4,194,304 pairs over a 512-query block), #10 and
      #10′ with early exit on and off, #9′ and #11′ beside the eager
@@ -3554,28 +3576,6 @@ def check_dot_f32_backward(torch) -> None:
                                  f"off by {err}")
 
 
-def profile_train_step(torch, step_fn, state, batch, step: int) -> None:
-    """One more training step under torch.profiler: the device's busy
-    time against the wall time of the step, and the device ops that take
-    the most time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        step_fn(state.params, state.opt_state, batch, step)
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in rows) / 1e6
-    log(f"[train/profile] one step: device busy {busy:.3f}s of a profiled "
-        f"wall {wall:.3f}s (share {busy / wall:.3f}); "
-        f"{sum(e.count for e in rows)} device ops")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"[train/profile]   {e.self_device_time_total / 1e6:8.3f}s "
-            f"x{e.count:<6d} {e.key[:100]}")
-
-
 def run_train(torch, smi: str) -> None:
     """tinyllama-1.1b at its published width and depth, bf16, random
     weights from a seeded generator on the card, trained TRAIN_STEPS steps
@@ -3636,8 +3636,6 @@ def run_train(torch, smi: str) -> None:
         step_ms=[h["seconds"] * 1e3 for h in hist],
         step_ms_median=step_ms, tokens_per_s=tokens / step_ms * 1e3,
         bound_ms=bound, bound_matmul_ms=mm_ms, peak_gb=peak)), flush=True)
-    profile_train_step(torch, step_fn, state, trainer._batch(TRAIN_STEPS),
-                       TRAIN_STEPS)
     del state, trainer, model
     torch.cuda.empty_cache()
 
@@ -3676,6 +3674,215 @@ def run_train_process() -> None:
     if out.returncode != 0:
         raise AssertionError(f"the training phase exited {out.returncode}")
     log(f"[train] process done in {time.perf_counter() - t0:.1f}s")
+
+
+# ---------------------------------------------------------------------------
+# phase 5f: the LM dry run and the production-mesh training step, in a
+# process of its own (``--dryrun-only``)
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELLS = (("tinyllama_1_1b", "train_4k"),
+                ("tinyllama_1_1b", "prefill_32k"),
+                ("tinyllama_1_1b", "decode_32k"),
+                ("llama3_405b", "train_4k"))
+# (b): the sharded step's loss and grad norm = the plain step's (relative)
+DRYRUN_STEP_RTOL = 1e-3
+# (c): |dry-run peak − measured peak| / measured peak
+DRYRUN_PEAK_TOL = 0.25
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def start_dryrun_cells() -> list:
+    """DRYRUN_CELLS through ``python -m repro_torch.launch.dryrun``, all at
+    once, each in a process of its own (the fake group is
+    process-global)."""
+    out_dir = ROOT / "build" / "dryrun"     # build/ is ignored by git
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        out = out_dir / f"dryrun_{arch}_{shape}.json"
+        with open(out.with_suffix(".log"), "w") as f:
+            procs.append((arch, shape, out, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--out", str(out)],
+                stdout=f, stderr=subprocess.STDOUT,
+                env=dict(os.environ, PYTHONPATH=str(SRC)))))
+    return procs
+
+
+def finish_dryrun_cells(procs) -> list:
+    """Wait for ``start_dryrun_cells``' processes → their results, logged;
+    a cell that raised fails."""
+    results = []
+    for arch, shape, out, p in procs:
+        p.wait(timeout=300)
+        text = out.with_suffix(".log").read_text()
+        for line in text.splitlines():
+            if line.startswith(("[dryrun]", "  cost:")):
+                log(f"[dryrun/cell] {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"dry run {arch} x {shape} exited "
+                                 f"{p.returncode}:\n{text[-4000:]}")
+        results.append(json.loads(out.read_text())[0])
+    for r in results:
+        log(f"[dryrun] {r['arch']} x {r['shape']} on {r['mesh']}: "
+            f"{r['peak_memory_bytes'] / 1e9:.3f} GB/dev of 80; compute "
+            f"{r['compute_s']:.6g}s memory {r['memory_s']:.6g}s collective "
+            f"{r['collective_s']:.6g}s, bound {r['bottleneck']}; step_s "
+            f"{r['step_s']:.6g} step_min_s {r['step_min_s']:.6g}; roofline "
+            f"{r['roofline_fraction']:.4f}; traced in {r['trace_s']}s "
+            f"(the model's prediction for the H100 spec)")
+    return results
+
+
+def run_dryrun(torch, smi: str, *, cells: bool = True) -> None:
+    """Phase 5f (see the module docstring); without ``cells`` its part (a)
+    is left to the caller (``run_dryrun_process``)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import (close_group, make_local_mesh,
+                                         open_fake_group)
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as S
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.roofline import analyze
+    from repro_torch.roofline.cost import CostCounter
+    from repro_torch.train import make_train_step
+    from repro_torch.train.loop import sharded_train_step
+
+    t_phase = time.perf_counter()
+    procs = start_dryrun_cells() if cells else None  # (a), beside (b), (c)
+    mc = get(TRAIN_ARCH).model
+    shape = ShapeSpec("train_2k", "train", TRAIN_SEQ, TRAIN_BATCH)
+
+    # (c), the model's side: the same cell on a (1, 1) mesh of a fake group
+    t0 = time.perf_counter()
+    open_fake_group(1)
+    try:
+        mesh = make_local_mesh(1, device_type=DEV)
+        cost, peak = dryrun.trace_cost(mc, mesh, shape,
+                                       microbatches=TRAIN_MICRO, device=DEV)
+    finally:
+        close_group()
+    model_r = analyze(arch=TRAIN_ARCH, shape=shape.name, mesh_name="1x1",
+                      n_devices=1, cost=cost,
+                      model_flops=6.0 * M.active_param_count(mc)
+                      * TRAIN_BATCH * TRAIN_SEQ, peak_memory=peak)
+    log(f"[dryrun/1x1] traced in {time.perf_counter() - t0:.1f}s: flops "
+        f"{cost.flops:.17g}, peak {peak / 1e9:.3f} GB, step_min_s "
+        f"{model_r.step_min_s:.6g}, step_s {model_r.step_s:.6g}")
+
+    # (b): two sharded steps on a (1, 1) mesh of a real one-rank group
+    dist.init_process_group("nccl" if DEV == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh(1, device_type=DEV)
+        src = SyntheticLM(vocab=mc.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, seed=0)
+        batches = [{k: torch.from_numpy(v).to(DEV)
+                    for k, v in src.batch_at(i).items()} for i in range(2)]
+        lr = warmup_cosine(peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                           total_steps=TRAIN_STEPS)
+        runs = {}
+        for kind in ("sharded", "plain"):
+            model = M.init_params(mc, device=DEV, generator=torch.Generator(
+                device=DEV).manual_seed(0))
+            opt = adamw(moment_dtype=torch.bfloat16)
+            if kind == "sharded":
+                step, pls, _ = sharded_train_step(
+                    mc, opt, lr, mesh, microbatches=TRAIN_MICRO)
+                S.distribute_model(model, mesh, placements_of=pls)
+            else:
+                step = make_train_step(mc, opt, lr, microbatches=TRAIN_MICRO)
+            state = opt.init(dict(model.named_parameters()))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            hist = []
+            for i, batch in enumerate(batches):
+                counted = kind == "sharded" and i == 1
+                cc = CostCounter()
+                t0 = time.perf_counter()
+                if counted:
+                    with cc:
+                        model, state, m = step(model, state, batch, i)
+                else:
+                    model, state, m = step(model, state, batch, i)
+                m = {k: float(m[k]) for k in ("loss", "grad_norm")}
+                hist.append(dict(m, ms=(time.perf_counter() - t0) * 1e3,
+                                 flops=cc.flops if counted else None))
+                if i == 0:
+                    hist[0]["peak"] = torch.cuda.max_memory_allocated()
+            runs[kind] = hist
+            del model, state, step
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    gaps = [max(abs(a[k] - b[k]) / abs(b[k]) for k in ("loss", "grad_norm"))
+            for a, b in zip(runs["sharded"], runs["plain"])]
+    for i, (a, b) in enumerate(zip(runs["sharded"], runs["plain"])):
+        log(f"[dryrun/step] step {i}: sharded loss {a['loss']!r} grad norm "
+            f"{a['grad_norm']!r} ({a['ms']:.1f} ms); plain loss "
+            f"{b['loss']!r} grad norm {b['grad_norm']!r} ({b['ms']:.1f} ms); "
+            f"relative gap {gaps[i]:.3g}")
+    if not max(gaps) <= DRYRUN_STEP_RTOL:
+        raise AssertionError(f"the (1, 1) sharded step is not the plain "
+                             f"step: gaps {gaps}")
+    real_flops = runs["sharded"][1]["flops"]
+    measured = runs["sharded"][0]["peak"]
+    off = abs(peak - measured) / measured
+    log(f"[dryrun/cost] counted flops: real step {real_flops:.17g}, dry run "
+        f"{cost.flops:.17g}; peak: dry run {peak / 1e9:.3f} GB, measured "
+        f"{measured / 1e9:.3f} GB (off {off:.4f}, limit {DRYRUN_PEAK_TOL}); "
+        f"sharded step {runs['sharded'][0]['ms']:.1f} ms measured against "
+        f"the model's step_min_s {model_r.step_min_s * 1e3:.1f} ms ({smi})")
+    if real_flops != cost.flops:
+        raise AssertionError(f"counted flops differ: real {real_flops}, "
+                             f"dry run {cost.flops}")
+    if off > DRYRUN_PEAK_TOL:
+        raise AssertionError(f"dry-run peak {peak} vs measured {measured}")
+
+    print("[dryrun] " + json.dumps(dict(
+        step=runs, gaps=gaps, dry_flops=cost.flops, dry_peak=peak,
+        dry_step_min_s=model_r.step_min_s, dry_step_s=model_r.step_s)),
+        flush=True)
+    if procs is not None:
+        report_dryrun_cells(procs)
+    log(f"[dryrun] phase 5f {time.perf_counter() - t_phase:.1f}s")
+
+
+def report_dryrun_cells(procs) -> None:
+    """Wait for phase 5f's cells and print their JSON line."""
+    t0 = time.perf_counter()
+    cell_results = finish_dryrun_cells(procs)
+    log(f"[dryrun] waited {time.perf_counter() - t0:.1f}s for the cells")
+    print("[dryrun] " + json.dumps(dict(cells=[
+        {k: r[k] for k in ("arch", "shape", "peak_memory_bytes", "compute_s",
+                           "memory_s", "collective_s", "bottleneck",
+                           "step_s", "step_min_s", "roofline_fraction",
+                           "trace_s")} for r in cell_results])), flush=True)
+
+
+def run_dryrun_process(procs) -> None:
+    """Phase 5f in a process of its own, its cells (``procs``, started by
+    the caller while phase 5e used the card: they need only the host's
+    CPU) waited for here; its failure fails the smoke."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--dryrun-only", "--no-cells"], timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"the dry-run phase exited {out.returncode}")
+    report_dryrun_cells(procs)
+    log(f"[dryrun] process done in {time.perf_counter() - t0:.1f}s")
 
 
 def check_launched(run: dict, kernels) -> None:
@@ -3806,6 +4013,11 @@ def main() -> int:
         run_train(torch, smi)                # phase 5e alone: no kernels
         log(f"[done] training only, {time.perf_counter() - t_all:.1f}s")
         return 0                             # no contract line: not the run
+    if "--dryrun-only" in sys.argv[1:]:
+        # phase 5f alone (its cells too, unless --no-cells): no kernels
+        run_dryrun(torch, smi, cells="--no-cells" not in sys.argv[1:])
+        log(f"[done] dry run only, {time.perf_counter() - t_all:.1f}s")
+        return 0                             # no contract line: not the run
     t0 = time.perf_counter()
     _build.load()
     log(f"[build] kernels ready in {time.perf_counter() - t0:.2f}s "
@@ -3890,7 +4102,15 @@ def main() -> int:
     del ood8["eng"]
     torch.cuda.empty_cache()
     run_lm_process()
-    run_train_process()
+    # 5f's dry-run cells trace on the host's CPU while 5e uses the card
+    cells = start_dryrun_cells()
+    try:
+        run_train_process()
+        run_dryrun_process(cells)
+    finally:
+        for *_, p in cells:
+            if p.poll() is None:
+                p.kill()
 
     table = time_kernels(torch, ops, ref, pd8["band_frac"])
     trace_pair_block(torch)

@@ -6,13 +6,18 @@ with the published configuration plus a reduced smoke config of the same
 family. Shape set: train_4k, prefill_32k, decode_32k, long_500k;
 ``supported`` encodes the skip rules: decode shapes skip for encoder-only
 archs, and long_500k runs only for sub-quadratic archs (SSM / hybrid / SWA
-/ local-global). ``input_specs`` belongs to the dry run and is not here.
+/ local-global). ``input_specs`` builds stand-ins for every model input of
+an (arch × shape) cell: empty tensors of the reference's shapes and dtypes
+on the ``meta`` device (nothing allocated), or fake tensors on any device
+under ``FakeTensorMode`` (the dry-run pattern).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import importlib
+
+import torch
 
 from repro_torch.models import model as M
 
@@ -89,3 +94,39 @@ def cells() -> list[tuple[str, str, bool, str]]:
             ok, why = supported(get(a), s)
             out.append((a, s, ok, why))
     return out
+
+
+# ---------------------------------------------------------------------------
+# input specs (empty stand-ins; nothing allocated on ``meta``)
+# ---------------------------------------------------------------------------
+
+def _pos_shape(mc: M.ModelConfig, b: int, s: int):
+    return (b, s) if mc.pos_dims == 1 else (b, s, mc.pos_dims)
+
+
+def _inputs(mc: M.ModelConfig, b: int, s: int, device):
+    if mc.input_kind == "tokens":
+        return torch.empty((b, s), dtype=torch.int32, device=device)
+    return torch.empty((b, s, mc.frontend_dim), dtype=torch.bfloat16,
+                       device=device)
+
+
+def input_specs(mc: M.ModelConfig, shape: ShapeSpec, device="meta") -> dict:
+    """Stand-ins for every input of the cell's step function: ``inputs``,
+    ``targets`` and ``positions`` (train), ``inputs`` and ``positions``
+    (prefill), ``tokens``, ``positions``, ``caches`` (one dict a layer, of
+    an s-long cache) and ``cache_index`` (decode)."""
+    b, s = shape.batch, shape.seq
+    i32 = dict(dtype=torch.int32, device=device)
+    if shape.kind == "train":
+        return dict(inputs=_inputs(mc, b, s, device),
+                    targets=torch.empty((b, s), **i32),
+                    positions=torch.empty(_pos_shape(mc, b, s), **i32))
+    if shape.kind == "prefill":
+        return dict(inputs=_inputs(mc, b, s, device),
+                    positions=torch.empty(_pos_shape(mc, b, s), **i32))
+    # decode: one new token against an s-long cache
+    return dict(tokens=torch.empty((b, 1), **i32),
+                positions=torch.empty(_pos_shape(mc, b, 1), **i32),
+                caches=M.init_caches(mc, b, s, device),
+                cache_index=torch.empty((b,), **i32))

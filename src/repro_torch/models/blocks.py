@@ -32,7 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.models import ssm
+from repro_torch.models import shardctx, ssm
 from repro_torch.models.attention import chunked_attend, decode_attend
 from repro_torch.models.layers import (MLP, AttnConfig, MoE, MoEConfig,
                                        ParamInit, apply_mrope, apply_rope,
@@ -81,7 +81,9 @@ class MLA(nn.Module):
     def _latent(self, x, positions):
         """The cached latent's two parts: c (B,S,r) and k_rope (B,S,1,rope)."""
         cfg = self.cfg
-        kv_low = torch.matmul(x, self.kv_a)
+        # the low-rank projections' outputs gathered over the model axis
+        # before their norms reduce over it
+        kv_low = shardctx.shard(torch.matmul(x, self.kv_a), "hidden")
         c = rms_norm(kv_low[..., :cfg.kv_lora_rank], self.kv_norm)
         k_rope = apply_rope(kv_low[..., None, cfg.kv_lora_rank:], positions,
                             theta=cfg.rope_theta)
@@ -91,8 +93,9 @@ class MLA(nn.Module):
         """Rotated per-head q (nope, rope parts) and the latent (c, k_rope)."""
         cfg = self.cfg
         B, S, _ = x.shape
-        q = torch.matmul(rms_norm(torch.matmul(x, self.q_a), self.q_norm),
-                   self.q_b).reshape(B, S, cfg.n_heads, cfg.qk_dim)
+        q_low = shardctx.shard(torch.matmul(x, self.q_a), "hidden")
+        q = torch.matmul(rms_norm(q_low, self.q_norm),
+                         self.q_b).reshape(B, S, cfg.n_heads, cfg.qk_dim)
         q_nope, q_rope = q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
         q_rope = apply_rope(q_rope, positions, theta=cfg.rope_theta)
         return (q_nope, q_rope) + self._latent(x, positions)
@@ -107,18 +110,18 @@ class MLA(nn.Module):
         v = torch.matmul(c, self.v_b).reshape(B, S, H, cfg.v_dim)
         q = torch.cat([q_nope, q_rope], -1)
         k = torch.cat([k_nope, k_rope.expand(B, S, H, cfg.qk_rope_dim)], -1)
-        out = chunked_attend(q, k, v, positions, positions, causal=True,
+        out = shardctx.local("attend", chunked_attend, q, k, v, positions,
+                             positions, causal=True,
                              scale=1.0 / np.sqrt(cfg.qk_dim))
         return torch.matmul(out.reshape(B, S, H * cfg.v_dim), self.o)
 
     def prefill_cache(self, x, positions, s_max: int) -> dict:
         """Latent cache after consuming x, padded to s_max."""
-        B, S, _ = x.shape
         c, k_rope = self._latent(x, positions)
-        lat = torch.cat([c, k_rope[:, :, 0]], -1)
-        return dict(lat=nn.functional.pad(lat, (0, 0, 0, s_max - S)),
-                    pos=nn.functional.pad(positions, (0, s_max - S),
-                                          value=-1))
+        lat, pos = shardctx.local("prefill_cache", latent_cache,
+                                  torch.cat([c, k_rope[:, :, 0]], -1),
+                                  positions, s_max=s_max)
+        return dict(lat=lat, pos=pos)
 
     def attend_decode(self, x, positions, cache: dict, cache_index):
         """Absorbed attention over the latent cache: scores are
@@ -132,14 +135,17 @@ class MLA(nn.Module):
         bidx = torch.arange(B, device=x.device)
         ci = cache_index.long()
         lat, pos = cache["lat"], cache["pos"]
-        lat[bidx, ci] = torch.cat([c, k_rope[:, :, 0]], -1)[:, 0].to(lat.dtype)
-        pos[bidx, ci] = positions[:, 0].to(pos.dtype)
+        shardctx.local("cache_write", write_rows, lat, ci,
+                       torch.cat([c, k_rope[:, :, 0]], -1)[:, 0], lanes=bidx)
+        shardctx.local("cache_write", write_rows, pos, ci, positions[:, 0],
+                       lanes=bidx)
         k_b = self.k_b.reshape(r, H, cfg.qk_nope_dim)
         q_abs = torch.einsum("bshn,rhn->bshr", q_nope.float(), k_b.float())
         q_eff = torch.cat([q_abs, q_rope.float()], -1)
-        out_lat = decode_attend(q_eff, lat[:, :, None, :],
-                                lat[:, :, None, :r], positions, pos,
-                                scale=1.0 / np.sqrt(cfg.qk_dim))  # (B,S,H,r)
+        out_lat = shardctx.local(
+            "decode_attend", decode_attend, q_eff, lat[:, :, None, :],
+            lat[:, :, None, :r], positions, pos,
+            scale=1.0 / np.sqrt(cfg.qk_dim))                     # (B,S,H,r)
         v_b = self.v_b.reshape(r, H, cfg.v_dim)
         out = torch.einsum("bshr,rhv->bshv", out_lat.float(),
                            v_b.float()).to(x.dtype)
@@ -149,6 +155,47 @@ class MLA(nn.Module):
 # ---------------------------------------------------------------------------
 # GQA attention with chunked softmax + (ring-buffered) KV cache
 # ---------------------------------------------------------------------------
+
+def write_rows(cache, slot, value, *, lanes):
+    """``cache[b, slot[b]] = value[b]`` for every lane b (``lanes``, the
+    caller's ``arange(B)``, made once for a layer's caches), in place → the
+    cache."""
+    cache[lanes, slot] = value.to(cache.dtype)
+    return cache
+
+
+def full_cache(k, v, p, *, s_max: int):
+    """A full layer's cache after consuming k, v at positions p: slot =
+    position, padded to s_max (empty slots at position −1)."""
+    S = p.shape[1]
+    pad = lambda t: nn.functional.pad(t, (0, 0, 0, 0, 0, s_max - S))
+    return pad(k), pad(v), nn.functional.pad(p, (0, s_max - S), value=-1)
+
+
+def latent_cache(lat, p, *, s_max: int):
+    """MLA's latent cache, padded to s_max."""
+    S = p.shape[1]
+    return (nn.functional.pad(lat, (0, 0, 0, s_max - S)),
+            nn.functional.pad(p, (0, s_max - S), value=-1))
+
+
+def ring_cache(k, v, p, *, W: int):
+    """A windowed layer's cache after consuming k, v at positions p: the
+    last W tokens in ring order (slot = position % W). Only those W are
+    written: positions p and p + W share a slot, and a scatter of both has
+    no defined winner."""
+    B, S = p.shape
+    kc = k.new_zeros((B, W) + k.shape[2:])
+    vc = v.new_zeros((B, W) + v.shape[2:])
+    pc = p.new_full((B, W), -1)
+    tail = slice(max(S - W, 0), S)
+    slot = (p[:, tail] % W).long()
+    bidx = torch.arange(B, device=p.device)[:, None]
+    kc[bidx, slot] = k[:, tail]
+    vc[bidx, slot] = v[:, tail]
+    pc[bidx, slot] = p[:, tail]
+    return kc, vc, pc
+
 
 def gqa_cache_len(cfg: AttnConfig, s_max: int) -> int:
     return min(s_max, cfg.window) if cfg.window is not None else s_max
@@ -168,9 +215,12 @@ class GQA(nn.Module):
         cfg = self.cfg
         B, S, _ = x.shape
         H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        q = torch.matmul(x, self.q).reshape(B, S, H, hd)
-        k = torch.matmul(x, self.k).reshape(B, S, K, hd)
-        v = torch.matmul(x, self.v).reshape(B, S, K, hd)
+        # head-sharded layouts pinned at the reshape (the reference pins
+        # them after it: left to propagation, GSPMD replicated whole
+        # attention bodies)
+        q = shardctx.view(torch.matmul(x, self.q), (B, S, H, hd), "qkv")
+        k = shardctx.view(torch.matmul(x, self.k), (B, S, K, hd), "qkv")
+        v = shardctx.view(torch.matmul(x, self.v), (B, S, K, hd), "qkv")
         if cfg.mrope_sections is not None:
             q = apply_mrope(q, positions, cfg.mrope_sections,
                             theta=cfg.rope_theta)
@@ -191,32 +241,23 @@ class GQA(nn.Module):
         B, S, _ = x.shape
         q, k, v = self._qkv(x, positions)
         p = self._tpos(positions)
-        out = chunked_attend(q, k, v, p, p, causal=cfg.causal,
-                             window=cfg.window, softcap=cfg.softcap)
+        out = shardctx.local("attend", chunked_attend, q, k, v, p, p,
+                             causal=cfg.causal, window=cfg.window,
+                             softcap=cfg.softcap)
         return torch.matmul(out.reshape(B, S, -1), self.o)
 
     def prefill_cache(self, x, positions, s_max: int) -> dict:
         """KV cache after consuming x. A windowed layer keeps its last W
-        tokens in ring order (slot = position % W). Only those W are
-        written: positions p and p + W share a slot, and a scatter of both
-        has no defined winner."""
-        B, S, _ = x.shape
+        tokens in ring order (``ring_cache``)."""
         _, k, v = self._qkv(x, positions)
         p = self._tpos(positions)
         W = gqa_cache_len(self.cfg, s_max)
         if W == s_max:                       # full cache: slot = position
-            pad = lambda t: nn.functional.pad(t, (0, 0, 0, 0, 0, s_max - S))
-            return dict(k=pad(k), v=pad(v), pos=nn.functional.pad(
-                p, (0, s_max - S), value=-1))
-        kc = k.new_zeros((B, W) + k.shape[2:])
-        vc = v.new_zeros((B, W) + v.shape[2:])
-        pc = p.new_full((B, W), -1)
-        tail = slice(max(S - W, 0), S)
-        slot = (p[:, tail] % W).long()
-        bidx = torch.arange(B, device=x.device)[:, None]
-        kc[bidx, slot] = k[:, tail]
-        vc[bidx, slot] = v[:, tail]
-        pc[bidx, slot] = p[:, tail]
+            kc, vc, pc = shardctx.local("prefill_cache", full_cache, k, v, p,
+                                        s_max=s_max)
+        else:
+            kc, vc, pc = shardctx.local("prefill_cache", ring_cache, k, v, p,
+                                        W=W)
         return dict(k=kc, v=vc, pos=pc)
 
     def attend_decode(self, x, positions, cache: dict, cache_index):
@@ -230,11 +271,11 @@ class GQA(nn.Module):
         kc, vc, pc = cache["k"], cache["v"], cache["pos"]
         slot = (cache_index % kc.shape[1]).long()
         bidx = torch.arange(B, device=x.device)
-        kc[bidx, slot] = k[:, 0].to(kc.dtype)
-        vc[bidx, slot] = v[:, 0].to(vc.dtype)
-        pc[bidx, slot] = p[:, 0].to(pc.dtype)
-        out = decode_attend(q, kc, vc, p, pc, window=cfg.window,
-                            softcap=cfg.softcap)
+        for c, new in ((kc, k[:, 0]), (vc, v[:, 0]), (pc, p[:, 0])):
+            shardctx.local("cache_write", write_rows, c, slot, new,
+                           lanes=bidx)
+        out = shardctx.local("decode_attend", decode_attend, q, kc, vc, p, pc,
+                             window=cfg.window, softcap=cfg.softcap)
         return torch.matmul(out.reshape(B, S, -1), self.o), cache
 
 
@@ -290,7 +331,7 @@ class Block(nn.Module):
         cfg = self.cfg
         if cfg.ffn == "none":
             return h, None
-        y = rms_norm(h, self.norm2)
+        y = shardctx.shard(rms_norm(h, self.norm2), "block_in")
         aux = None
         if cfg.ffn == "moe":
             if with_aux:
@@ -298,11 +339,15 @@ class Block(nn.Module):
             y = self.ffn(y, exact=exact_moe)
         else:
             y = self.ffn(y, act=cfg.act)
+        # the row-parallel output's layout pinned before the residual add
+        # (DTensor would otherwise pick it by cost, per op)
+        y = shardctx.shard(y, "hidden")
         if cfg.post_norm:
             y = rms_norm(y, self.post2)
         return h + y, aux
 
     def _mix_out(self, h, y):
+        y = shardctx.shard(y, "hidden")
         if self.cfg.post_norm:
             y = rms_norm(y, self.post1)
         return h + y
@@ -312,7 +357,7 @@ class Block(nn.Module):
         """Full-sequence application (``block_apply_full``). With
         ``with_aux`` (the training path) it returns (h, aux), aux the MoE
         load-balancing loss (an f32 0 for a dense block)."""
-        y = rms_norm(h, self.norm1)
+        y = shardctx.shard(rms_norm(h, self.norm1), "block_in")
         if self.cfg.mixer in ("attn", "mla"):
             y = self.mixer.attend_full(y, positions)
         else:
@@ -326,7 +371,7 @@ class Block(nn.Module):
 
     def prefill(self, h, positions, s_max: int):
         """Full-sequence application that also returns the decode cache."""
-        y = rms_norm(h, self.norm1)
+        y = shardctx.shard(rms_norm(h, self.norm1), "block_in")
         if self.cfg.mixer in ("attn", "mla"):
             cache = self.mixer.prefill_cache(y, positions, s_max)
             y = self.mixer.attend_full(y, positions)
@@ -336,7 +381,7 @@ class Block(nn.Module):
 
     def decode(self, h, positions, cache: dict, cache_index):
         """One-token decode with cache update."""
-        y = rms_norm(h, self.norm1)
+        y = shardctx.shard(rms_norm(h, self.norm1), "block_in")
         if self.cfg.mixer in ("attn", "mla"):
             y, cache = self.mixer.attend_decode(y, positions, cache,
                                                 cache_index)

@@ -26,6 +26,8 @@ from torch import nn
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import shardctx
+
 
 # ---------------------------------------------------------------------------
 # initializers / common
@@ -104,6 +106,10 @@ class _MmF32(torch.autograd.Function):
         return gx, gw
 
 
+def _mm_upcast(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(x.float(), w.float())
+
+
 def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` (batched over leading axes) accumulated and returned in
     f32, not rounded to the operands' dtype. On the card a 2-D bf16
@@ -111,20 +117,31 @@ def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``w``: the tied 256,000-row table would be 3.7 GB), under autograd
     through ``_MmF32``; elsewhere the operands are upcast, which is exact
     (a bf16 product is exact in f32), and autograd's cotangents are the
-    same as ``_MmF32``'s."""
+    same as ``_MmF32``'s. A 2-D ``w``'s product is a sharding region
+    (``shardctx.local``), laid out as its operands are."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
-        return torch.matmul(x, w)
-    if x.is_cuda and w.dim() == 2:
-        return _MmF32.apply(x.reshape(-1, x.shape[-1]), w
-                            ).reshape(*x.shape[:-1], w.shape[-1])
-    return torch.matmul(x.float(), w.float())
+        fn = torch.matmul
+    elif x.is_cuda and w.dim() == 2:
+        fn = _MmF32.apply
+    else:
+        fn = _mm_upcast
+    if w.dim() != 2:
+        return fn(x, w)
+    return shardctx.local("dot_f32", fn, x.reshape(-1, x.shape[-1]), w
+                          ).reshape(*x.shape[:-1], w.shape[-1])
 
 
 def recompute(fn, *args):
     """``fn(*args)`` under autograd without keeping its intermediates: the
     backward pass runs ``fn`` again (``jax.checkpoint``'s remat;
-    non-reentrant ``torch.utils.checkpoint``, which nests)."""
-    return checkpoint(fn, *args, use_reentrant=False)
+    non-reentrant ``torch.utils.checkpoint``, which nests). The recompute
+    runs under the sharding hooks of the forward (the backward of a CUDA
+    tensor runs on another thread, which a context variable does not
+    reach), and stashes no RNG state: the forward draws no random
+    numbers."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=shardctx.checkpoint_contexts)
 
 
 def call(fn, *args):
@@ -275,42 +292,62 @@ class MoE(nn.Module):
         cfg = self.cfg
         B, S, d = x.shape
         T, E, k = B * S, cfg.n_experts, cfg.top_k
-        dev = x.device
         xt = x.reshape(T, d)
         probs = torch.softmax(torch.matmul(xt.float(), self.router), -1)
-        vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-        weights, experts = vals[:, :k], idx[:, :k]
-        weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
         if exact and T <= _EXACT_CAP_LIMIT:
             cap = T
         else:
             cap = int(np.ceil(T * k / E * cfg.capacity_factor))
         cap = max(cap, 1)
-        a_tok = torch.arange(T, device=dev).repeat_interleave(k)
-        a_exp = experts.reshape(-1)
-        order = torch.argsort(a_exp, stable=True)
-        s_exp, s_tok, s_w = a_exp[order], a_tok[order], weights.reshape(-1)[order]
-        first = torch.searchsorted(s_exp, torch.arange(E, device=dev),
-                                   side="left")
-        rank = torch.arange(T * k, device=dev) - first[s_exp]
-        keep = rank < cap
-        slot = torch.where(keep, s_exp * cap + rank, E * cap)   # drop sink
-        buf = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=dev)
-        buf[slot] = torch.where(keep[:, None], xt[s_tok], 0)
-        eb = buf[:E * cap].reshape(E, cap, d)
+        eb, *route = shardctx.local("moe_dispatch", _moe_dispatch, xt, probs,
+                                    k=k, cap=cap)
         g = dot_f32(eb, self.gate)
         u = dot_f32(eb, self.up)
         h = (F.silu(g) * u).to(x.dtype)
         out_e = torch.matmul(h, self.down)                      # (E,cap,d)
-        flat = torch.cat([out_e.reshape(E * cap, d),
-                          torch.zeros((1, d), dtype=x.dtype, device=dev)])
-        contrib = flat[slot] * s_w[:, None].to(x.dtype)         # (T*k, d)
-        yt = torch.zeros((T, d), dtype=torch.float32, device=dev)
-        yt.index_add_(0, s_tok, torch.where(keep[:, None], contrib, 0).float())
-        y = yt.to(x.dtype).reshape(B, S, d)
+        yt = shardctx.local("moe_combine", _moe_combine, out_e, *route, T=T)
+        y = shardctx.shard(yt.reshape(B, S, d), "hidden").to(x.dtype)
         if cfg.n_shared:
             y = y + self.shared(x)
         return y
+
+
+def _moe_dispatch(xt, probs, *, k: int, cap: int):
+    """Route T tokens to their top-k experts → (the dispatch buffer
+    (E, cap, d), and the route: each assignment's slot in the buffer
+    (``E·cap``, the sink, when dropped), token, weight and kept flag, in
+    expert order)."""
+    T, d = xt.shape
+    E = probs.shape[-1]
+    dev = xt.device
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    weights, experts = vals[:, :k], idx[:, :k]
+    weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
+    a_tok = torch.arange(T, device=dev).repeat_interleave(k)
+    a_exp = experts.reshape(-1)
+    order = torch.argsort(a_exp, stable=True)
+    s_exp, s_tok, s_w = a_exp[order], a_tok[order], weights.reshape(-1)[order]
+    first = torch.searchsorted(s_exp, torch.arange(E, device=dev),
+                               side="left")
+    rank = torch.arange(T * k, device=dev) - first[s_exp]
+    keep = rank < cap
+    slot = torch.where(keep, s_exp * cap + rank, E * cap)       # drop sink
+    buf = torch.zeros((E * cap + 1, d), dtype=xt.dtype, device=dev)
+    buf[slot] = torch.where(keep[:, None], xt[s_tok], 0)
+    return buf[:E * cap].reshape(E, cap, d), slot, s_tok, s_w, keep
+
+
+def _moe_combine(out_e, slot, s_tok, s_w, keep, *, T: int):
+    """The experts' outputs (E, cap, d) weighted back onto their T tokens
+    → (T, d) f32 (a sink slot adds a zero row)."""
+    E, cap, d = out_e.shape
+    flat = torch.cat([out_e.reshape(E * cap, d),
+                      torch.zeros((1, d), dtype=out_e.dtype,
+                                  device=out_e.device)])
+    contrib = flat[slot] * s_w[:, None].to(out_e.dtype)         # (T*k, d)
+    yt = torch.zeros((T, d), dtype=torch.float32, device=out_e.device)
+    yt.index_add_(0, s_tok, torch.where(keep[:, None], contrib, 0).float())
+    return yt
 
 
 def moe_aux_loss(moe: MoE, x: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,9 @@ keep the reference's ``(in, out)`` layout, so carrying its weights
 (``params_from_numpy``) only unstacks the group axis.
 
 The serving entry points (``forward``, ``logits_fn``, ``prefill``,
-``decode_step``, ``embed_sequence``) run under ``torch.inference_mode``;
+``decode_step``, ``embed_sequence``) run under ``torch.inference_mode``
+(``torch.no_grad`` under a sharder: DTensor's views cannot be made in
+inference mode);
 the training path (``train_forward``, ``loss_fn``) runs under autograd
 with the reference's remat schedule (``ModelConfig.remat``): ``none``,
 ``full`` (one checkpoint per layer group) or ``2level`` (√G-chunked).
@@ -23,7 +25,9 @@ without one.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -31,8 +35,49 @@ from torch import nn
 
 from repro_torch.core.types import resolve_device
 from repro_torch.models import blocks as B
+from repro_torch.models import shardctx as _ctx
 from repro_torch.models.layers import (ParamInit, call, dot_f32, recompute,
                                        rms_norm)
+
+
+# activation-sharding hook: launchers install a sharder
+# (models/sharding.py::make_act_sharder) whose ``shard(x, tag)`` pins the
+# tagged activations' DTensor layouts, as the reference's
+# with_sharding_constraint does; without one the hooks are the identity
+
+
+@contextlib.contextmanager
+def activation_sharding(fn, param_pin=None):
+    tok = _ctx.set_sharder(fn)
+    tok2 = _ctx.set_pin(param_pin)
+    try:
+        yield
+    finally:
+        _ctx.reset_sharder(tok)
+        _ctx.reset_pin(tok2)
+
+
+def _serving(fn):
+    """Run ``fn`` under ``torch.inference_mode``, or ``torch.no_grad``
+    while a sharder is installed."""
+    @functools.wraps(fn)
+    def run(*a, **kw):
+        with (torch.no_grad() if _ctx.sharder() is not None
+              else torch.inference_mode()):
+            return fn(*a, **kw)
+    return run
+
+
+def shard_act(x: torch.Tensor, tag: str) -> torch.Tensor:
+    return _ctx.shard(x, tag)
+
+
+def pin_params(blocks):
+    """The blocks as the installed pinner gives them: the reference
+    re-asserts the FSDP×TP sharding of per-group param slices inside its
+    scan bodies; the port's pinner gathers each block's FSDP shards when
+    it is called (sharding.make_param_pinner)."""
+    return _ctx.pin(blocks)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,6 +265,10 @@ def active_param_count(cfg: ModelConfig) -> int:
 # forward
 # ---------------------------------------------------------------------------
 
+def _lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return table[ids.long()]
+
+
 def _embed_inputs(model: Model, inputs: torch.Tensor) -> torch.Tensor:
     """Token ids → table lookup; float frame/patch embeddings → the stub
     frontend projection. Dispatch on dtype, so [vlm]/[audio] archs take
@@ -228,21 +277,21 @@ def _embed_inputs(model: Model, inputs: torch.Tensor) -> torch.Tensor:
     if inputs.dtype.is_floating_point:
         h = torch.matmul(inputs.to(cfg.dtype), model.in_proj)
     else:
-        h = model.embed[inputs.long()]
+        h = _ctx.local("embed", _lookup, model.embed, inputs)
     if cfg.emb_scale:
         h = (h.float() * np.sqrt(cfg.d_model)).to(cfg.dtype)
     return h
 
 
-@torch.inference_mode()
+@_serving
 def forward(model: Model, inputs, positions, *, exact_moe: bool = False
             ) -> torch.Tensor:
     """Full-sequence forward → final-normed hidden states (B, S, d).
     ``exact_moe``: capacity = T in MoE dispatch (no drops), the inference
     semantics."""
-    h = _embed_inputs(model, inputs)
-    for blk in model.layers:
-        h = blk(h, positions, exact_moe=exact_moe)
+    h = shard_act(_embed_inputs(model, inputs), "hidden")
+    for blk in pin_params(model.layers):
+        h = shard_act(blk(h, positions, exact_moe=exact_moe), "hidden")
     return rms_norm(h, model.final_norm)
 
 
@@ -251,10 +300,20 @@ def _group(model: Model, g: int, h, positions):
     with the capacity-bounded MoE dispatch of training."""
     P = len(model.cfg.period)
     aux = torch.zeros((), device=h.device)
-    for blk in model.layers[g * P:(g + 1) * P]:
+    for blk in pin_params(model.layers[g * P:(g + 1) * P]):
         h, a = blk(h, positions, exact_moe=False, with_aux=True)
+        h = shard_act(h, "hidden")
         aux = aux + a
     return h, aux
+
+
+def remat_chunk(G: int) -> int:
+    """``2level``'s chunk of G layer groups: the largest divisor of G up
+    to √G (the reference's)."""
+    c = max(int(np.sqrt(G)), 1)
+    while G % c:
+        c -= 1
+    return c
 
 
 def train_forward(model: Model, inputs, positions
@@ -266,16 +325,14 @@ def train_forward(model: Model, inputs, positions
     checkpoints chunks of c ≈ √G groups and each group within them (G/c + c
     saved boundaries for about one extra forward)."""
     cfg = model.cfg
-    h = _embed_inputs(model, inputs)
+    h = shard_act(_embed_inputs(model, inputs), "hidden")
     G = cfg.n_groups
 
     def group(g):
         return lambda h, positions: _group(model, g, h, positions)
 
     if cfg.remat == "2level":
-        c = max(int(np.sqrt(G)), 1)
-        while G % c:
-            c -= 1
+        c = remat_chunk(G)
 
         def chunk(k):
             def run(h, positions):
@@ -304,17 +361,27 @@ def train_forward(model: Model, inputs, positions
 def _logits(model: Model, h: torch.Tensor) -> torch.Tensor:
     cfg = model.cfg
     w = model.embed.t() if cfg.tie_embeddings else model.head
-    out = dot_f32(h, w)
+    out = dot_f32(shard_act(h, "block_in"), w)
     if cfg.final_softcap:
         out = cfg.final_softcap * torch.tanh(out / cfg.final_softcap)
-    return out
+    return shard_act(out, "logits")
 
 
-@torch.inference_mode()
+@_serving
 def logits_fn(model: Model, h: torch.Tensor) -> torch.Tensor:
     """f32 logits (not rounded to the model's dtype), soft-capped for
     gemma2."""
     return _logits(model, h)
+
+
+def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """−log softmax(logits)[target] per token; 0 where the target is −1
+    (padding)."""
+    valid = targets >= 0
+    tgt = torch.where(valid, targets, 0).long()
+    logz = torch.logsumexp(logits, -1)
+    gold = logits.gather(-1, tgt[..., None])[..., 0]
+    return torch.where(valid, logz - gold, 0.0)
 
 
 def loss_fn(model: Model, batch: dict) -> tuple[torch.Tensor, dict]:
@@ -325,12 +392,8 @@ def loss_fn(model: Model, batch: dict) -> tuple[torch.Tensor, dict]:
     h, aux = train_forward(model, batch["inputs"], batch["positions"])
     logits = _logits(model, h)                            # (B, S, V) f32
     targets = batch["targets"]
-    valid = targets >= 0
-    tgt = torch.where(valid, targets, 0).long()
-    logz = torch.logsumexp(logits, -1)
-    gold = logits.gather(-1, tgt[..., None])[..., 0]
-    nll = torch.where(valid, logz - gold, 0.0)
-    ntok = valid.sum().clamp_min(1)
+    nll = _ctx.local("xent", token_nll, logits, targets)
+    ntok = (targets >= 0).sum().clamp_min(1)
     loss = nll.sum() / ntok
     total = loss + cfg.moe_aux_weight * aux
     return total, dict(loss=loss, aux=aux, ntok=ntok)
@@ -347,20 +410,21 @@ def init_caches(cfg: ModelConfig, batch: int, s_max: int, device
                                device) for i in range(cfg.n_layers)]
 
 
-@torch.inference_mode()
+@_serving
 def prefill(model: Model, inputs, positions, s_max: int
             ) -> tuple[torch.Tensor, list[dict]]:
     """Consume a prompt; return (last-position logits (B, V) f32, caches)."""
-    h = _embed_inputs(model, inputs)
+    h = shard_act(_embed_inputs(model, inputs), "hidden")
     caches = []
-    for blk in model.layers:
+    for blk in pin_params(model.layers):
         h, c = blk.prefill(h, positions, s_max)
+        h = shard_act(h, "hidden")
         caches.append(c)
     h = rms_norm(h[:, -1:], model.final_norm)
     return logits_fn(model, h)[:, 0], caches
 
 
-@torch.inference_mode()
+@_serving
 def decode_step(model: Model, tokens, positions, caches: list[dict],
                 cache_index) -> tuple[torch.Tensor, list[dict]]:
     """One decode step. tokens (B, 1) int (or (B, 1, fd) embeddings);
@@ -369,14 +433,14 @@ def decode_step(model: Model, tokens, positions, caches: list[dict],
     updated in place. Returns (logits (B, V) f32, the caches)."""
     h = _embed_inputs(model, tokens)
     new = []
-    for blk, c in zip(model.layers, caches):
+    for blk, c in zip(pin_params(model.layers), caches):
         h, c = blk.decode(h, positions, c, cache_index)
         new.append(c)
     h = rms_norm(h[:, -1:], model.final_norm)
     return logits_fn(model, h)[:, 0], new
 
 
-@torch.inference_mode()
+@_serving
 def embed_sequence(model: Model, inputs, positions, *, pool: str = "last"
                    ) -> torch.Tensor:
     """Final hidden states pooled to one f32 vector per sequence."""

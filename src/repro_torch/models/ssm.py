@@ -22,6 +22,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from repro_torch.models import shardctx
 from repro_torch.models.layers import ParamInit, rms_norm
 
 
@@ -67,6 +68,18 @@ def _rwkv6_chunk(r, k, v, logw, u, state):
     return y, state
 
 
+def _rwkv6_scan(r, k, v, logw, u, state, *, Q: int):
+    """The wkv recurrence over a padded sequence, chunk by chunk →
+    (y (B,H,S,hd) f32, the final state)."""
+    ys = []
+    for c in range(r.shape[2] // Q):
+        cs = slice(c * Q, (c + 1) * Q)
+        y, state = _rwkv6_chunk(r[:, :, cs].float(), k[:, :, cs].float(),
+                                v[:, :, cs].float(), logw[:, :, cs], u, state)
+        ys.append(y)
+    return torch.cat(ys, 2), state
+
+
 class RWKV6(nn.Module):
     def __init__(self, cfg: RWKV6Config, dtype, init: ParamInit):
         super().__init__()
@@ -105,8 +118,9 @@ class RWKV6(nn.Module):
         k = heads(torch.matmul(mixed(1), self.k))
         v = heads(torch.matmul(mixed(2), self.v))
         g = torch.matmul(mixed(3), self.g)
-        w = self.w_base.float() + torch.matmul(torch.matmul(mixed(4), self.w_a),
-                                         self.w_b).float()
+        # the low-rank decay's row-parallel output pinned, as a block's are
+        w = self.w_base.float() + shardctx.shard(torch.matmul(
+            torch.matmul(mixed(4), self.w_a), self.w_b), "hidden").float()
         logw = heads(-torch.exp(w))                         # ≤ 0
         u = self.u.float()
         s = (torch.zeros((B, H, hd, hd), device=x.device) if state is None
@@ -115,13 +129,10 @@ class RWKV6(nn.Module):
         pad = (-S) % Q                 # zero decay: pads change nothing
         zpad = lambda t: F.pad(t, (0, 0, 0, pad)) if pad else t
         r, k, v, logw = zpad(r), zpad(k), zpad(v), zpad(logw)
-        ys = []
-        for c in range(r.shape[2] // Q):
-            cs = slice(c * Q, (c + 1) * Q)
-            y, s = _rwkv6_chunk(r[:, :, cs].float(), k[:, :, cs].float(),
-                                v[:, :, cs].float(), logw[:, :, cs], u, s)
-            ys.append(y)
-        y = torch.cat(ys, 2)[:, :, :S].transpose(1, 2).reshape(B, S, d)
+        y, s = shardctx.local("rwkv", _rwkv6_scan, r, k, v, logw, u, s, Q=Q)
+        # gathered over the model axis before the norm reduces over it
+        y = shardctx.shard(y[:, :, :S].transpose(1, 2).reshape(B, S, d),
+                           "hidden")
         y = rms_norm(y.to(x.dtype), self.ln)
         y = (F.silu(g.float()) * y.float()).to(x.dtype)
         return torch.matmul(y, self.o), dict(s=s, shift=x[:, -1, :])
@@ -196,7 +207,8 @@ class Mamba(nn.Module):
                  for i in range(cfg.d_conv))
         xi = F.silu(xi + self.conv_b).to(x.dtype)
         new_conv = xc[:, S:]
-        proj = torch.matmul(xi, self.x_proj).float()
+        # gathered over the model axis before it is split three ways
+        proj = shardctx.shard(torch.matmul(xi, self.x_proj), "hidden").float()
         dt_low, B_in, C_in = proj.split([cfg.rank, n, n], dim=-1)
         dt = F.softplus(torch.matmul(dt_low.to(x.dtype), self.dt_proj).float()
                         + self.dt_bias)
@@ -204,7 +216,8 @@ class Mamba(nn.Module):
         h = (torch.zeros((B, di, n), device=x.device) if state is None
              else state["h"])
         xf = xi.float()
-        h, y = _mamba_inner_scan(h, dt, B_in, C_in, xf, A)
+        h, y = shardctx.local("mamba", _mamba_inner_scan, h, dt, B_in, C_in,
+                              xf, A)
         y = y + xf * self.D
         y = (y * F.silu(z.float())).to(x.dtype)
         return torch.matmul(y, self.out_proj), dict(h=h, conv=new_conv)

@@ -55,8 +55,7 @@ def adamw(*, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
     bias correction is exact."""
 
     def init(params: Tree) -> Tree:
-        zeros = lambda p: torch.zeros(p.shape, dtype=moment_dtype,
-                                      device=p.device)
+        zeros = lambda p: torch.zeros_like(p, dtype=moment_dtype)
         step = torch.zeros((), dtype=torch.int32,
                            device=next(iter(params.values())).device)
         return dict(mu={n: zeros(p) for n, p in params.items()},

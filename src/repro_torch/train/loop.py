@@ -23,16 +23,21 @@ returns the same objects, and a restore copies the checkpoint into them.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
+from torch.profiler import record_function
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.types import resolve_device
 from repro_torch.models import model as M
+from repro_torch.models import sharding as S
 from repro_torch.optim import Optimizer
 from repro_torch.optim.adamw import global_norm
 
@@ -44,25 +49,60 @@ class TrainState:
     step: int = 0
 
 
-def _split(batch: dict, n: int) -> list[dict]:
+def _micro(batch: dict, i: int, n: int) -> dict:
+    """Micro-batch i of n (the batch itself when n is 1)."""
+    if n == 1:
+        return batch
     b = next(iter(batch.values())).shape[0]
     if b % n:
         raise ValueError(f"batch {b} does not split into {n} micro-batches")
-    return [{k: v[i * (b // n):(i + 1) * (b // n)] for k, v in batch.items()}
-            for i in range(n)]
+    return {k: v[i * (b // n):(i + 1) * (b // n)] for k, v in batch.items()}
+
+
+def _replicated(x):
+    """A DTensor metric resolved to a replicated value (a partial sum
+    all-reduced), so each micro-batch settles its own."""
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, (Replicate(),) * x.device_mesh.ndim)
+
+
+# the profiler span each micro-batch of a training step runs in
+MICROBATCH_SPAN = "train_step.microbatch"
 
 
 def make_train_step(mc: M.ModelConfig, opt: Optimizer,
                     lr_fn: Callable[[int], float], *, microbatches: int = 1,
-                    loss_fn: Callable | None = None):
+                    loss_fn: Callable | None = None,
+                    grad_shardings: dict | None = None,
+                    mb_sharding_fn: Callable | None = None):
     """``step(model, opt_state, batch, step) -> (model, opt_state,
     metrics)``: one optimizer step on ``batch`` (a dict of tensors on the
     model's device), updating the model and ``opt_state`` in place.
     ``metrics`` holds device scalars: ``loss``, ``aux`` and ``ntok``
     (means over the micro-batches), ``grad_norm`` (before clipping) and
     ``lr`` (a float). ``mc`` is the model's config (the reference's step
-    builds its loss from it)."""
+    builds its loss from it).
+
+    On a mesh (the model's parameters DTensors, ``sharded_train_step``):
+    grad_shardings: parameter name → placements each micro-batch's grads
+      are redistributed to before they are accumulated (DTensor leaves a
+      grad as the backward made it, a partial sum over the data axes;
+      the reference's pin of its f32 accumulators). mb_sharding_fn(x) ->
+      x laid out: applied to each leaf of each micro-batch (of the whole
+      batch when ``microbatches`` is 1), as the reference shards its
+      (n_micro, b/n, ...) leaves over the data axes.
+
+    Each micro-batch runs in a ``torch.profiler.record_function`` span
+    named ``MICROBATCH_SPAN``: a profile shows them, and the dry run's
+    cost counter takes one micro-batch's cost from them.
+    """
     loss_fn = loss_fn or (lambda model, mb: M.loss_fn(model, mb))
+
+    def place(name, x):
+        if grad_shardings is None or not isinstance(x, DTensor):
+            return x
+        return x.redistribute(x.device_mesh, grad_shardings[name])
 
     def grads_of(model, batch):
         names = [n for n, _ in model.named_parameters()]
@@ -70,21 +110,25 @@ def make_train_step(mc: M.ModelConfig, opt: Optimizer,
         for p in params:
             p.requires_grad_(True)
         acc, ms = None, []
-        for mb in (_split(batch, microbatches) if microbatches > 1
-                   else [batch]):
-            total, m = loss_fn(model, mb)
-            # unused parameters (a frontend arch's token table) get zeros,
-            # as jax.grad gives them
-            g = torch.autograd.grad(total, params, allow_unused=True,
-                                    materialize_grads=True)
-            ms.append({k: v.detach() for k, v in m.items()})
-            with torch.no_grad():
-                if acc is None:
-                    acc = [x.float() for x in g]
-                else:
-                    for a, x in zip(acc, g):
-                        a.add_(x)
-            del g, total
+        for i in range(microbatches):
+            with record_function(MICROBATCH_SPAN):
+                mb = _micro(batch, i, microbatches)
+                if mb_sharding_fn is not None:
+                    mb = {k: mb_sharding_fn(v) for k, v in mb.items()}
+                total, m = loss_fn(model, mb)
+                # unused parameters (a frontend arch's token table) get
+                # zeros, as jax.grad gives them
+                g = torch.autograd.grad(total, params, allow_unused=True,
+                                        materialize_grads=True)
+                g = [place(n, x) for n, x in zip(names, g)]
+                ms.append({k: _replicated(v.detach()) for k, v in m.items()})
+                with torch.no_grad():
+                    if acc is None:
+                        acc = [x.float() for x in g]
+                    else:
+                        for a, x in zip(acc, g):
+                            a.add_(x)
+                del g, total
         with torch.no_grad():
             if microbatches > 1:
                 for a in acc:
@@ -101,6 +145,74 @@ def make_train_step(mc: M.ModelConfig, opt: Optimizer,
         return model, opt_state, metrics
 
     return step_fn
+
+
+def _mirror(state, pls: dict, rep: tuple):
+    """Placements of an optimizer state: a dict keyed by parameter names
+    (AdamW's moments) mirrors the parameters; anything else (the step
+    count) is replicated."""
+    if isinstance(state, dict) and set(state) == set(pls):
+        return dict(pls)
+    if isinstance(state, dict):
+        return {k: _mirror(v, pls, rep) for k, v in state.items()}
+    return rep
+
+
+def _distribute_state(state: dict, opls: dict, mesh) -> None:
+    """Each tensor of ``state`` that is not yet a DTensor replaced, in
+    place, by this rank's shard of it (it is the same on every rank)."""
+    for k, v in state.items():
+        if isinstance(v, dict):
+            _distribute_state(v, opls[k], mesh)
+        elif isinstance(v, torch.Tensor) and not isinstance(v, DTensor) \
+                and v.dim() > 0:
+            state[k] = distribute_tensor(v, mesh, opls[k], src_data_rank=None)
+
+
+def sharded_train_step(mc: M.ModelConfig, opt: Optimizer, lr_fn, mesh, *,
+                       microbatches: int = 1, donate: bool = True,
+                       seq_parallel: bool = False):
+    """The training step on a torch ``DeviceMesh`` (``launch/mesh.py``):
+    the port of ``jit_train_step``. Returns ``(step_fn, param_placements,
+    opt_placements)``.
+
+    ``step_fn(model, opt_state, batch, step)`` distributes the model's
+    parameters and the optimizer state by the rules of
+    ``models/sharding.py`` where they are not DTensors yet (each rank holds
+    the same full tensors, from one seed, and keeps its shard: nothing is
+    sent), shards each micro-batch over the data axes, runs
+    ``make_train_step``'s step under the activation sharder with each
+    grad redistributed to its parameter's placements, and returns the
+    (sharded) model, the optimizer state and the metrics as plain
+    tensors. With ``donate`` the model and state given are distributed in
+    place (the reference donates its buffers to the jitted step); without
+    it, copies are, and the step returns them. The optimizer's state must
+    mirror the parameters (AdamW's moments). Constants the model makes
+    (RoPE frequencies, masks, zero accumulators) are the same on every
+    rank: they enter DTensor ops as replicated."""
+    pls = S.param_placements(mc, mesh)
+    rep = (Replicate(),) * mesh.ndim
+    opls = _mirror(opt.init({n: torch.empty(0) for n in pls}), pls, rep)
+    step = make_train_step(mc, opt, lr_fn, microbatches=microbatches,
+                           grad_shardings=pls,
+                           mb_sharding_fn=lambda x: S.shard_batch(x, mesh))
+    sharder = S.make_act_sharder(mesh, seq_parallel=seq_parallel)
+
+    def step_fn(model, opt_state, batch, step_no):
+        if not donate:
+            model, opt_state = copy.deepcopy(model), copy.deepcopy(opt_state)
+        if not isinstance(next(model.parameters()), DTensor):
+            S.distribute_model(model, mesh, placements_of=pls)
+        _distribute_state(opt_state, opls, mesh)
+        with implicit_replication(), M.activation_sharding(
+                sharder, S.make_param_pinner(mesh)):
+            model, opt_state, metrics = step(model, opt_state, batch,
+                                             step_no)
+        metrics = {k: v.full_tensor() if isinstance(v, DTensor) else v
+                   for k, v in metrics.items()}
+        return model, opt_state, metrics
+
+    return step_fn, pls, opls
 
 
 def _copy_into(dst, src) -> None:
