@@ -11,7 +11,8 @@ Phases (each raises on failure, so the script exits non-zero):
      sub-tile, empty and NO_NODE shapes, and at the main paths' shapes:
      the f32 kernels (the gather bit-equal to the rowwise kernel over the
      gathered rows, its pair-list entry to it, also from unaligned
-     bases), the int8 pairwise kernel at the sq8 kNN block
+     bases; its bf16 entry within the gather's tolerance of its plain
+     version, also at d = 2048), the int8 pairwise kernel at the sq8 kNN block
      (4096,128)x(65536,128) and at d = 64, the int8 gather (bit-equal to
      its exact plain version, with groups of 128, 64, 12 and 7 dims and
      unaligned codes) and its pair list, the int8 tier's fused gather
@@ -63,7 +64,7 @@ Phases (each raises on failure, so the script exits non-zero):
      main engine's 1M-row card tensor, phase 3b's G_Y installed) and
      ``laion`` (phase 5's data, its G_Y built by its warmup), warmed at
      their θ (es_sws, off and sq8), serving SERVE_REQUESTS requests of 1 to
-     SERVE_MAX queries (a quarter at recall budget 0.5, four planned by the
+     SERVE_MAX queries (a quarter at recall budget 0.5, two planned by the
      cost table) and two bad ones (rejected and counted): served = a
      direct ``submit`` replay of the same plans (pairs, ``qid_offset``,
      n_dist, n_iters), every pair sound, recall per tenant and quant at its
@@ -76,7 +77,8 @@ Phases (each raises on failure, so the script exits non-zero):
      tensor: es_mi_adapt in f32 on the first SHARD_CUT queries (the
      per-shard builds; overlap on = off; sound; recall against the exact
      NLJ of those queries at its floor, the unsharded join's beside it),
-     sq8 and pdx8 (per-shard stores, #7′, #11′) and the ring label
+     sq8 and pdx8 (per-shard stores, #7′, #11′; no overlap-off reruns,
+     the smoke's time limit) and the ring label
      (= the all_gather join's pairs) on the same queries, the
      vector-plan mesh NLJ (= the exact NLJ, exactly), a hybrid 2 data x
      4 model plan on ci_hd-shaped data (= the exact NLJ but for pairs
@@ -158,7 +160,24 @@ Phases (each raises on failure, so the script exits non-zero):
      DRYRUN_PEAK_TOL of the first step's ``max_memory_allocated``, the
      measured step ms beside the model's step_min_s. It launches none of
      the eleven kernels;
-  6. time each kernel at the main paths' shapes, the gathers also at the
+  5g. the join dry run, in 5f's process: (a) the five join cells
+     (``configs.vectorjoin.JOIN_DRYRUN_CELLS``) through ``python -m
+     repro_torch.launch.dryrun --join NAME --device cpu`` on the (32, 8)
+     mesh, beside 5f's cells, each logged as theirs are; (b) one separated
+     iteration of the mesh MI join (``core.distributed.mesh_mi_iteration``:
+     probe, one traversal iteration, band compaction, combine) on SHARDS
+     logical shards of the main data (per-shard merged indexes over the
+     first JOIN_WAVE queries), one wave, in f32 and with bf16 vectors,
+     under the cost counter: its FLOPs = SHARDS x the dry run's trace of
+     one shard of the same shapes (``launch.dryrun.trace_join_wave``, which
+     gives (a)'s rows), #3 (and its bf16 entry) launched, the bf16 entry within
+     tolerance of its plain version at the iteration's ids; (c)
+     ``make_distributed_nlj_count`` on a (4, 2) mesh of logical shards
+     (rows over 4, dims over 2), the first NLJ2D_QUERIES main queries
+     against the 1M rows = #5's counts but for pairs within 16 ulps of θ
+     (counted and logged);
+  6. time each kernel at the main paths' shapes (#3's bf16 entry on a
+     bf16 table, #3 also through its custom op), the gathers also at the
      NLJ's pair block (4,194,304 pairs over a 512-query block), #10 and
      #10′ with early exit on and off, #9′ and #11′ beside the eager
      compositions they replaced (#11′ at the pdx8 join's band occupancy),
@@ -404,6 +423,14 @@ def check_f32_gathers(torch, ops, ref, v, x, idx, what: str) -> float:
     return err
 
 
+def check_bf16_gather(torch, ops, ref, v, x, idx, what: str) -> float:
+    """#3's bf16 entry against its plain version (bf16 rows and queries
+    widened to f32, summed in f32) at the f32 gather's tolerance. Returns
+    max |kernel − plain|."""
+    return check_rows(torch, ops.gather_sq_dists(v, x, idx),
+                      ref.gather_sq_dists(v, x, idx), f"gather bf16 {what}")
+
+
 def check_int8_gathers(torch, ops, ref, codes, qx, idx, scales, gs: int,
                        err, qerr, what: str) -> float:
     """#7 bit for bit against its exact plain version (per-group integer
@@ -477,15 +504,27 @@ def check_kernels(torch, ops, ref) -> None:
         for frac in (0.0, 0.3, 1.0):
             i = ids(B, K, 50, frac)
             check_f32_gathers(torch, ops, ref, v, x, i, f"{(B, K, d)}")
+            vb, xb = v.bfloat16(), x.bfloat16()
+            check_bf16_gather(torch, ops, ref, vb, xb, i, f"{(B, K, d)}")
             if B and d:
                 check_f32_gathers(torch, ops, ref, unaligned(v),
                                   unaligned(x), i, f"{(B, K, d)} unaligned")
+                check_bf16_gather(torch, ops, ref, unaligned(vb),
+                                  unaligned(xb), i, f"{(B, K, d)} unaligned")
     # the traversal's shape: 256 lanes x 128 ids over the merged table
     n_nodes = MAIN_N_DATA + MAIN_N_QUERY
     check_f32_gathers(torch, ops, ref, rn(n_nodes, 128), rn(256, 128),
                       ids(256, 128, n_nodes, 0.5), "main shape")
+    # the bf16 entry there, and at the bf16 join cell's width (d = 2048)
+    check_bf16_gather(torch, ops, ref, rn(n_nodes, 128).bfloat16(),
+                      rn(256, 128).bfloat16(), ids(256, 128, n_nodes, 0.5),
+                      "main shape")
+    check_bf16_gather(torch, ops, ref, rn(65536, 2048).bfloat16(),
+                      rn(256, 2048).bfloat16(), ids(256, 128, 65536, 0.5),
+                      "d = 2048")
     log("[kernels] ragged / empty / NO_NODE / unaligned shapes agree; the "
-        "gather bit-equal to the rowwise kernel and its pair list to it")
+        "gather bit-equal to the rowwise kernel and its pair list to it; "
+        "its bf16 entry within tolerance of its plain version")
 
 
 def check_int8_pairwise(torch, ops, ref, st, qx, xn) -> float:
@@ -1245,6 +1284,21 @@ def time_kernels(torch, ops, ref, band_frac: float) -> dict:
         lambda r, v=v, x=x, i=idxs: ops.gather_sq_dists(v, x, i[r]),
         lambda r, v=v, x=x, i=idxs: ref.gather_sq_dists(v, x, i[r]), None,
         (rows * d + B * d + 2 * B * K) * 4, 3.0 * n_valid * d)
+    # the same call through the custom op repro_torch::gather_sq_dists (the
+    # route a dispatch mode sees; real tensors outside one launch directly)
+    out["gather_sq_dists"]["op_event_ms"] = event_ms(
+        torch, lambda r, v=v, x=x, i=idxs:
+        torch.ops.repro_torch.gather_sq_dists(v, x, i[r]))
+    # its bf16 entry on the same ids over a bf16 table: half the row bytes
+    vb, xb = v.bfloat16(), x.bfloat16()
+    out["gather_sq_dists_bf16"] = entry(
+        f"({n_nodes},{d}) bf16 rows, ({B},{K}) ids, {n_valid:.0f} valid",
+        max(check_bf16_gather(torch, ops, ref, vb, xb, i, "main shape")
+            for i in idxs[:3]),
+        lambda r, v=vb, x=xb, i=idxs: ops.gather_sq_dists(v, x, i[r]),
+        lambda r, v=vb, x=xb, i=idxs: ref.gather_sq_dists(v, x, i[r]), None,
+        rows * d * 2 + B * d * 2 + 2 * B * K * 4, 3.0 * n_valid * d)
+    del vb, xb
 
     # its pair-list entry at the NLJ's pair block: P = 4,194,304 pairs
     # over a 512-query block and the 1M data rows, query-major with the
@@ -1675,6 +1729,11 @@ def time_kernels(torch, ops, ref, band_frac: float) -> dict:
         f"{e8['parent_shape']}: max_abs_err={e8['parent_max_abs_err']} "
         f"ms={e8['parent_ms']:.4f} (events {e8['parent_event_ms']:.4f}) "
         f"bound_ms={e8['parent_bound_ms']:.4f} ({e8['parent_bound_by']})")
+    g = out["gather_sq_dists"]
+    log(f"[kernels] gather_sq_dists event ms a call: direct launch "
+        f"{g['event_ms']:.4f}, through the custom op "
+        f"{g['op_event_ms']:.4f} (+{(g['op_event_ms'] - g['event_ms']) * 1e3:.1f}"
+        f" µs)")
     for name, r in out.items():
         off = (f" early exit off ms={r['ms_exit_off']:.4f} (events "
                f"{r['event_ms_exit_off']:.4f})" if "ms_exit_off" in r else "")
@@ -1957,14 +2016,15 @@ def check_nlj(torch, ops, run: dict, kernels, *, mode: str | None = None,
 
 
 def run_mode(torch, ops, run: dict, mode: str, *, floor: float, kernels,
-             nlj_kernels, overlap_off: bool = True) -> dict:
+             nlj_kernels, reruns: bool = True) -> dict:
     """Phases 4b/5b: the merged-index join and the NLJ under ``mode`` on
     the engine and merged index of an earlier sq8 run (no second index
     build; the int8 store is shared, the sketch/PDX stores are built once).
     Checks: the launch counts of ``kernels`` (reset just before, read just
     after), every pair sound in float64, recall against the f32 NLJ at
-    least ``floor``, escalations under a sketch tier; then the same pairs
-    (with ``overlap_off``) with overlap off and (PDX) with early exit off;
+    least ``floor``, escalations under a sketch tier; then (with
+    ``reruns``) the same pairs with overlap off and (PDX) with early exit
+    off;
     and the NLJ (PDX tier
     0: on and off, the same pairs and n_rerank, and fewer dimensions
     scanned than a full scan)."""
@@ -2023,8 +2083,8 @@ def run_mode(torch, ops, run: dict, mode: str, *, floor: float, kernels,
 
     want = card_keys(torch, pairs, n_data)
     variants = ([("overlap off", dataclasses.replace(cfg, overlap=False))]
-                if overlap_off else [])
-    if "pdx" in names:
+                if reruns else [])
+    if "pdx" in names and reruns:
         variants.append(("early exit off", dataclasses.replace(
             cfg, traversal=dataclasses.replace(cfg.traversal,
                                                early_exit=False))))
@@ -2510,7 +2570,8 @@ def run_stream_mi(torch, ops, run: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 SERVE_BUCKETS = (64, 128, 256)
-SERVE_REQUESTS = 48
+# halved from 48 for the smoke's time limit (PERF.md §4, §7)
+SERVE_REQUESTS = 24
 # requests draw their queries from the first SERVE_SPAN of each tenant's
 SERVE_SPAN = 1_024
 SERVE_MAX = 256
@@ -2536,7 +2597,7 @@ def serve_requests(data: dict) -> list:
     """SERVE_REQUESTS requests from a fixed seed: tenants alternate, the
     quants alternate in pairs within a tenant (so sq8 waves meet a carry
     window of int8 codes), sizes 1..SERVE_MAX from the first SERVE_SPAN
-    queries; a quarter at recall budget 0.5, four left to the planner.
+    queries; a quarter at recall budget 0.5, two left to the planner.
     Returns (request, first query index) pairs."""
     from repro_torch.serve import JoinRequest
     rng = np.random.default_rng(SERVE_SEED)
@@ -2907,16 +2968,18 @@ def run_sharded(torch, ops, run: dict) -> dict:
     launches: dict = {}
 
     def mi_join(tag: str, X, cfg, floor: float | None, n_q: int,
-                off_run=None):
-        """The join with overlap on, then off (``off_run`` when given)."""
+                off_run=None, overlap_off: bool = True):
+        """The join with overlap on, then off (``off_run`` when given;
+        none without ``overlap_off``)."""
         res = shard_step(torch, ops, f"{tag}:on",
                          lambda: eng.join(X, cfg), launches)
         off = shard_step(torch, ops, f"{tag}:off", off_run or (
             lambda: eng.join(X, dataclasses.replace(cfg, overlap=False))),
-            launches)
+            launches) if overlap_off else None
         st = res.stats
-        if not torch.equal(card_keys(torch, res.pairs, n_data),
-                           card_keys(torch, off.pairs, n_data)):
+        if off is not None and not torch.equal(
+                card_keys(torch, res.pairs, n_data),
+                card_keys(torch, off.pairs, n_data)):
             raise AssertionError(f"{tag}: overlap on/off pair sets differ")
         band = check_sound(torch, torch.as_tensor(X, device=DEV), Y,
                            res.pairs, theta)
@@ -2932,8 +2995,9 @@ def run_sharded(torch, ops, run: dict) -> dict:
             f"bytes_allgather={st.bytes_allgather} "
             f"bytes_assembly={st.bytes_assembly} sound (boundary band "
             f"{band}) recall={rec:.6f} recall_within_pool_cap="
-            f"{rec_cap:.6f}; overlap off: same pairs, n_iters "
-            f"{off.stats.n_iters}")
+            f"{rec_cap:.6f}; " + (f"overlap off: same pairs, n_iters "
+                                  f"{off.stats.n_iters}" if off is not None
+                                  else "no overlap-off rerun"))
         if floor is not None and rec < floor:
             raise AssertionError(f"{tag}: recall {rec} below the floor "
                                  f"{floor}")
@@ -2976,10 +3040,13 @@ def run_sharded(torch, ops, run: dict) -> dict:
         log(f"[shard/f32] the unsharded join on the same queries (phase "
             f"3's pairs): recall={un_rec:.6f} pairs={len(un)}")
 
-    # 2. sq8 and pdx8: per-shard stores, #7′ and #11′
+    # 2. sq8 and pdx8: per-shard stores, #7′ and #11′ (no overlap-off
+    # reruns, 18-23 s each: the smoke's time limit; f32's above holds
+    # the sharded overlap on = off)
     for quant in ("sq8", "pdx8"):
         mi_join(f"shard/{quant}", Xs, dataclasses.replace(cfg, quant=quant),
-                SHARD_RECALL_FLOORS[f"shard/{quant}"], SHARD_CUT)
+                SHARD_RECALL_FLOORS[f"shard/{quant}"], SHARD_CUT,
+                overlap_off=False)
 
     # 4. the vector-plan mesh NLJ: the exact NLJ's pairs, exactly (#1)
     nlj = shard_step(torch, ops, "shard/nlj", lambda: eng.join(
@@ -3689,6 +3756,11 @@ DRYRUN_CELLS = (("tinyllama_1_1b", "train_4k"),
 DRYRUN_STEP_RTOL = 1e-3
 # (c): |dry-run peak − measured peak| / measured peak
 DRYRUN_PEAK_TOL = 0.25
+# phase 5g: the separated iteration's wave, the 2-D count's queries, and
+# the file its launches reach the kernel table through
+JOIN_WAVE = 256
+NLJ2D_QUERIES = 2_000
+JOIN_LAUNCHES = ROOT / "build" / "dryrun" / "join_launches.json"
 
 
 def free_port() -> int:
@@ -3699,18 +3771,23 @@ def free_port() -> int:
 
 
 def start_dryrun_cells() -> list:
-    """DRYRUN_CELLS through ``python -m repro_torch.launch.dryrun``, all at
-    once, each in a process of its own (the fake group is
-    process-global)."""
+    """DRYRUN_CELLS and (phase 5g (a)) the join cells through ``python -m
+    repro_torch.launch.dryrun``, all at once, each in a process of its own
+    (the fake group is process-global)."""
+    from repro_torch.configs.vectorjoin import JOIN_DRYRUN_CELLS
     out_dir = ROOT / "build" / "dryrun"     # build/ is ignored by git
     out_dir.mkdir(parents=True, exist_ok=True)
+    runs = [(arch, shape, ["--arch", arch, "--shape", shape])
+            for arch, shape in DRYRUN_CELLS]
+    runs += [(c.name, "join_wave", ["--join", c.name, "--device", "cpu"])
+             for c in JOIN_DRYRUN_CELLS]
     procs = []
-    for arch, shape in DRYRUN_CELLS:
+    for arch, shape, argv in runs:
         out = out_dir / f"dryrun_{arch}_{shape}.json"
         with open(out.with_suffix(".log"), "w") as f:
             procs.append((arch, shape, out, subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-                 arch, "--shape", shape, "--out", str(out)],
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+                 "--out", str(out)],
                 stdout=f, stderr=subprocess.STDOUT,
                 env=dict(os.environ, PYTHONPATH=str(SRC)))))
     return procs
@@ -3732,11 +3809,11 @@ def finish_dryrun_cells(procs) -> list:
         results.append(json.loads(out.read_text())[0])
     for r in results:
         log(f"[dryrun] {r['arch']} x {r['shape']} on {r['mesh']}: "
-            f"{r['peak_memory_bytes'] / 1e9:.3f} GB/dev of 80; compute "
+            f"{r['peak_memory_bytes'] / 1e9:.6g} GB/dev of 80; compute "
             f"{r['compute_s']:.6g}s memory {r['memory_s']:.6g}s collective "
             f"{r['collective_s']:.6g}s, bound {r['bottleneck']}; step_s "
             f"{r['step_s']:.6g} step_min_s {r['step_min_s']:.6g}; roofline "
-            f"{r['roofline_fraction']:.4f}; traced in {r['trace_s']}s "
+            f"{r['roofline_fraction']:.4g}; traced in {r['trace_s']}s "
             f"(the model's prediction for the H100 spec)")
     return results
 
@@ -3855,9 +3932,135 @@ def run_dryrun(torch, smi: str, *, cells: bool = True) -> None:
         step=runs, gaps=gaps, dry_flops=cost.flops, dry_peak=peak,
         dry_step_min_s=model_r.step_min_s, dry_step_s=model_r.step_s)),
         flush=True)
+    log(f"[dryrun] phase 5f {time.perf_counter() - t_phase:.1f}s")
+    del runs
+    torch.cuda.empty_cache()
+    run_join_dryrun(torch, smi)
     if procs is not None:
         report_dryrun_cells(procs)
-    log(f"[dryrun] phase 5f {time.perf_counter() - t_phase:.1f}s")
+
+
+def run_join_dryrun(torch, smi: str) -> None:
+    """Phase 5g (b) and (c) (see the module docstring); its launches go to
+    JOIN_LAUNCHES for the kernel table."""
+    from repro_torch.configs.vectorjoin import EngineSpec, JoinCell
+    from repro_torch.core import JoinConfig
+    from repro_torch.core import distributed as D
+    from repro_torch.data.vectors import table1_dataset, thresholds
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline.cost import CostCounter
+
+    t_phase = time.perf_counter()
+    ds = table1_dataset("sift-like", n_data=MAIN_N_DATA,
+                        n_query=MAIN_N_QUERY, seed=0)
+    theta = float(thresholds(ds, 7)[1])
+    Y = torch.as_tensor(ds.Y, device=DEV)
+
+    # (b) one separated iteration of the mesh MI join, f32 and bf16
+    X = torch.as_tensor(ds.X[:JOIN_WAVE], device=DEV)
+    t0 = time.perf_counter()
+    smi = D.build_sharded_merged_index(Y, X, SHARDS, devices=(DEV,) * SHARDS,
+                                       **EngineSpec().build_kw())
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    qids = torch.arange(JOIN_WAVE, dtype=torch.int32, device=DEV)
+    lv = torch.ones(JOIN_WAVE, dtype=torch.bool, device=DEV)
+    cfg = JoinConfig().traversal
+    launches = {}
+    for tag, dt, kernel in (("f32", torch.float32, "gather_sq_dists"),
+                            ("bf16", torch.bfloat16, "gather_sq_dists_bf16")):
+        s = smi if dt == torch.float32 else dataclasses.replace(
+            smi, shards=tuple(dataclasses.replace(g, vecs=g.vecs.to(dt))
+                              for g in smi.shards))
+        x = X.to(dt).clone()
+        kw = dict(theta=theta, cfg=cfg)
+        # the dry run's trace of one shard of these shapes, as its rows
+        cell = JoinCell("smoke", n_query=smi.n_query,
+                        n_data=SHARDS * smi.shard_size, dim=x.shape[1],
+                        degree=smi.shards[0].degree, wave_size=JOIN_WAVE,
+                        pool_cap=cfg.pool_cap, max_iters=cfg.max_iters,
+                        dtype=str(dt).removeprefix("torch."))
+        fake, _ = dryrun.trace_join_wave(cell, n_shards=SHARDS, device=DEV)
+        fake = fake * SHARDS
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with CostCounter() as cc:
+            D.mesh_mi_iteration(s, x, qids, lv, **kw)
+        torch.cuda.synchronize()
+        counted_ms = (time.perf_counter() - t0) * 1e3
+        real = cc.snapshot()
+        got = ops.launch_counts()
+        add_launches(launches, got)
+        t0 = time.perf_counter()
+        D.mesh_mi_iteration(s, x, qids, lv, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        log(f"[dryrun/join] one separated iteration, {SHARDS} logical shards "
+            f"of {smi.shard_size} rows, a wave of {JOIN_WAVE}, {tag}: counted "
+            f"flops real {real.flops:.17g} fake {fake.flops:.17g}; bytes real "
+            f"{real.bytes:.17g} fake {fake.bytes:.17g}; ops real "
+            f"{real.n_ops} fake {fake.n_ops} (fake: {SHARDS} x one shard's "
+            f"trace, without the combine's copy); {kernel} launched "
+            f"{got[kernel]} times; {plain_ms:.2f} ms (host clock, "
+            f"{counted_ms:.2f} under the counter); shard builds "
+            f"{build_s:.1f}s ({SHARDS} x {tuple(smi.shards[0].vecs.shape)})")
+        if got[kernel] == 0:
+            raise AssertionError(f"the separated iteration never launched "
+                                 f"{kernel}")
+        if real.flops != fake.flops:
+            raise AssertionError(f"the {tag} iteration's counted flops "
+                                 f"differ from its fake trace: {real.flops} "
+                                 f"!= {fake.flops}")
+        if dt == torch.bfloat16:
+            # the bf16 entry against its plain version on the iteration's
+            # probe rows and on a half-NO_NODE expansion's ids
+            g = s.shards[0]
+            inp = Inputs(torch)
+            for what, idx in (("probe rows", g.nbrs[(qids + smi.shard_size)
+                                                    .long()]),
+                              ("expansion ids", inp.ids(
+                                  JOIN_WAVE, cfg.expand_per_iter * g.degree,
+                                  g.n_nodes, 0.5))):
+                err = check_bf16_gather(torch, ops, ref, g.vecs, x, idx, what)
+                log(f"[dryrun/join] bf16 gather at the iteration's {what} "
+                    f"{tuple(idx.shape)}: max |kernel − plain| {err}")
+    del smi, s, X
+
+    # (c) the 2-D count: rows over 4 data shards, dims over 2 model ranks
+    Xc = torch.as_tensor(ds.X[:NLJ2D_QUERIES], device=DEV)
+    mesh = D.DeviceMesh.on_device(DEV, 8, (4, 2), ("data", "model"))
+    count = D.make_distributed_nlj_count(mesh, "data", "model", theta=theta)
+    t0 = time.perf_counter()
+    got = count(Xc, Y)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    want = ops.nlj_count(Xc, Y, theta=theta)
+    torch.cuda.synchronize()
+    nl = ops.launch_counts()
+    if nl["nlj_count"] == 0:
+        raise AssertionError("the 2-D count check never launched nlj_count")
+    add_launches(launches, nl)
+    rows = (got.long() != want.long()).nonzero().squeeze(1)
+    ulp = float(np.spacing(np.float32(theta)))
+    off = 0
+    for q in rows.tolist():
+        d64 = ((Y.double() - Xc[q].double()) ** 2).sum(1).sqrt()
+        band = int(((d64 - theta).abs() <= 16 * ulp).sum())
+        diff = abs(int(got[q]) - int(want[q]))
+        if diff > band:
+            raise AssertionError(f"2-D count: query {q} counts {int(got[q])}"
+                                 f", nlj_count {int(want[q])}, beyond its "
+                                 f"{band} pairs within 16 ulps of θ")
+        off += diff
+    log(f"[dryrun/join] make_distributed_nlj_count on a (4, 2) mesh of "
+        f"logical shards, {NLJ2D_QUERIES} queries x {MAIN_N_DATA} rows: "
+        f"{int(got.sum())} pairs ({secs:.3f}s) against nlj_count's "
+        f"{int(want.sum())}; {rows.numel()} queries differ, by {off} pairs, "
+        f"each within 16 ulps of θ")
+    JOIN_LAUNCHES.write_text(json.dumps(launches))
+    log(f"[dryrun/join] phase 5g (b), (c) {time.perf_counter() - t_phase:.1f}s")
 
 
 def report_dryrun_cells(procs) -> None:
@@ -4069,14 +4272,15 @@ def main() -> int:
     del main_run["knn"], sq8_run["knn"]
     # phase 4b: sketch8 (= serving_sketch8: its quant_build is sq8 too)
     # and pdx8 on the sq8 engine's merged index
-    # the 1M-row sketch8 and pdx8 joins skip their overlap-off reruns
-    # too; the OOD sketchpdx8 join keeps it
+    # the 1M-row sketch8 and pdx8 joins skip their overlap-off and
+    # (pdx8) early-exit-off reruns too; the OOD sketchpdx8 join keeps
+    # both, and the pdx8 NLJ its early exit on = off
     sk8 = run_mode(torch, ops, sq8_run, "sketch8",
                    floor=SKETCH8_RECALL_FLOOR, kernels=SKETCH8_KERNELS,
-                   nlj_kernels=SKETCH8_NLJ_KERNELS, overlap_off=False)
+                   nlj_kernels=SKETCH8_NLJ_KERNELS, reruns=False)
     pd8 = run_mode(torch, ops, sq8_run, "pdx8", floor=PDX8_RECALL_FLOOR,
                    kernels=PDX8_KERNELS, nlj_kernels=PDX8_NLJ_KERNELS,
-                   overlap_off=False)
+                   reruns=False)
     log(f"[sift-like] recall sq8 {sq8_run['recall']:.6f} sketch8 "
         f"{sk8['recall']:.6f} pdx8 {pd8['recall']:.6f}")
     del sq8_run["eng"]
@@ -4121,6 +4325,7 @@ def main() -> int:
         "pairlist_sq_dists": "src/repro/kernels/distance.py:54",
         "rowwise_sq_dists": "src/repro/kernels/distance.py:106",
         "gather_sq_dists": "src/repro/kernels/gather_distance.py:47",
+        "gather_sq_dists_bf16": "src/repro/kernels/gather_distance.py:47",
         "gather_sq_dists_pairs": "src/repro/kernels/gather_distance.py:47",
         "topk_merge": "src/repro/kernels/topk_merge.py:70",
         "pairwise_sq_dists_int8": "src/repro/kernels/int8.py:64",
@@ -4139,7 +4344,8 @@ def main() -> int:
     }
     source = {k: "src/repro_torch/kernels/csrc/distance.cu" for k in
               ("pairwise_sq_dists", "pairlist_sq_dists", "rowwise_sq_dists",
-               "gather_sq_dists", "gather_sq_dists_pairs")}
+               "gather_sq_dists", "gather_sq_dists_bf16",
+               "gather_sq_dists_pairs")}
     source.update({k: "src/repro_torch/kernels/csrc/int8.cu" for k in
                    ("pairwise_sq_dists_int8", "pairwise_bounds_int8",
                     "rowwise_sq_dists_int8", "gather_bounds_int8",
@@ -4160,6 +4366,7 @@ def main() -> int:
     paths.update(serve)
     paths.update(sharded)
     paths["stream/es_mi_adapt/sq8"] = stream_mi
+    paths["dryrun/join"] = json.loads(JOIN_LAUNCHES.read_text())
     # the sketch/PDX paths: their merged-index join plus their NLJ
     for r in (sk8, pd8, skpd):
         paths[r["name"].split("/")[1]] = {
@@ -4173,7 +4380,8 @@ def main() -> int:
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
                     **{x: r[x] for x in ("ms_exit_off", "composition_ms",
                                          "composition_event_ms", "parent_ms",
-                                         "parent_bound_ms") if x in r})
+                                         "parent_bound_ms", "event_ms",
+                                         "op_event_ms") if x in r})
                for k, r in table.items()]
     log(f"[done] total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -10,6 +10,8 @@ mid-vector early exit; ``sketchpdx8``: the sketch above PDX), each with
 an exact f32 re-rank of the ambiguous band; ``quant_build`` drives the
 offline index builds through the int8 tier (identical edges, f32 build
 traffic cut to the band; a mode without an int8 tier builds in f32).
+``JOIN_DRYRUN_CELLS`` are the distributed-join dry-run cells beside the
+LM's (X replicated on every shard, Y sharded over the data axes).
 """
 from __future__ import annotations
 
@@ -97,3 +99,42 @@ def make_engine(Y, spec: str | EngineSpec = "default", *,
                       carry_window=spec.carry_window,
                       max_cached_indexes=spec.max_cached_indexes,
                       device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class JoinCell:
+    """One distributed-join dry-run cell (``launch.dryrun.run_join_cell``).
+
+    max_iters bounds the traversal loop; for the roofline it is set to the
+    *expected* per-wave iteration count (the production safety bound of
+    4096 would make the static cost model 100× pessimistic — measured CI
+    waves converge in ≲64 iterations). dtype bf16 halves the gather
+    traffic of the distance hot-spot (the f32 sums stay: #3's bf16 entry).
+    """
+    name: str
+    n_query: int
+    n_data: int          # global |Y| (sharded over data axes)
+    dim: int
+    degree: int          # index max out-degree R
+    wave_size: int
+    pool_cap: int
+    hybrid: bool = False
+    max_iters: int = 64
+    dtype: str = "float32"
+    # the traversal loop exits data-dependently, so one iteration is
+    # traced; the dry run scales it by this measured expectation (es_mi on
+    # CI data: ~3 iters/wave at θ1, ~52 at θ4)
+    expected_iters: int = 32
+
+
+JOIN_DRYRUN_CELLS = (
+    # embedding-scale joins: |Y| per shard × 256/512 shards ⇒ 0.1–1B rows
+    JoinCell("join_sift_like", 10_000, 524_288, 128, 32, 256, 512),
+    JoinCell("join_clip_like", 10_000, 524_288, 512, 32, 256, 512),
+    JoinCell("join_ood_hybrid", 10_000, 262_144, 512, 32, 256, 512,
+             hybrid=True),
+    JoinCell("join_lm_embed", 4_096, 1_048_576, 2048, 32, 256, 256),
+    # bf16 vectors (distances still f32-accumulated)
+    JoinCell("join_lm_embed_bf16", 4_096, 1_048_576, 2048, 32, 256, 256,
+             dtype="bfloat16"),
+)

@@ -60,6 +60,7 @@ from repro_torch.obs import trace as obs_trace
 HYBRID_ROW_FLOOR = 4096
 POOL_COMBINE_RING_MIN = 8  # the reference's ppermute ring from here up
 DEFAULT_MERGE_CAP = 32     # cold-start kept-pairs/lane/shard capacity
+NLJ_COUNT_WAVE = 256       # queries a wave of make_distributed_nlj_count
 
 
 def visible_devices(device=None) -> int:
@@ -430,7 +431,8 @@ def _local_mi_join(index: GraphIndex, cascade, xw: torch.Tensor,
                    qids: torch.Tensor, lane_valid: torch.Tensor, *,
                    rank: int, last: bool, theta: float, cfg: TraversalConfig,
                    shard_size: int, hybrid: bool, pad_last: int,
-                   rerank_cap: int, early_exit: bool, merge_cap: int):
+                   rerank_cap: int, early_exit: bool, merge_cap: int,
+                   n_steps: int | None = None):
     """One shard's wave of the MI join (the reference's per-shard body).
 
     Probes each query's own row of the shard's merged index, runs BFS (or
@@ -444,7 +446,8 @@ def _local_mi_join(index: GraphIndex, cascade, xw: torch.Tensor,
     ``n_dims_scanned``, ``n_dims_total`` of the PDX re-rank; ``n_iters``
     the expansion's host-stepped iterations. Lanes whose kept set
     outgrows ``merge_cap`` report it in ``n_keep`` (the driver retries);
-    so do band overflows in ``n_band_over``."""
+    so do band overflows in ``n_band_over``. ``n_steps`` runs exactly that
+    many expansion iterations with no host sync (``range_expand``)."""
     from repro_torch.engine import waves as W
 
     dev = xw.device
@@ -467,7 +470,8 @@ def _local_mi_join(index: GraphIndex, cascade, xw: torch.Tensor,
         index, xw, theta, cfg=cfg, n_data=shard_size, hybrid=hybrid,
         traverse_nondata=hybrid, init_idx=rows, init_dist=dist,
         init_valid=valid, visited=visited, best_dist=best, best_idx=besti,
-        n_dist=n_new, cascade=cascade, qc=qc, init_ub=ub, n_esc=n_esc0)
+        n_dist=n_new, cascade=cascade, qc=qc, init_ub=ub, n_esc=n_esc0,
+        n_steps=n_steps)
     C = r.pool_idx.shape[1]
     keep = torch.arange(C, device=dev)[None, :] < r.n_pool[:, None]
     zeros = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -564,6 +568,42 @@ def make_distributed_mi_join(mesh: DeviceMesh, shard_axes,
         return (merged,) + stacked, n_iters
 
     return step
+
+
+def local_mi_iteration(index: GraphIndex, xw: torch.Tensor,
+                       qids: torch.Tensor, lane_valid: torch.Tensor, *,
+                       theta: float, cfg: TraversalConfig, shard_size: int,
+                       hybrid: bool = False, rank: int = 0):
+    """One shard's wave of the f32 mesh MI join cut to one traversal
+    iteration, with no host sync: the probe of each query's merged-index
+    row, ``expand_init`` and one ``expand_step``, and the band compaction
+    of the kept pool into DEFAULT_MERGE_CAP columns; the vectors may be
+    bf16
+    (the gather's bf16 entry). This is the iteration the dry run traces on
+    fake tensors and scales by a cell's expected iterations, as the
+    reference lowers its step's ``while_loop`` body once. Returns
+    ``(cand (B, DEFAULT_MERGE_CAP) int32, n_keep (B,) int32)``."""
+    cand, stats, _ = _local_mi_join(
+        index, None, xw, qids, lane_valid, rank=rank, last=False,
+        theta=theta, cfg=cfg, shard_size=shard_size, hybrid=hybrid,
+        pad_last=0, rerank_cap=cfg.rerank_cap, early_exit=False,
+        merge_cap=DEFAULT_MERGE_CAP, n_steps=1)
+    return cand, stats[0]
+
+
+def mesh_mi_iteration(smi: ShardedMergedIndex, xw: torch.Tensor,
+                      qids: torch.Tensor, lane_valid: torch.Tensor, *,
+                      theta: float, cfg: TraversalConfig,
+                      hybrid: bool = False) -> torch.Tensor:
+    """``local_mi_iteration`` on every shard, one after another, and the
+    kept pools combined on the first shard's device → (S, B,
+    DEFAULT_MERGE_CAP)."""
+    cands = [local_mi_iteration(
+        index, xw.to(index.device), qids.to(index.device),
+        lane_valid.to(index.device), theta=theta, cfg=cfg,
+        shard_size=smi.shard_size, hybrid=hybrid, rank=s)[0]
+        for s, index in enumerate(smi.shards)]
+    return all_gather(cands, smi.devices[0])
 
 
 def distributed_mi_join(X, smi: ShardedMergedIndex,
@@ -957,3 +997,60 @@ def distributed_nlj_join(X, Y, plan: MeshPlan, *, theta: float,
     pairs = pairs[pairs[:, 1] < n_data]      # sentinel belt-and-braces
     stats.band_occ_per_shard = (0,) * S      # the NLJ has no re-rank band
     return pairs, stats
+
+
+# ---------------------------------------------------------------------------
+# exact NLJ counts with 2-D (data × model) sharding
+# ---------------------------------------------------------------------------
+
+def make_distributed_nlj_count(mesh: DeviceMesh, data_axes, model_axis: str,
+                               *, theta: float):
+    """Exact per-query counts with Y's rows sharded over ``data_axes`` and
+    the vector dimension over ``model_axis``
+    (``repro.core.distributed.make_distributed_nlj_count``). Each (data,
+    model) block computes its partial ``xn + ynᵀ − 2·x@yᵀ`` over its
+    dimension slice (``_group_partial``, the reference's arithmetic), the
+    partials are ``psum``'d over the model axis, compared with θ² (f32) and
+    the counts summed over the data axes. Queries go in waves of
+    NLJ_COUNT_WAVE so one block's partial stays small; the counts are the
+    same.
+
+    Returns ``count(X, Y) → (B,) int32`` on the first device of the mesh:
+    ``X`` (B, d) replicated, ``Y`` (N, d), both split here: rows into
+    ``ceil(N / S)`` a data shard (the last may hold fewer), dimensions
+    into ``ceil(d / m)`` a model rank, zero-padded (a zero column adds 0
+    to every partial)."""
+    data_axes = ((data_axes,) if isinstance(data_axes, str)
+                 else tuple(data_axes))
+    S, m = mesh.axis_size(data_axes), mesh.axis_size(model_axis)
+    sizes = [mesh.shape[mesh.axis_names.index(a)] for a in data_axes]
+    th2 = float(np.float32(theta) ** 2)
+
+    def device(s: int, g: int) -> torch.device:
+        coords = dict(zip(data_axes, np.unravel_index(s, sizes)))
+        return mesh.device_at(**coords, **{model_axis: g})
+
+    def count(X, Y) -> torch.Tensor:
+        X = torch.as_tensor(X, dtype=torch.float32)
+        Y = torch.as_tensor(Y, dtype=torch.float32)
+        B, (N, d) = X.shape[0], Y.shape
+        rows, w = -(-N // S), -(-d // m)
+        Xp = torch.nn.functional.pad(X, (0, w * m - d))
+        Yp = torch.nn.functional.pad(Y, (0, w * m - d))
+        dst = device(0, 0)
+        out = torch.zeros((B,), dtype=torch.int32, device=dst)
+        blocks = [[Yp[s * rows:(s + 1) * rows, g * w:(g + 1) * w]
+                   .to(device(s, g)) for g in range(m)] for s in range(S)]
+        for b0 in range(0, B, NLJ_COUNT_WAVE):
+            xb = Xp[b0:b0 + NLJ_COUNT_WAVE]
+            cnts = []
+            for s in range(S):
+                parts = [_group_partial(xb[:, g * w:(g + 1) * w]
+                                        .to(device(s, g)), blocks[s][g])[0]
+                         for g in range(m)]
+                d2 = psum(parts, device(s, 0))
+                cnts.append(torch.sum(d2 < th2, dim=1, dtype=torch.int32))
+            out[b0:b0 + NLJ_COUNT_WAVE] = psum(cnts, dst)
+        return out
+
+    return count

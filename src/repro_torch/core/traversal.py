@@ -334,36 +334,51 @@ class ExpandResult(NamedTuple):
     visited: torch.Tensor      # (B, W)
 
 
-def range_expand(index: GraphIndex, x: torch.Tensor, theta: float, *,
-                 cfg: TraversalConfig, n_data: int, hybrid: bool,
-                 traverse_nondata: bool, init_idx: torch.Tensor,
-                 init_dist: torch.Tensor, init_valid: torch.Tensor,
-                 visited: torch.Tensor, best_dist: torch.Tensor,
-                 best_idx: torch.Tensor, n_dist: torch.Tensor,
-                 cascade=None, qc=None, init_ub: torch.Tensor | None = None,
-                 n_esc: torch.Tensor | None = None) -> ExpandResult:
-    """Enumerate all reachable in-range data points from initial candidates.
+class ExpandState(NamedTuple):
+    """One iteration's state of ``range_expand`` (``expand_step`` maps
+    it to the next). Pools carry the overflow sink column C."""
+    pool_idx: torch.Tensor     # (B, C + 1)
+    pool_dist: torch.Tensor    # (B, C + 1)
+    pool_exp: torch.Tensor     # (B, C + 1) expanded flags
+    n_pool: torch.Tensor       # (B,)
+    overflow: torch.Tensor     # (B,)
+    hb_dist: torch.Tensor      # (B, max(Lh, 1)) hybrid out-range beam
+    hb_idx: torch.Tensor
+    hb_exp: torch.Tensor
+    hb_ub: torch.Tensor        # its certified upper bounds
+    qmax_prev: torch.Tensor    # (B,) last max over the unexpanded beam
+    stall: torch.Tensor        # (B,)
+    done: torch.Tensor         # (B,)
+    best_dist: torch.Tensor    # (B,)
+    best_idx: torch.Tensor     # (B,)
+    n_dist: torch.Tensor       # (B,)
+    n_esc: torch.Tensor        # (B,)
+    visited: torch.Tensor      # (B, W)
 
-    ``init_*`` (B, K0) are already-visited candidates with known distances
-    (for the merged index, the probed neighbor row). In-range data entries
-    seed the result pool; the rest seed the hybrid out-range beam (BBFS
-    only — plain BFS drops them). ``visited`` is updated in place.
 
-    Under a ``cascade`` every distance is a certified lower bound, so the
-    pool is a superset of the exact one and the caller re-ranks it; the
-    hybrid beam carries (lb, ub) pairs (``init_ub`` for the initial
-    candidates) and protects entries with ub < ``hybrid_guard``·θ² from
-    eviction. ``n_esc`` (B,) carries the probe's tier-1 escalations.
-    """
-    vecs, nbrs = index.vecs, index.nbrs
-    dev = x.device
-    B, K0 = init_idx.shape
-    C, Lh, E = cfg.pool_cap, cfg.hybrid_beam, cfg.expand_per_iter
+def _expand_consts(theta: float, cfg: TraversalConfig, hybrid: bool,
+                   cascade) -> tuple[float, bool, float | None]:
+    """(θ² in f32, whether the hybrid beam runs, its protection radius)."""
     th2 = sq_theta(theta)
-    use_hb = hybrid and Lh > 0
     # eviction protection only matters when distances are bounds
     protect_th2 = (float(np.float32(cfg.hybrid_guard) * np.float32(th2))
                    if cascade is not None and cfg.hybrid_guard > 0 else None)
+    return th2, hybrid and cfg.hybrid_beam > 0, protect_th2
+
+
+def expand_init(x: torch.Tensor, theta: float, *, cfg: TraversalConfig,
+                n_data: int, hybrid: bool, init_idx: torch.Tensor,
+                init_dist: torch.Tensor, init_valid: torch.Tensor,
+                visited: torch.Tensor, best_dist: torch.Tensor,
+                best_idx: torch.Tensor, n_dist: torch.Tensor, cascade=None,
+                init_ub: torch.Tensor | None = None,
+                n_esc: torch.Tensor | None = None) -> ExpandState:
+    """``range_expand``'s state before its first iteration: the in-range
+    initial candidates in the pool, the rest in the hybrid beam."""
+    dev = x.device
+    B, K0 = init_idx.shape
+    C, Lh = cfg.pool_cap, cfg.hybrid_beam
+    th2, use_hb, protect_th2 = _expand_consts(theta, cfg, hybrid, cascade)
     if init_ub is None:
         init_ub = torch.full_like(init_dist, _INF)
     if n_esc is None:
@@ -401,107 +416,175 @@ def range_expand(index: GraphIndex, x: torch.Tensor, theta: float, *,
 
     pool_exp = torch.zeros((B, C + 1), dtype=torch.bool, device=dev)
     pool_exp[:, C] = True
-    qmax_prev = torch.full((B,), _INF, device=dev)
-    stall = torch.zeros((B,), dtype=torch.int32, device=dev)
-    done = torch.zeros((B,), dtype=torch.bool, device=dev)
-    n_iters = 0
-
-    # host-stepped while loop: one device→host sync per iteration
-    while n_iters < cfg.max_iters and not bool(done.all()):
-        active = ~done
-        # --- select up to E unexpanded entries: pool (in-range) first ---
-        # 2e30 − d rounds to 2e30 in f32, so every unexpanded pool entry
-        # ties and selection goes lowest slot first (BFS in pool order)
-        pkey = torch.where((~pool_exp) & (pool_idx != NO_NODE),
-                           2e30 - pool_dist, -_INF)
-        if use_hb:
-            hkey = torch.where((~hb_exp) & (hb_idx != NO_NODE)
-                               & torch.isfinite(hb_dist), -hb_dist, -_INF)
-            key = torch.cat([pkey, hkey], dim=1)
-        else:
-            key = pkey
-        selk, selpos = torch.sort(key, dim=1, descending=True, stable=True)
-        selk, selpos = selk[:, :E], selpos[:, :E]
-        sel_valid = (selk > -_INF) & active[:, None]
-        from_pool = selpos < (C + 1)
-        pool_pos = torch.where(from_pool, selpos, 0)
-        hb_pos = torch.where(from_pool, 0, selpos - (C + 1))
-        sel_ids = torch.where(from_pool, _take(pool_idx, pool_pos),
-                              _take(hb_idx, hb_pos))
-        pool_exp = _mark(pool_exp, pool_pos, sel_valid & from_pool)
-        if use_hb:
-            hb_exp = _mark(hb_exp, hb_pos, sel_valid & ~from_pool)
-        any_inrange_unexp = torch.any((~pool_exp) & (pool_idx != NO_NODE),
-                                      dim=1)
-        any_sel = torch.any(sel_valid, dim=1)
-        exhausted = ~any_sel & active
-
-        # inactive lanes select nothing, so their visited words and counts
-        # do not change: the update can go in place
-        cand, cd, cub, cv, visited, n_new, n_esc_new = _expand(
-            vecs, nbrs, x, sel_ids, sel_valid, visited, n_data=n_data,
-            traverse_nondata=traverse_nondata, dist_impl=cfg.dist_impl,
-            cascade=cascade, qc=qc, esc_th2=th2)
-        n_dist = n_dist + torch.where(active, n_new, 0)
-        n_esc = n_esc + torch.where(active, n_esc_new, 0)
-
-        cis_data = (cand >= 0) & (cand < n_data)
-        cinr = cv & cis_data & (cd < th2) & active[:, None]
-
-        # --- append in-range hits to the pool ---
-        cpos = n_pool[:, None] + torch.cumsum(cinr, dim=1) - 1
-        cpos = torch.where(cinr, cpos.clamp_max(C), C)
-        pool_idx2 = pool_idx.scatter(1, cpos, torch.where(cinr, cand, NO_NODE))
-        pool_dist2 = pool_dist.scatter(1, cpos, torch.where(cinr, cd, _INF))
-        pool_idx2[:, C] = NO_NODE
-        pool_dist2[:, C] = _INF
-        pool_exp[:, C] = True
-        n_hits = torch.sum(cinr, dim=1, dtype=torch.int32)
-        n_pool2 = (n_pool + n_hits).clamp_max(C)
-        overflow2 = (overflow + (n_pool + n_hits - C).clamp_min(0)
-                     - (n_pool - C).clamp_min(0))
-
-        # --- hybrid beam absorbs the rest (bounded, Alg. 4 lines 12–16) ---
-        if use_hb:
-            cout = cv & ~cinr & active[:, None]
-            hb_dist, hb_idx, hb_exp, hb_ub = _hybrid_merge(
-                hb_dist, hb_idx, hb_exp, hb_ub,
-                torch.where(cout, cd, _INF),
-                torch.where(cout, cand, NO_NODE), torch.zeros_like(cout),
-                torch.where(cout, cub, _INF), protect_th2=protect_th2)
-
-        # --- best-seen tracking (Alg. 2 lines 38–39) ---
-        cbest, cargmin = torch.min(cd, dim=1)
-        improved = cbest < best_dist
-        cbesti = _take(torch.where(cv, cand, NO_NODE), cargmin[:, None])[:, 0]
-        best_dist = torch.where(active & improved, cbest, best_dist)
-        best_idx = torch.where(active & improved, cbesti, best_idx)
-
-        # --- termination ---
-        if use_hb:
-            # max over *unexpanded* queue entries (Alg. 4 lines 14–16)
-            qmax = torch.max(torch.where((hb_idx != NO_NODE) & ~hb_exp,
-                                         hb_dist, -_INF), dim=1)[0]
-            no_inr = ~(any_inrange_unexp | (n_hits > 0))
-            decreased = qmax < qmax_prev
-            stall = torch.where(active,
-                                torch.where(no_inr & ~decreased, stall + 1, 0),
-                                stall)
-            done = done | exhausted | ((stall >= cfg.hybrid_patience) & no_inr)
-            qmax_prev = torch.where(active, qmax, qmax_prev)
-        else:
-            done = done | exhausted | (
-                ~(any_inrange_unexp | (n_hits > 0)) & active)
-
-        keep = active & any_sel
-        pool_idx = torch.where(keep[:, None], pool_idx2, pool_idx)
-        pool_dist = torch.where(keep[:, None], pool_dist2, pool_dist)
-        n_pool = torch.where(keep, n_pool2, n_pool)
-        overflow = torch.where(keep, overflow2, overflow)
-        n_iters += 1
-
-    return ExpandResult(
-        pool_idx=pool_idx[:, :C], pool_dist=pool_dist[:, :C],
-        n_pool=n_pool, overflow=overflow, best_dist=best_dist,
-        best_idx=best_idx, n_dist=n_dist, n_esc=n_esc, n_iters=n_iters,
+    return ExpandState(
+        pool_idx=pool_idx, pool_dist=pool_dist, pool_exp=pool_exp,
+        n_pool=n_pool, overflow=overflow, hb_dist=hb_dist, hb_idx=hb_idx,
+        hb_exp=hb_exp, hb_ub=hb_ub,
+        qmax_prev=torch.full((B,), _INF, device=dev),
+        stall=torch.zeros((B,), dtype=torch.int32, device=dev),
+        done=torch.zeros((B,), dtype=torch.bool, device=dev),
+        best_dist=best_dist, best_idx=best_idx, n_dist=n_dist, n_esc=n_esc,
         visited=visited)
+
+
+def expand_step(st: ExpandState, index: GraphIndex, x: torch.Tensor,
+                theta: float, *, cfg: TraversalConfig, n_data: int,
+                hybrid: bool, traverse_nondata: bool, cascade=None,
+                qc=None) -> ExpandState:
+    """One iteration of ``range_expand``'s loop, with no device→host sync:
+    select up to E unexpanded entries (pool first), probe their neighbor
+    rows, append the in-range hits to the pool, let the hybrid beam absorb
+    the rest, track the best, and update ``done`` and ``stall``. Lanes
+    already done change nothing but ``st.visited``, updated in place."""
+    vecs, nbrs = index.vecs, index.nbrs
+    C, E = cfg.pool_cap, cfg.expand_per_iter
+    th2, use_hb, protect_th2 = _expand_consts(theta, cfg, hybrid, cascade)
+    (pool_idx, pool_dist, pool_exp, n_pool, overflow, hb_dist, hb_idx,
+     hb_exp, hb_ub, qmax_prev, stall, done, best_dist, best_idx, n_dist,
+     n_esc, visited) = st
+    active = ~done
+    # --- select up to E unexpanded entries: pool (in-range) first ---
+    # 2e30 − d rounds to 2e30 in f32, so every unexpanded pool entry
+    # ties and selection goes lowest slot first (BFS in pool order)
+    pkey = torch.where((~pool_exp) & (pool_idx != NO_NODE),
+                       2e30 - pool_dist, -_INF)
+    if use_hb:
+        hkey = torch.where((~hb_exp) & (hb_idx != NO_NODE)
+                           & torch.isfinite(hb_dist), -hb_dist, -_INF)
+        key = torch.cat([pkey, hkey], dim=1)
+    else:
+        key = pkey
+    selk, selpos = torch.sort(key, dim=1, descending=True, stable=True)
+    selk, selpos = selk[:, :E], selpos[:, :E]
+    sel_valid = (selk > -_INF) & active[:, None]
+    from_pool = selpos < (C + 1)
+    pool_pos = torch.where(from_pool, selpos, 0)
+    hb_pos = torch.where(from_pool, 0, selpos - (C + 1))
+    sel_ids = torch.where(from_pool, _take(pool_idx, pool_pos),
+                          _take(hb_idx, hb_pos))
+    pool_exp = _mark(pool_exp, pool_pos, sel_valid & from_pool)
+    if use_hb:
+        hb_exp = _mark(hb_exp, hb_pos, sel_valid & ~from_pool)
+    any_inrange_unexp = torch.any((~pool_exp) & (pool_idx != NO_NODE),
+                                  dim=1)
+    any_sel = torch.any(sel_valid, dim=1)
+    exhausted = ~any_sel & active
+
+    # inactive lanes select nothing, so their visited words and counts
+    # do not change: the update can go in place
+    cand, cd, cub, cv, visited, n_new, n_esc_new = _expand(
+        vecs, nbrs, x, sel_ids, sel_valid, visited, n_data=n_data,
+        traverse_nondata=traverse_nondata, dist_impl=cfg.dist_impl,
+        cascade=cascade, qc=qc, esc_th2=th2)
+    n_dist = n_dist + torch.where(active, n_new, 0)
+    n_esc = n_esc + torch.where(active, n_esc_new, 0)
+
+    cis_data = (cand >= 0) & (cand < n_data)
+    cinr = cv & cis_data & (cd < th2) & active[:, None]
+
+    # --- append in-range hits to the pool ---
+    cpos = n_pool[:, None] + torch.cumsum(cinr, dim=1) - 1
+    cpos = torch.where(cinr, cpos.clamp_max(C), C)
+    pool_idx2 = pool_idx.scatter(1, cpos, torch.where(cinr, cand, NO_NODE))
+    pool_dist2 = pool_dist.scatter(1, cpos, torch.where(cinr, cd, _INF))
+    pool_idx2[:, C] = NO_NODE
+    pool_dist2[:, C] = _INF
+    pool_exp[:, C] = True
+    n_hits = torch.sum(cinr, dim=1, dtype=torch.int32)
+    n_pool2 = (n_pool + n_hits).clamp_max(C)
+    overflow2 = (overflow + (n_pool + n_hits - C).clamp_min(0)
+                 - (n_pool - C).clamp_min(0))
+
+    # --- hybrid beam absorbs the rest (bounded, Alg. 4 lines 12–16) ---
+    if use_hb:
+        cout = cv & ~cinr & active[:, None]
+        hb_dist, hb_idx, hb_exp, hb_ub = _hybrid_merge(
+            hb_dist, hb_idx, hb_exp, hb_ub,
+            torch.where(cout, cd, _INF),
+            torch.where(cout, cand, NO_NODE), torch.zeros_like(cout),
+            torch.where(cout, cub, _INF), protect_th2=protect_th2)
+
+    # --- best-seen tracking (Alg. 2 lines 38–39) ---
+    cbest, cargmin = torch.min(cd, dim=1)
+    improved = cbest < best_dist
+    cbesti = _take(torch.where(cv, cand, NO_NODE), cargmin[:, None])[:, 0]
+    best_dist = torch.where(active & improved, cbest, best_dist)
+    best_idx = torch.where(active & improved, cbesti, best_idx)
+
+    # --- termination ---
+    if use_hb:
+        # max over *unexpanded* queue entries (Alg. 4 lines 14–16)
+        qmax = torch.max(torch.where((hb_idx != NO_NODE) & ~hb_exp,
+                                     hb_dist, -_INF), dim=1)[0]
+        no_inr = ~(any_inrange_unexp | (n_hits > 0))
+        decreased = qmax < qmax_prev
+        stall = torch.where(active,
+                            torch.where(no_inr & ~decreased, stall + 1, 0),
+                            stall)
+        done = done | exhausted | ((stall >= cfg.hybrid_patience) & no_inr)
+        qmax_prev = torch.where(active, qmax, qmax_prev)
+    else:
+        done = done | exhausted | (
+            ~(any_inrange_unexp | (n_hits > 0)) & active)
+
+    keep = active & any_sel
+    return ExpandState(
+        pool_idx=torch.where(keep[:, None], pool_idx2, pool_idx),
+        pool_dist=torch.where(keep[:, None], pool_dist2, pool_dist),
+        pool_exp=pool_exp, n_pool=torch.where(keep, n_pool2, n_pool),
+        overflow=torch.where(keep, overflow2, overflow), hb_dist=hb_dist,
+        hb_idx=hb_idx, hb_exp=hb_exp, hb_ub=hb_ub, qmax_prev=qmax_prev,
+        stall=stall, done=done, best_dist=best_dist, best_idx=best_idx,
+        n_dist=n_dist, n_esc=n_esc, visited=visited)
+
+
+def range_expand(index: GraphIndex, x: torch.Tensor, theta: float, *,
+                 cfg: TraversalConfig, n_data: int, hybrid: bool,
+                 traverse_nondata: bool, init_idx: torch.Tensor,
+                 init_dist: torch.Tensor, init_valid: torch.Tensor,
+                 visited: torch.Tensor, best_dist: torch.Tensor,
+                 best_idx: torch.Tensor, n_dist: torch.Tensor,
+                 cascade=None, qc=None, init_ub: torch.Tensor | None = None,
+                 n_esc: torch.Tensor | None = None,
+                 n_steps: int | None = None) -> ExpandResult:
+    """Enumerate all reachable in-range data points from initial candidates.
+
+    ``init_*`` (B, K0) are already-visited candidates with known distances
+    (for the merged index, the probed neighbor row). In-range data entries
+    seed the result pool; the rest seed the hybrid out-range beam (BBFS
+    only — plain BFS drops them). ``visited`` is updated in place.
+
+    Under a ``cascade`` every distance is a certified lower bound, so the
+    pool is a superset of the exact one and the caller re-ranks it; the
+    hybrid beam carries (lb, ub) pairs (``init_ub`` for the initial
+    candidates) and protects entries with ub < ``hybrid_guard``·θ² from
+    eviction. ``n_esc`` (B,) carries the probe's tier-1 escalations.
+
+    The host steps ``expand_step`` from ``expand_init``'s state until
+    every lane is done or ``cfg.max_iters`` iterations have run; with
+    ``n_steps`` it runs exactly that many, with no sync (the dry run's
+    separated iteration, which fake tensors can run).
+    """
+    st = expand_init(x, theta, cfg=cfg, n_data=n_data, hybrid=hybrid,
+                     init_idx=init_idx, init_dist=init_dist,
+                     init_valid=init_valid, visited=visited,
+                     best_dist=best_dist, best_idx=best_idx, n_dist=n_dist,
+                     cascade=cascade, init_ub=init_ub, n_esc=n_esc)
+    n_iters = 0
+    # host-stepped while loop: one device→host sync per iteration
+    while (n_iters < n_steps if n_steps is not None else
+           n_iters < cfg.max_iters and not bool(st.done.all())):
+        st = expand_step(st, index, x, theta, cfg=cfg, n_data=n_data,
+                         hybrid=hybrid, traverse_nondata=traverse_nondata,
+                         cascade=cascade, qc=qc)
+        n_iters += 1
+    return expand_result(st, cfg.pool_cap, n_iters)
+
+
+def expand_result(st: ExpandState, C: int, n_iters: int) -> ExpandResult:
+    """The pool (sink column dropped) and counters of a final state."""
+    return ExpandResult(
+        pool_idx=st.pool_idx[:, :C], pool_dist=st.pool_dist[:, :C],
+        n_pool=st.n_pool, overflow=st.overflow, best_dist=st.best_dist,
+        best_idx=st.best_idx, n_dist=st.n_dist, n_esc=st.n_esc,
+        n_iters=n_iters, visited=st.visited)

@@ -44,6 +44,8 @@ _SIGNATURES = {
     "repro_rowwise_sq_dists": (_P, _P, _P, _LL, _I, _I, _I, _P),
     "repro_gather_sq_dists": (_P, _P, _P, _P, _P, _LL, _I, _I, _LL, _I, _I,
                               _P),
+    "repro_gather_sq_dists_bf16": (_P, _P, _P, _P, _LL, _I, _I, _LL, _I, _I,
+                                   _P),
     "repro_pairlist_sq_dists": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _LL,
                                 _LL, _P),
     "repro_pairwise_sq_dists_int8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -52,6 +52,14 @@
 //    (2), so the values are bit for bit the one-warp-a-pair kernel's; the
 //    tree runs on the 8 sums at once (a lane keeps half of its sums and
 //    trades the other half at the first levels: 5 shuffles, not 40).
+//    repro_gather_sq_dists_bf16 is its entry for bf16 rows and queries
+//    (the reference's gather upcasts bf16 vectors to f32 before the
+//    difference form, repro/kernels/ref.py rowwise_sq_dists): the same
+//    warp-a-run design, each lane reading 16 bytes (8 values) of a row a
+//    slot, each value widened to f32 exactly (its bits shifted up), the
+//    differences, squares and sums in f32. It reads half the f32 entry's
+//    bytes for the same arithmetic, so it is bound by those bytes too;
+//    no tensor cores (the difference form has no product to give them).
 // 4. repro_pairlist_sq_dists — the pair-list entry of (1): out[p] =
 //    max(xn[qi[p]] + yn[yi[p]] - 2 * <x_qi, y_yi>, 0) for explicit
 //    (query, data) id pairs. It exists so that an exact re-rank of a
@@ -64,6 +72,7 @@
 //    then each lane runs its own pair's fmaf chain over the slice in
 //    order. Bound: the bytes of the gathered rows.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -273,6 +282,101 @@ gather_kernel(const float* __restrict__ vecs, const float* __restrict__ x,
     out[p0 + m] = (valid >> m) & 1u ? s : INFINITY;
 }
 
+// d += (c - q)^2 over the 8 bf16 values of a 16-byte slot, in index
+// order; a bf16 is the high half of its f32, so widening is a shift.
+__device__ __forceinline__ float sq_diff8(uint4 c, uint4 q, float acc) {
+  const unsigned cw[4] = {c.x, c.y, c.z, c.w};
+  const unsigned qw[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float t = __uint_as_float(cw[j] << 16) - __uint_as_float(qw[j] << 16);
+    acc = fmaf(t, t, acc);
+    t = __uint_as_float(cw[j] & 0xffff0000u) -
+        __uint_as_float(qw[j] & 0xffff0000u);
+    acc = fmaf(t, t, acc);
+  }
+  return acc;
+}
+
+// The (B, K) gather over bf16 rows and queries (query row p / K). VEC8:
+// d % 8 == 0 and 16-byte aligned bases (lane l takes the 8-value slots
+// l, l+32, ...), else lane l takes values l, l+32, ...
+template <bool VEC8>
+__global__ void __launch_bounds__(kGatherWarps * 32)
+gather_bf16_kernel(const __nv_bfloat16* __restrict__ vecs,
+                   const __nv_bfloat16* __restrict__ x,
+                   const int* __restrict__ idx, float* __restrict__ out,
+                   long long n_pairs, int K, int d, long long N, int B) {
+  const int lane = threadIdx.x & 31;
+  const long long p0 =
+      ((long long)blockIdx.x * kGatherWarps + threadIdx.x / 32) * kRun;
+  if (p0 >= n_pairs) return;           // uniform across the warp
+  const long long p = p0 + (lane & (kRun - 1));
+  const bool in = lane < kRun && p < n_pairs;
+  int id = 0, q = 0;
+  bool ok = false;
+  if (in) {                            // n_pairs < 2^31: 32-bit division
+    id = __ldg(idx + p);
+    q = (int)(static_cast<unsigned>(p) / static_cast<unsigned>(K));
+    ok = id >= 0 && (long long)id < N && q < B;
+  }
+  const unsigned valid = __ballot_sync(kFull, ok);
+  if (valid == 0u) {                   // NO_NODE only: no row is read
+    if (in) out[p] = INFINITY;
+    return;
+  }
+  if (!ok) id = q = 0;                 // a slot that reads nothing
+  int idr[kRun], qr[kRun];
+#pragma unroll
+  for (int r = 0; r < kRun; ++r) {
+    idr[r] = __shfl_sync(kFull, id, r);
+    qr[r] = __shfl_sync(kFull, q, r);
+  }
+  float acc[kRun];
+#pragma unroll
+  for (int r = 0; r < kRun; ++r) acc[r] = 0.f;
+  if (VEC8) {
+    const int d8 = d >> 3;
+    const uint4* v8 = reinterpret_cast<const uint4*>(vecs);
+    const uint4* x8 = reinterpret_cast<const uint4*>(x);
+    for (int i = lane; i < d8; i += 32) {
+      uint4 c[kRun];                   // every row's slot in flight first
+#pragma unroll
+      for (int r = 0; r < kRun; ++r)
+        c[r] = (valid >> r) & 1u ? __ldg(v8 + (long long)idr[r] * d8 + i)
+                                 : make_uint4(0u, 0u, 0u, 0u);
+      uint4 b = __ldg(x8 + (long long)qr[0] * d8 + i);
+#pragma unroll
+      for (int r = 0; r < kRun; ++r) {
+        if (r > 0 && qr[r] != qr[r - 1])
+          b = __ldg(x8 + (long long)qr[r] * d8 + i);
+        acc[r] = sq_diff8(c[r], b, acc[r]);
+      }
+    }
+  } else {
+    for (int i = lane; i < d; i += 32) {
+      float c[kRun];
+#pragma unroll
+      for (int r = 0; r < kRun; ++r)
+        c[r] = (valid >> r) & 1u
+                   ? __bfloat162float(vecs[(long long)idr[r] * d + i])
+                   : 0.f;
+      float b = __bfloat162float(x[(long long)qr[0] * d + i]);
+#pragma unroll
+      for (int r = 0; r < kRun; ++r) {
+        if (r > 0 && qr[r] != qr[r - 1])
+          b = __bfloat162float(x[(long long)qr[r] * d + i]);
+        const float t = c[r] - b;
+        acc[r] = fmaf(t, t, acc[r]);
+      }
+    }
+  }
+  const float s = warp_sum_run(acc, lane);
+  const int m = lane >> 2;             // the pair whose total this lane holds
+  if ((lane & 3) == 0 && p0 + m < n_pairs)
+    out[p0 + m] = (valid >> m) & 1u ? s : INFINITY;
+}
+
 constexpr int kPairWarps = 4;
 
 __global__ void __launch_bounds__(kPairWarps * 32)
@@ -348,6 +452,26 @@ extern "C" int repro_gather_sq_dists(const float* vecs, const float* x,
   else
     gather_kernel<false><<<blocks, kGatherWarps * 32, 0, st>>>(
         vecs, x, idx, qi, out, n_pairs, K, d, N, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_gather_sq_dists_bf16(const void* vecs, const void* x,
+                                          const int* idx, float* out,
+                                          long long n_pairs, int K, int d,
+                                          long long N, int B, int vec8,
+                                          void* stream) {
+  const long long per_block = kGatherWarps * kRun;
+  const unsigned blocks =
+      static_cast<unsigned>((n_pairs + per_block - 1) / per_block);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(vecs);
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(x);
+  if (vec8)
+    gather_bf16_kernel<true><<<blocks, kGatherWarps * 32, 0, st>>>(
+        v, q, idx, out, n_pairs, K, d, N, B);
+  else
+    gather_bf16_kernel<false><<<blocks, kGatherWarps * 32, 0, st>>>(
+        v, q, idx, out, n_pairs, K, d, N, B);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,6 +17,15 @@ one tile; the kernels mask ragged edges themselves, so nothing is padded.
 Each kernel wrapper counts its launches in ``LAUNCHES`` (one per kernel
 launch, nowhere else), so a run can show that it went through the
 kernels: ``reset_launch_counts()`` before, ``launch_counts()`` after.
+
+The kernels are bound with ctypes, which a dispatch mode (the dry run's
+cost counter, ``FakeTensorMode``) cannot see or call. The gather (#3),
+the join traversal's hot spot, is also the custom op
+``repro_torch::gather_sq_dists`` (CPU: the plain version; CUDA: the
+kernel; fake and meta tensors: its shape): ``gather_sq_dists`` goes
+through the op when a dispatch mode is active or the tensors are fake or
+meta, and launches directly otherwise (the op's dispatch would add host
+time a call to a host-bound loop).
 """
 from __future__ import annotations
 
@@ -31,8 +40,9 @@ from repro_torch.kernels import ref as _ref
 IMPLS = ("ref", "cuda")
 LAUNCHES: dict[str, int] = {
     "pairwise_sq_dists": 0, "pairlist_sq_dists": 0, "rowwise_sq_dists": 0,
-    "gather_sq_dists": 0, "topk_merge": 0, "pairwise_sq_dists_int8": 0,
-    "rowwise_sq_dists_int8": 0, "pairwise_hamming": 0, "rowwise_hamming": 0,
+    "gather_sq_dists": 0, "gather_sq_dists_bf16": 0, "topk_merge": 0,
+    "pairwise_sq_dists_int8": 0, "rowwise_sq_dists_int8": 0,
+    "pairwise_hamming": 0, "rowwise_hamming": 0,
     "pairwise_sq_dists_pdx": 0, "pairwise_bounds_pdx": 0,
     "pdx_gather_sq_dists": 0, "nlj_count": 0,
     "pairwise_bounds_int8": 0, "gather_sq_dists_pairs": 0,
@@ -307,11 +317,14 @@ def rowwise_sq_dists(x: torch.Tensor, cands: torch.Tensor, *,
 
 def _gather_cuda(vecs: torch.Tensor, x: torch.Tensor, ids: torch.Tensor,
                  qi: torch.Tensor | None) -> torch.Tensor:
-    """The f32 gather kernel: (B, K) ``ids`` with query row b (``qi``
-    None), or a pair list of (P,) ``ids`` with query rows ``qi``."""
+    """The gather kernel: (B, K) ``ids`` with query row b (``qi`` None),
+    or a pair list of (P,) ``ids`` with query rows ``qi``; f32 rows, or
+    bf16 rows and queries in the (B, K) form (its bf16 entry)."""
     dev = x.device
-    _check("vecs", vecs, torch.float32, 2, dev)
-    _check("x", x, torch.float32, 2, dev)
+    bf16 = vecs.dtype == torch.bfloat16 and qi is None
+    dt = torch.bfloat16 if bf16 else torch.float32
+    _check("vecs", vecs, dt, 2, dev)
+    _check("x", x, dt, 2, dev)
     _check("idx", ids, torch.int32, 2 if qi is None else 1, dev)
     B, d = x.shape
     N = vecs.shape[0]
@@ -326,23 +339,62 @@ def _gather_cuda(vecs: torch.Tensor, x: torch.Tensor, ids: torch.Tensor,
     if n >= 2**31 or max(B, d) >= 2**31:
         raise ValueError(f"shape too large for one launch: {tuple(ids.shape)}")
     out = torch.empty(ids.shape, dtype=torch.float32, device=dev)
+    lib = _build.load()
+    if bf16:
+        vec8 = int(d % 8 == 0 and vecs.data_ptr() % 16 == 0
+                   and x.data_ptr() % 16 == 0)
+        _launch("gather_sq_dists_bf16", dev, lib.repro_gather_sq_dists_bf16,
+                vecs.data_ptr(), x.data_ptr(), ids.data_ptr(),
+                out.data_ptr(), n, ids.shape[1], d, N, B, vec8)
+        return out
     _launch("gather_sq_dists" if qi is None else "gather_sq_dists_pairs", dev,
-            _build.load().repro_gather_sq_dists, vecs.data_ptr(),
+            lib.repro_gather_sq_dists, vecs.data_ptr(),
             x.data_ptr(), ids.data_ptr(), _ptr(qi), out.data_ptr(), n,
             1 if qi is not None else ids.shape[1], d, N, B,
             _vec4(d, vecs, x))
     return out
 
 
+@torch.library.custom_op("repro_torch::gather_sq_dists", mutates_args=(),
+                         device_types="cpu")
+def _gather_op(vecs: torch.Tensor, x: torch.Tensor, idx: torch.Tensor
+               ) -> torch.Tensor:
+    """#3 as an op the dispatcher sees: the plain version on the CPU."""
+    return _ref.gather_sq_dists(vecs, x, idx)
+
+
+@_gather_op.register_kernel("cuda")
+def _(vecs, x, idx):
+    return _gather_cuda(vecs, x, idx, None)
+
+
+@_gather_op.register_fake
+def _(vecs, x, idx):
+    return x.new_empty(idx.shape, dtype=torch.float32)
+
+
+def _dispatched(t: torch.Tensor) -> bool:
+    """Whether a call must go through the dispatcher: a dispatch mode is
+    active, or ``t`` is a fake (or other subclass) or meta tensor. The op
+    then runs what the direct call would: ``_impl`` has already held
+    ``impl`` to the tensor's own route (the kernel on CUDA, the plain
+    version on the CPU), and raises for any other."""
+    return (torch._C._len_torch_dispatch_stack() > 0
+            or type(t) is not torch.Tensor or t.is_meta)
+
+
 def gather_sq_dists(vecs: torch.Tensor, x: torch.Tensor, idx: torch.Tensor,
                     *, impl: str | None = None) -> torch.Tensor:
     """(N,d) vecs × (B,d) queries × (B,K) int32 ids → (B,K) f32 squared
-    distances ``rowwise_sq_dists(x, vecs[idx])``. Ids outside [0, N)
-    (NO_NODE) come back +inf; the kernel reads no row for them."""
+    distances ``rowwise_sq_dists(x, vecs[idx])``, the vectors f32 or both
+    bf16 (summed in f32). Ids outside [0, N) (NO_NODE) come back +inf;
+    the kernel reads no row for them."""
     impl = _impl(impl, x)
     B, K = idx.shape
     if B == 0 or K == 0:
         return torch.zeros((B, K), dtype=torch.float32, device=x.device)
+    if _dispatched(x):
+        return _gather_op(vecs, x, idx)
     if impl == "ref":
         return _ref.gather_sq_dists(vecs, x, idx)
     return _gather_cuda(vecs, x, idx, None)

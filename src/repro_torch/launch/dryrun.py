@@ -22,12 +22,22 @@ Per cell:
   decode_32k   → one decode step with a seq-long KV cache;
   long_500k    → a decode step with a 500k cache (sequence-sharded KV).
 
+A join cell (``--join``, ``configs.vectorjoin.JOIN_DRYRUN_CELLS``) is
+one rank's wave of the mesh MI join with X replicated and Y sharded over
+the data axes (``("pod", "data")`` multi-pod): the shard's merged index
+as fake tensors, the probe, one traversal iteration
+(``core.distributed.local_mi_iteration``, no host sync), the band
+compaction and the pool combine, an all-gather over the data axes. Its
+FLOPs and bytes are scaled by the cell's expected iterations, its
+collective counted once, as the reference scales its lowered iteration.
+
 Every figure a cell prints is the model's prediction for the H100 spec
 (``roofline/hw.py``), not a measurement.
 
 Examples:
   python -m repro_torch.launch.dryrun --arch tinyllama_1_1b --shape train_4k
   python -m repro_torch.launch.dryrun --all --multi-pod --out dryrun.json
+  python -m repro_torch.launch.dryrun --join join_sift_like
 """
 from __future__ import annotations
 
@@ -44,6 +54,7 @@ from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs import SHAPES, get, input_specs, supported
 from repro_torch.configs.registry import ARCH_IDS
+from repro_torch.configs.vectorjoin import JOIN_DRYRUN_CELLS, JoinCell
 from repro_torch.launch.mesh import close_group, make_production_mesh
 from repro_torch.models import layers
 from repro_torch.models import model as M
@@ -66,9 +77,9 @@ MICROBATCHES = {
 # √G two-level remat for the deep dense train cells, the reference's
 REMAT_2LEVEL = {"llama3_405b", "qwen2_vl_72b"}
 
-# local ops one trace may run (the other cells' largest traces run ~10x
-# fewer): the port's Mamba scan is sequential over tokens, so a jamba
-# train or prefill trace would run for hours
+# local ops one trace may dispatch (the largest cells' traces run ~10x
+# fewer): a guard against a loop of eager ops over tokens, such as the
+# Mamba scan's before it became one op (``models.ssm.mamba_scan``)
 MAX_OPS = 1_000_000
 
 
@@ -284,11 +295,120 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     return out
 
 
+def count_join_wave(index, xw: torch.Tensor, qids: torch.Tensor,
+                    lane_valid: torch.Tensor, *, cell: JoinCell,
+                    shard_size: int, theta: float = 1.0,
+                    group=None) -> tuple[Cost, int]:
+    """One rank's wave of ``cell`` on its shard's merged ``index``,
+    counted under ``CostCounter`` → (its cost, the peak bytes held): the
+    probe, one traversal iteration and the band compaction
+    (``core.distributed.local_mi_iteration``), then, over ``group`` (the
+    data axes; None: no combine), the pool combine, an all-gather of the
+    (B, merge_cap) kept ids. Real tensors run it (the card's count of
+    what the dry run predicts), fake ones trace it (``trace_join_wave``).
+    Pass tensors that own their storage: the write-once bytes count each
+    storage read."""
+    import torch.distributed._functional_collectives as funcol
+
+    from repro_torch.core.distributed import local_mi_iteration
+    from repro_torch.core.types import TraversalConfig
+    gather = getattr(funcol, "all_gather_single", None) or \
+        funcol.all_gather_tensor
+    cc = CostCounter()
+    cc.track(index.vecs, index.nbrs, index.start, index.mean_nbr_dist, xw,
+             qids, lane_valid)
+    with cc:
+        cand, _ = local_mi_iteration(
+            index, xw, qids, lane_valid, theta=theta,
+            cfg=TraversalConfig(pool_cap=cell.pool_cap,
+                                max_iters=cell.max_iters),
+            shard_size=shard_size, hybrid=cell.hybrid)
+        if group is not None:
+            funcol.wait_tensor(gather(cand, 0, group))
+    return cc.snapshot(), cc.peak_bytes
+
+
+def trace_join_wave(cell: JoinCell, *, n_shards: int, group=None,
+                    device: str = "cuda") -> tuple[Cost, int]:
+    """``count_join_wave`` on fake tensors of one of ``n_shards`` data
+    shards (θ = 1.0, as the reference's): the shard's merged index
+    (``n_data // n_shards`` data rows and the ``n_query`` query nodes, the
+    vectors in the cell's dtype) and a wave of ``wave_size`` queries."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.core.types import GraphIndex
+    rows, B = cell.n_data // n_shards, cell.wave_size
+    n, vd = rows + cell.n_query, getattr(torch, cell.dtype)
+    i32 = dict(dtype=torch.int32, device=device)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        index = GraphIndex(
+            vecs=torch.empty((n, cell.dim), dtype=vd, device=device),
+            nbrs=torch.empty((n, cell.degree), **i32),
+            start=torch.zeros((), **i32),
+            mean_nbr_dist=torch.empty((n,), device=device), n_data=rows)
+        return count_join_wave(
+            index, torch.empty((B, cell.dim), dtype=vd, device=device),
+            torch.zeros((B,), **i32),
+            torch.ones((B,), dtype=torch.bool, device=device), cell=cell,
+            shard_size=rows, group=group)
+
+
+def run_join_cell(name: str, *, mesh=None, multi_pod: bool = False,
+                  device: str = "cuda", verbose: bool = True) -> dict:
+    """A vector-join dry-run cell on the production mesh (opened and
+    closed here unless ``mesh`` is given): X replicated, Y sharded over
+    the data axes, ``mesh.size() // model`` shards → the roofline as a
+    dict, with ``trace_s`` and ``expected_iters``."""
+    cell = next(c for c in JOIN_DRYRUN_CELLS if c.name == name)
+    own = mesh is None
+    if own:
+        mesh = make_production_mesh(multi_pod=multi_pod, device_type=device)
+    try:
+        mesh_name = "x".join(map(str, mesh.shape))
+        n_dev = mesh.size()
+        axes = tuple(a for a in mesh.mesh_dim_names if a != "model")
+        n_shards = n_dev // S.mesh_shape(mesh)["model"]
+        sub = mesh[axes[0]] if len(axes) == 1 else mesh[axes]._flatten()
+        t0 = time.time()
+        cost, peak = trace_join_wave(cell, n_shards=n_shards,
+                                     group=sub.get_group(), device=device)
+        t_trace = time.time() - t0
+    finally:
+        if own:
+            close_group()
+    # the traversal loop exits data-dependently: its iteration (with the
+    # probe and the compaction, as the reference's lowered step) scaled
+    # by the expected iterations a wave; the combine runs once
+    k = cell.expected_iters
+    scaled = Cost(cost.flops * k, cost.bytes * k, cost.bytes_min * k,
+                  cost.n_ops, cost.coll)
+    r = analyze(arch=name, shape="join_wave", mesh_name=mesh_name,
+                n_devices=n_dev, cost=scaled,
+                model_flops=2.0 * cell.wave_size * cell.n_data * cell.dim,
+                peak_memory=peak)
+    out = r.as_dict()
+    out.update(skipped=False, trace_s=round(t_trace, 1),
+               expected_iters=k, local_ops=round(cost.n_ops))
+    if verbose:
+        print(f"[dryrun] join {name} on {mesh_name}: trace {t_trace:.0f}s, "
+              f"{peak / 1e9:.4f} GB/dev of {r.hw.hbm_bytes / 1e9:.0f}, "
+              f"bound={r.bottleneck}, step≈{r.step_s * 1e3:.4g} ms (min "
+              f"{r.step_min_s * 1e3:.4g}), roofline "
+              f"{100 * r.roofline_fraction:.3g}%", flush=True)
+        ck = {k: v for k, v in sorted(r.collectives.items())}
+        print(f"  cost: flops/dev={r.flops_per_device:.4g} "
+              f"bytes/dev={r.bytes_per_device:.4g} "
+              f"(min {scaled.bytes_min:.4g}) wire={ck} "
+              f"terms: compute {r.compute_s:.4g}s memory {r.memory_s:.4g}s "
+              f"collective {r.collective_s:.4g}s", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS)
     ap.add_argument("--shape", choices=list(SHAPES))
-    ap.add_argument("--join", help="a join dry-run cell (not ported yet)")
+    ap.add_argument("--join", choices=[c.name for c in JOIN_DRYRUN_CELLS])
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--microbatches", type=int)
@@ -297,12 +417,8 @@ def main(argv=None) -> int:
                     help="device of the fake tensors (no card needed)")
     ap.add_argument("--out")
     args = ap.parse_args(argv)
-    if args.join:
-        print("[dryrun] the join cells (configs/vectorjoin.JoinCell, "
-              "run_join_cell) are not ported yet", file=sys.stderr)
-        return 2
-    if not args.all and not (args.arch and args.shape):
-        ap.error("--arch/--shape or --all required")
+    if not (args.join or args.all or (args.arch and args.shape)):
+        ap.error("--arch/--shape, --join or --all required")
     # DTensor warns of every two-step all-reduce of a (pod,) data × model
     # partial sum
     logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
@@ -315,6 +431,10 @@ def main(argv=None) -> int:
     mesh = make_production_mesh(multi_pod=args.multi_pod,
                                 device_type=args.device)
     try:
+        if args.join:
+            cells = []
+            results.append(run_join_cell(args.join, mesh=mesh,
+                                         device=args.device))
         for arch, shape in cells:
             if not args.all:
                 results.append(run_cell(arch, shape, mesh=mesh, **kw))

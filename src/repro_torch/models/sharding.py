@@ -363,6 +363,8 @@ class ActSharder:
       block_in (..., S, d): batch → data axes (a sequence-parallel hidden
         state gathered before a block's products);
       logits (..., S, V): batch → data, V → model (vocab-parallel loss);
+      cols (..., S, F): batch → data, F → model (a column-parallel
+        product's output, kept so before its columns are split up);
       qkv (B, S, H|K, hd): batch → data, heads → model.
     Dims that don't divide fall back to replication (long_500k's batch=1).
 
@@ -419,7 +421,7 @@ class ActSharder:
     def spec(self, shape, tag: str) -> tuple:
         """The tag's spec for a tensor of ``shape``."""
         nd, dp, model = len(shape), self.dpn, self.model
-        if tag == "logits":
+        if tag in ("logits", "cols"):
             spec = (dp,) + (None,) * (nd - 2) + (model,)
         elif tag == "qkv":
             spec = (dp, None, model, None)

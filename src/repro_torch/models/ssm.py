@@ -8,7 +8,8 @@ sequence is padded to a chunk multiple with zero decay, so the chunk
 boundaries (and hence the rounding) are the reference's. Mamba's
 selective scan is sequential per token; the reference's chunking only
 bounds its backward memory, and its padded steps leave the state as it
-is, so the port scans the S real tokens.
+is, so the port scans the S real tokens, as one op (``mamba_scan``, the
+loop on every device; its backward recomputes the loop under autograd).
 
 JAX names: ``rwkv6_init``/``rwkv6_apply`` are ``RWKV6``/``RWKV6.forward``;
 ``mamba_init``/``mamba_apply`` are ``Mamba``/``Mamba.forward``.
@@ -162,13 +163,98 @@ class MambaConfig:
 
 def _mamba_inner_scan(h, dt, B_in, C_in, xin, A):
     """Sequential selective scan. h: (B, di, n); dt/xin: (B, S, di);
-    B_in/C_in: (B, S, n); A: (di, n). Returns (h, y (B, S, di))."""
+    B_in/C_in: (B, S, n); A: (di, n). Returns (h, y (B, S, di)).
+
+    The inputs are split into tokens once (``unbind``), so autograd's
+    backward stacks their grads once; a slice a token (``dt[:, t]``)
+    would give every token a grad of the whole (B, S, ·) input."""
     ys = []
-    for t in range(dt.shape[1]):
-        da = torch.exp(dt[:, t, :, None] * A[None])
-        h = da * h + (dt[:, t] * xin[:, t])[:, :, None] * B_in[:, t, None, :]
-        ys.append(torch.einsum("bdn,bn->bd", h, C_in[:, t]))
+    for dt_t, x_t, b_t, c_t in zip(dt.unbind(1), xin.unbind(1),
+                                   B_in.unbind(1), C_in.unbind(1)):
+        da = torch.exp(dt_t[:, :, None] * A[None])
+        h = da * h + (dt_t * x_t)[:, :, None] * b_t[:, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, c_t))
     return h, torch.stack(ys, 1)
+
+
+# The scan as one op each way, so that a dispatch mode sees one op where
+# the loop runs ~4 ops a token: the dry run's cost counter prices it from
+# its own count of the loop (``roofline.cost``), and a jamba cell of 4,096
+# tokens traces in seconds. Both run the loop above on every device; the
+# backward recomputes it under autograd, so its grads are the loop's.
+
+@torch.library.custom_op("repro_torch::mamba_scan", mutates_args=())
+def mamba_scan(h: torch.Tensor, dt: torch.Tensor, B_in: torch.Tensor,
+               C_in: torch.Tensor, xin: torch.Tensor, A: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_mamba_inner_scan`` as one op → (h, y)."""
+    return _mamba_inner_scan(h, dt, B_in, C_in, xin, A)
+
+
+@mamba_scan.register_fake
+def _(h, dt, B_in, C_in, xin, A):
+    return h.new_empty(h.shape), h.new_empty(dt.shape)
+
+
+def mamba_scan_grads(h, dt, B_in, C_in, xin, A, g_h, g_y, needs):
+    """The grads of ``_mamba_inner_scan`` with respect to the inputs that
+    ``needs`` marks, for the output grads ``g_h``, ``g_y`` (None: that
+    output is unused), from the loop recomputed under autograd; an input
+    not needed gets an empty tensor."""
+    K = torch._C.DispatchKey
+    # autograd is excluded below an op's autograd layer: let it record
+    with torch._C._SetExcludeDispatchKeyGuard(K.AutogradFunctionality,
+                                               False), \
+            torch._C._SetExcludeDispatchKeyGuard(K.ADInplaceOrView, False), \
+            torch.enable_grad():
+        ins = [t.detach().requires_grad_(n)
+               for t, n in zip((h, dt, B_in, C_in, xin, A), needs)]
+        outs = [(o, g) for o, g in zip(_mamba_inner_scan(*ins), (g_h, g_y))
+                if g is not None]
+        want = [t for t in ins if t.requires_grad]
+        grads = iter(torch.autograd.grad([o for o, _ in outs], want,
+                                         [g for _, g in outs],
+                                         allow_unused=True)
+                     if want and outs else ())
+    out = []
+    for t in ins:
+        g = next(grads) if t.requires_grad else None
+        out.append(torch.zeros_like(t) if t.requires_grad and g is None
+                   else t.new_empty(0) if g is None else g)
+    return out
+
+
+@torch.library.custom_op("repro_torch::mamba_scan_backward",
+                         mutates_args=())
+def mamba_scan_backward(h: torch.Tensor, dt: torch.Tensor,
+                        B_in: torch.Tensor, C_in: torch.Tensor,
+                        xin: torch.Tensor, A: torch.Tensor,
+                        g_h: torch.Tensor | None, g_y: torch.Tensor | None,
+                        needs: list[bool]) -> list[torch.Tensor]:
+    """``mamba_scan_grads`` as one op."""
+    return mamba_scan_grads(h, dt, B_in, C_in, xin, A, g_h, g_y, needs)
+
+
+@mamba_scan_backward.register_fake
+def _(h, dt, B_in, C_in, xin, A, g_h, g_y, needs):
+    return [t.new_empty(t.shape if n else (0,))
+            for t, n in zip((h, dt, B_in, C_in, xin, A), needs)]
+
+
+def _scan_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+    ctx.set_materialize_grads(False)     # an unused output's grad is None
+
+
+def _scan_backward(ctx, g_h, g_y):
+    needs = list(ctx.needs_input_grad)
+    if not any(needs):
+        return (None,) * 6
+    grads = mamba_scan_backward(*ctx.saved_tensors, g_h, g_y, needs)
+    return tuple(g if n else None for g, n in zip(grads, needs))
+
+
+mamba_scan.register_autograd(_scan_backward, setup_context=_scan_setup)
 
 
 class Mamba(nn.Module):
@@ -197,7 +283,10 @@ class Mamba(nn.Module):
         cfg = self.cfg
         B, S, d = x.shape
         di, n = cfg.d_inner, cfg.d_state
-        xi, z = torch.matmul(x, self.in_proj).chunk(2, dim=-1)
+        # column-parallel, as the reference's: unpinned, DTensor gathers the
+        # weight to split the product's columns in two
+        xi, z = shardctx.shard(torch.matmul(x, self.in_proj),
+                               "cols").chunk(2, dim=-1)
         prev = (torch.zeros((B, cfg.d_conv - 1, di), dtype=xi.dtype,
                             device=x.device)
                 if state is None else state["conv"].to(xi.dtype))
@@ -216,8 +305,7 @@ class Mamba(nn.Module):
         h = (torch.zeros((B, di, n), device=x.device) if state is None
              else state["h"])
         xf = xi.float()
-        h, y = shardctx.local("mamba", _mamba_inner_scan, h, dt, B_in, C_in,
-                              xf, A)
+        h, y = shardctx.local("mamba", mamba_scan, h, dt, B_in, C_in, xf, A)
         y = y + xf * self.D
         y = (y * F.silu(z.float())).to(x.dtype)
         return torch.matmul(y, self.out_proj), dict(h=h, conv=new_conv)

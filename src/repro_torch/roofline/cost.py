@@ -26,6 +26,16 @@ counted.
     tensors given to ``track`` (parameters, optimizer state, batch) plus
     every op's results until they are freed, each rounded up to the CUDA
     caching allocator's 512-byte blocks.
+
+The port's own ops (``repro_torch::*`` custom ops, ``PRICED``) are
+priced as a whole, since the counter sees them as one op: the f32/bf16
+gather distance (#3) analytically, as the reference counts
+``ref.rowwise_sq_dists`` (subtract, square, reduce: 3·B·K·d FLOPs; its
+rows, queries, ids and output read or written once), and the Mamba scan
+and its backward by the counter's own count of their loop over 1 and 2
+tokens, extended to the S tokens as exact repeats (as ``trace_cost``
+extends a few layer groups to all). ``max_ops`` bounds the ops dispatched, a priced op being
+one.
 """
 from __future__ import annotations
 
@@ -35,7 +45,8 @@ import weakref
 
 import torch
 from torch.distributed.tensor import DTensor
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _disable_current_modes)
 from torch.utils._pytree import tree_flatten
 from torch.utils.weak import WeakIdKeyDictionary
 
@@ -170,13 +181,85 @@ class Cost:
         return self + o * -1
 
 
+def _price_gather(args) -> Cost:
+    """#3, ``repro_torch::gather_sq_dists(vecs, x, idx)``: 3·B·K·d FLOPs;
+    K·B rows and the B queries read in their dtype, the int32 ids read
+    and the f32 output written once."""
+    vecs, x, idx = args[:3]
+    (B, K), d = idx.shape, x.shape[1]
+    n = (B * K * d * vecs.element_size() + B * d * x.element_size()
+         + 4 * B * K + 4 * B * K)
+    return Cost(flops=3.0 * B * K * d, bytes=n, bytes_min=n, n_ops=1)
+
+
+_LOOP_COSTS: dict = {}
+
+
+def _default_keys():
+    """The dispatcher's default thread-local key sets (include: backend
+    select and in-place-or-view; exclude: autocast), built here rather
+    than read: a read inside an op, a dispatch mode or ``inference_mode``
+    would see autograd or the Python key excluded."""
+    K, KS = torch._C.DispatchKey, torch._C.DispatchKeySet
+    exclude = KS(K.Undefined)
+    for name in K.__members__:
+        if name.startswith("Autocast"):
+            exclude = exclude | KS(getattr(K, name))
+    return KS(K.BackendSelect) | KS(K.ADInplaceOrView), exclude
+
+
+def _loop_price(fn_name: str, seq_args: tuple):
+    """Price a ``models.ssm`` loop over dim 1 (the tokens) of the
+    arguments at ``seq_args``: its ops counted on meta tensors of 1 and 2
+    tokens, outside the op (the default dispatch keys, so autograd records
+    and composite ops such as einsum decompose into the products the
+    counter prices), and extended to S as exact repeats of the second
+    token. That is exact for the scan and for its autograd backward: every
+    token runs the same ops, and the inputs are split into tokens once."""
+    def price(args) -> Cost:
+        from repro_torch.models import ssm
+        key = (fn_name,) + tuple(
+            (tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor)
+            else tuple(a) if isinstance(a, list) else a for a in args)
+        if key not in _LOOP_COSTS:
+            S = args[seq_args[0]].shape[1]
+
+            def at(s: int) -> Cost:
+                meta = [torch.empty(a.shape[:1] + (s,) + a.shape[2:]
+                                    if i in seq_args else a.shape,
+                                    dtype=a.dtype, device="meta")
+                        if isinstance(a, torch.Tensor) else a
+                        for i, a in enumerate(args)]
+                cc = CostCounter()
+                with torch._C._ForceDispatchKeyGuard(*_default_keys()), \
+                        _disable_current_modes(), cc:
+                    getattr(ssm, fn_name)(*meta)
+                return cc.snapshot()
+
+            c = [at(s) for s in range(1, min(S, 2) + 1)]
+            _LOOP_COSTS[key] = c[0] if S == 1 else \
+                c[0] + (c[1] - c[0]) * (S - 1)
+        return _LOOP_COSTS[key]
+    return price
+
+
+# the port's custom ops the counter prices as a whole
+PRICED = {
+    "repro_torch::gather_sq_dists": _price_gather,
+    "repro_torch::mamba_scan": _loop_price("_mamba_inner_scan", (1, 2, 3, 4)),
+    "repro_torch::mamba_scan_backward": _loop_price("mamba_scan_grads",
+                                                    (1, 2, 3, 4, 7)),
+}
+
+
 class CostCounter(TorchDispatchMode):
     """Counts one rank's local ops while it is entered (see the module
     docstring). ``max_ops``: raise ``DryRunBudgetExceeded``, naming the
-    op dispatched most, once more local ops than that have run.
+    op dispatched most, once more local ops than that are dispatched.
     ``spans``: names of ``torch.profiler.record_function`` spans whose
     costs to keep: ``self.spans[name]`` lists each such span's cost (a
-    training step's micro-batches, ``train.loop.MICROBATCH_SPAN``)."""
+    training step's micro-batches, ``train.loop.MICROBATCH_SPAN``).
+    ``n_dispatched`` counts the ops seen (a priced op once)."""
 
     def __init__(self, *, max_ops: int | None = None, spans=()):
         super().__init__()
@@ -185,6 +268,7 @@ class CostCounter(TorchDispatchMode):
         self.cost = Cost()
         self.op_counts: collections.Counter = collections.Counter()
         self.max_ops = max_ops
+        self.n_dispatched = 0
         self.live_bytes = 0
         self.peak_bytes = 0
         self._live = WeakIdKeyDictionary()
@@ -250,27 +334,36 @@ class CostCounter(TorchDispatchMode):
 
     def _count(self, func, args, kwargs, out) -> None:
         c = self.cost
-        c.n_ops += 1
+        self.n_dispatched += 1
         self.op_counts[func] += 1
-        if self.max_ops is not None and c.n_ops > self.max_ops:
+        if self.max_ops is not None and self.n_dispatched > self.max_ops:
             op, n = self.op_counts.most_common(1)[0]
             raise DryRunBudgetExceeded(
                 f"more than {self.max_ops} local ops; {op} ran {n} times")
         ns = func.namespace
+        price = PRICED.get(func._schema.name) if ns == "repro_torch" else None
+        if price is not None:
+            self.cost = c + price(args)
+            for t in _out_tensors(out):
+                self._hold(t)
+            return
+        c.n_ops += 1
         if ns in ("_c10d_functional", "_c10d_functional_autograd"):
             name = func._schema.name.split("::")[-1]
-            if name in _KIND:
-                for t in _out_tensors(out):
-                    c.coll[CollectiveRecord(_KIND[name], _nbytes(t),
-                                            _group_size(args))] += 1
+            if name not in _KIND:
+                # wait_tensor, and _wrap_tensor_autograd on real tensors:
+                # they move no bytes and hand back the collective's result
+                return
+            for t in _out_tensors(out):
+                c.coll[CollectiveRecord(_KIND[name], _nbytes(t),
+                                        _group_size(args))] += 1
         ins = _args_tensors(args, kwargs)
         res = _out_tensors(out)
         if func in _MM or func in _BMM:
             c.flops += 2.0 * res[0].numel() * ins[0].shape[-1]
         elif func in _ADDMM or func in _BADDBMM:
             c.flops += 2.0 * res[0].numel() * ins[1].shape[-1]
-        if func in _NO_BYTES or func.is_view or \
-                func is torch.ops._c10d_functional.wait_tensor.default:
+        if func in _NO_BYTES or func.is_view:
             return
         c.bytes += sum(_nbytes(t) for t in ins) + sum(
             _nbytes(t) for t in res)

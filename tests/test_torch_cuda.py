@@ -47,7 +47,11 @@ arithmetic on the padded carry window; the CPU engine's parents but for
 near-ties) and ``sketch_survivors`` through #8 (the plain Hamming
 counts' masks); and the sharded joins on a ``DeviceMesh`` of the card
 twice (the mesh MI join in f32 and sq8, the mesh NLJ) against the same
-calls on a CPU mesh. The LM serving path: every smoke config's forward,
+calls on a CPU mesh. The gather's bf16 entry within the gather's
+tolerance of its plain version and of the JAX package's kept output; its
+custom op (``repro_torch::gather_sq_dists``) bit for bit the direct
+launch; a separated iteration of the mesh MI join counted on the card =
+the FLOPs of the dry run's trace of the same shapes; the 2-D-sharded NLJ count = #5's. The LM serving path: every smoke config's forward,
 prefill and ragged decode in f32 on the card against the CPU within
 rtol = atol = 1e-4, and ``ServeEngine`` on the card giving the CPU's
 greedy tokens.
@@ -55,6 +59,7 @@ greedy tokens.
 import copy
 import dataclasses
 import zlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -425,6 +430,150 @@ def test_int8_bounds_kernel_is_the_composition(dev, B, N, d, gs):
     tlb, tub = tier.pairwise_bounds(qc, impl=None, y0=0, y1=N)
     assert ops.launch_counts()["pairwise_bounds_int8"] == n0 + (B * N > 0)
     assert torch.equal(tlb, lb) and torch.equal(tub, ub)
+
+
+@pytest.mark.parametrize("d", [1, 7, 8, 33, 128, 130, 2048])
+@pytest.mark.parametrize("B,K", [(1, 1), (9, 1), (33, 65), (256, 128),
+                                 (5, 17), (0, 3)])
+def test_gather_bf16_entry_matches_plain(dev, B, K, d):
+    """#3's bf16 entry (bf16 rows and queries, f32 sums) within the f32
+    gather's tolerance of its plain version, from aligned and unaligned
+    bases; one launch a call; NO_NODE +inf."""
+    rng = _rng("g3bf", B, K, d)
+    vecs = torch.from_numpy(rng.normal(size=(70, d)).astype(np.float32)
+                            ).to(dev).bfloat16()
+    x = torch.from_numpy(rng.normal(size=(B, d)).astype(np.float32)
+                         ).to(dev).bfloat16()
+    idx = torch.from_numpy(_rng("g3bfids", B, K).integers(
+        -1, 70, (B, K)).astype(np.int32)).to(dev)
+    n0 = ops.launch_counts()["gather_sq_dists_bf16"]
+    got = ops.gather_sq_dists(vecs, x, idx)
+    assert ops.launch_counts()["gather_sq_dists_bf16"] == n0 + (B * K > 0)
+    assert got.dtype == torch.float32 and got.shape == (B, K)
+    _close_rows(got, ref.gather_sq_dists(vecs.cpu(), x.cpu(), idx.cpu()))
+    if B * K:
+        _close_rows(ops.gather_sq_dists(_unaligned(vecs), _unaligned(x), idx),
+                    ref.gather_sq_dists(vecs.cpu(), x.cpu(), idx.cpu()))
+
+
+@pytest.mark.parametrize("case", range(3))
+def test_gather_bf16_entry_matches_jax_reference_output(dev, case):
+    """#3's bf16 entry on the card against the JAX package's bf16 gather
+    output kept in ``tests/data/gather_bf16_reference.npz`` (the inputs'
+    bf16 bits, NO_NODE ids included; ``test_torch_join_dryrun.py`` holds
+    the file to the JAX package), within the gather's tolerance; the
+    custom op's route bit for bit the direct launch."""
+    f = np.load(Path(__file__).parent / "data" / "gather_bf16_reference.npz")
+    bf = lambda a: torch.from_numpy(a).view(torch.bfloat16).to(dev)
+    vecs, x = bf(f[f"vecs{case}"]), bf(f[f"x{case}"])
+    idx = torch.from_numpy(f[f"idx{case}"]).to(dev)
+    n0 = ops.launch_counts()["gather_sq_dists_bf16"]
+    got = ops.gather_sq_dists(vecs, x, idx)
+    assert ops.launch_counts()["gather_sq_dists_bf16"] == n0 + 1
+    _close_rows(got, torch.from_numpy(f[f"want{case}"]))
+    assert torch.equal(torch.ops.repro_torch.gather_sq_dists(vecs, x, idx),
+                       got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_custom_op_is_the_direct_launch(dev, dtype):
+    """``repro_torch::gather_sq_dists`` on CUDA tensors launches #3 (or its
+    bf16 entry): bit for bit the direct launch, one launch a call; under a
+    dispatch mode (the cost counter) the wrapper takes the op."""
+    from repro_torch.roofline.cost import CostCounter
+    rng = _rng("g3op", dtype)
+    vecs = torch.from_numpy(rng.normal(size=(5000, 128)).astype(np.float32)
+                            ).to(dev, dtype)
+    x = torch.from_numpy(rng.normal(size=(256, 128)).astype(np.float32)
+                         ).to(dev, dtype)
+    idx = torch.from_numpy(rng.integers(-1, 5000, (256, 128)).astype(
+        np.int32)).to(dev)
+    key = "gather_sq_dists" if dtype == torch.float32 else \
+        "gather_sq_dists_bf16"
+    direct = ops.gather_sq_dists(vecs, x, idx)
+    n0 = ops.launch_counts()[key]
+    via = torch.ops.repro_torch.gather_sq_dists(vecs, x, idx)
+    assert ops.launch_counts()[key] == n0 + 1
+    assert torch.equal(via, direct)
+    cc = CostCounter()
+    with cc:
+        counted = ops.gather_sq_dists(vecs, x, idx)
+    assert ops.launch_counts()[key] == n0 + 2
+    assert torch.equal(counted, direct)
+    assert cc.flops == 3 * 256 * 128 * 128
+
+
+def test_separated_iteration_on_the_card_counts_the_fake_trace(dev):
+    """One separated iteration of the mesh MI join (2 shards on the card,
+    f32 and bf16 vectors) under the cost counter: twice the FLOPs of the
+    dry run's trace of one shard of the same shapes
+    (``launch.dryrun.trace_join_wave``), #3 (or its bf16 entry) launched;
+    the f32 iteration's kept ids = the same iteration on the CPU."""
+    from repro_torch.configs.vectorjoin import JoinCell
+    from repro_torch.core import distributed as D
+    from repro_torch.core.types import TraversalConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline.cost import CostCounter
+
+    ds = make_dataset("manifold", n_data=1501, n_query=96, dim=32, seed=3)
+    d2 = np.sort(((ds.X.astype(np.float64)[:, None]
+                   - ds.Y.astype(np.float64)[None]) ** 2).sum(-1), axis=None)
+    i = np.searchsorted(d2, float(thresholds(ds, 3)[1]) ** 2)
+    theta = float(np.sqrt(0.5 * (d2[i - 1] + d2[i])))   # mid-gap: no ties
+    cpu = torch.device("cpu")
+    smi = D.build_sharded_merged_index(ds.Y, ds.X, 2, devices=(cpu, cpu),
+                                       k=24, degree=12)
+    cfg = TraversalConfig(pool_cap=128)
+    B = 48
+    for dt, key in ((torch.float32, "gather_sq_dists"),
+                    (torch.bfloat16, "gather_sq_dists_bf16")):
+        card = D.ShardedMergedIndex(
+            shards=tuple(dataclasses.replace(_to(g, dev),
+                                             vecs=g.vecs.to(dev, dt))
+                         for g in smi.shards),
+            shard_size=smi.shard_size, n_query=smi.n_query)
+        x = torch.from_numpy(ds.X[:B]).to(dev, dt)
+        qids = torch.arange(B, dtype=torch.int32, device=dev)
+        lv = torch.ones(B, dtype=torch.bool, device=dev)
+        kw = dict(theta=theta, cfg=cfg)
+        cell = JoinCell("card", n_query=smi.n_query,
+                        n_data=2 * smi.shard_size, dim=x.shape[1],
+                        degree=smi.shards[0].degree, wave_size=B,
+                        pool_cap=cfg.pool_cap, max_iters=cfg.max_iters,
+                        dtype=str(dt).removeprefix("torch."))
+        fake, _ = dryrun.trace_join_wave(cell, n_shards=2, device=dev.type)
+        n0 = ops.launch_counts()[key]
+        with CostCounter() as real:
+            D.mesh_mi_iteration(card, x, qids, lv, **kw)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()[key] > n0
+        assert real.flops == 2 * fake.flops > 0
+        if dt == torch.float32:
+            got = D.mesh_mi_iteration(card, x, qids, lv, **kw)
+            want = D.mesh_mi_iteration(smi, x.cpu(), qids.cpu(), lv.cpu(),
+                                       **kw)
+            assert torch.equal(got.cpu(), want)
+
+
+def test_nlj_count_2d_on_the_card_equals_nlj_count(dev):
+    """``make_distributed_nlj_count`` on a (2, 2) mesh of logical shards of
+    the card = #5's counts, at a θ in a gap of the distances."""
+    from repro_torch.core import distributed as D
+    rng = _rng("nlj2d")
+    X = torch.from_numpy(rng.normal(size=(300, 64)).astype(np.float32)).to(dev)
+    Y = torch.from_numpy(rng.normal(size=(5000, 64)).astype(np.float32)
+                         ).to(dev)
+    d = torch.cdist(X.double(), Y.double()).flatten().sort().values
+    i = d.numel() // 100
+    i += int(torch.argmax(d[i + 1:i + 200] - d[i:i + 199]))
+    theta = float((d[i] + d[i + 1]) / 2)
+    mesh = D.DeviceMesh.on_device(dev, 4, (2, 2), ("data", "model"))
+    got = D.make_distributed_nlj_count(mesh, "data", "model",
+                                       theta=theta)(X, Y)
+    n0 = ops.launch_counts()["nlj_count"]
+    want = ops.nlj_count(X, Y, theta=theta)
+    assert ops.launch_counts()["nlj_count"] == n0 + 1
+    assert torch.equal(got, want) and int(got.sum()) > 0
 
 
 def _pair_list(idx):

@@ -3,13 +3,13 @@ package's, on the CPU.
 
 ``input_specs`` gives the reference's shapes and dtypes for every
 supported (arch, shape) cell. On a fake (2, 4) mesh the per-device
-product FLOPs of the tinyllama and qwen3-moe smoke configs' train step
-are within 10% of the reference's ``analyze_hlo`` of its compiled step on
+product FLOPs of the tinyllama, qwen3-moe and jamba smoke configs' train
+step (jamba's Mamba scan priced whole) are within 10% of the reference's ``analyze_hlo`` of its compiled step on
 a (2, 4) mesh (a subprocess with 8 forced host devices); memory and wire
 bytes are printed beside them, not held, because two partitioners chose
 them. The depth and micro-batch extrapolation of ``trace_cost`` gives a
 full trace's FLOPs, bytes and collectives exactly. The CLI runs a
-full-width cell on the CPU and closes its fake group.
+full-width cell, and a join cell, on the CPU and closes its fake group.
 """
 import json
 import os
@@ -37,7 +37,8 @@ from repro_torch.roofline import (analyze, collective_stats,
                                   model_flops_estimate)
 
 ROOT = Path(__file__).resolve().parents[1]
-SMOKE_ARCHS = ("tinyllama_1_1b", "qwen3_moe_235b_a22b")
+SMOKE_ARCHS = ("tinyllama_1_1b", "qwen3_moe_235b_a22b",
+               "jamba_1_5_large_398b")
 SMOKE_SHAPE = ShapeSpec("train_32", "train", 32, 8)
 SMOKE_MICRO = 2
 FLOPS_RTOL = 0.10
@@ -210,7 +211,11 @@ def test_cli_skips_and_join(tmp_path):
     assert dryrun.main(["--arch", "hubert_xlarge", "--shape", "decode_32k",
                         "--device", "cpu", "--out", str(out)]) == 0
     assert json.loads(out.read_text())[0]["skipped"]
-    assert dryrun.main(["--join", "join_sift_like"]) == 2
+    assert dryrun.main(["--join", "join_sift_like", "--device", "cpu",
+                        "--out", str(out)]) == 0
+    (r,) = json.loads(out.read_text())
+    assert r["arch"] == "join_sift_like" and r["mesh"] == "32x8"
+    assert r["flops_per_device"] > 0 and r["expected_iters"] == 32
     assert not dist.is_initialized()
 
 
